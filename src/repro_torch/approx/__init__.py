@@ -1,0 +1,21 @@
+"""Approximate-datapath core of the port (``repro.approx`` counterpart)."""
+from .quant import QuantParams, calibrate, dequantize, quantize
+from .power import (cost_axes_map, network_costs_for_assignment,
+                    rel_power_map)
+from .objectives import (AtLeast, AtMost, MaxDrop, Objective,
+                         UnknownObjectiveError, available_objectives,
+                         ensure_objective, get_objective,
+                         register_objective, select, value_of)
+from .workload import (Workload, as_workload, classification,
+                       layer_mult_counts)
+from .registry import (Datapath, available_datapaths, get_datapath,
+                       register_datapath)
+from .specs import (BackendSpec, LutBank, MaterializedBackend, bank_for,
+                    canonicalize, clear_materialize_cache, materialize,
+                    materialize_cache_stats)
+from .backend import as_backend, backend_matmul
+from .layers import ApproxPolicy, bank_backend, bank_eval, spec_of
+from .resilience import (BankableEval, LayerComponents, all_layers_sweep,
+                         can_bank, per_layer_sweep)
+from .dse import (DesignPoint, ExploreResult, explore, pareto_points,
+                  select_multiplier, select_point)

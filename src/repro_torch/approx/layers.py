@@ -1,0 +1,263 @@
+"""Layer-level integration: injection policy + approx dense/conv (port
+of ``repro.approx.layers``).
+
+``ApproxPolicy`` maps layer-name glob patterns to backends — the unit of
+the paper's resilience analysis.  Models route every projection through
+``policy.matmul(name, x, w)`` and report their multiplication counts
+per layer for the power model.  ``to_json``/``from_json`` round-trip the
+policy as specs, in the reference's JSON form.
+
+Activations may carry a leading *bank lane* axis (``bank_eval``): an
+NHWC activation of rank 5 is ``(n, B, H, W, C)``.  Layers pass
+``lanes=True`` to ``policy.matmul`` for such tensors.
+"""
+from __future__ import annotations
+
+import fnmatch
+import json
+from dataclasses import dataclass, field
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from .backend import BackendLike, as_backend, backend_matmul
+from .registry import get_datapath
+from .specs import BackendSpec, LutBank, MaterializedBackend, canonicalize
+
+
+def spec_of(backend: BackendLike) -> BackendSpec:
+    """Serializable spec of any backend handle."""
+    if backend is None:
+        return BackendSpec()
+    if isinstance(backend, BackendSpec):
+        return backend
+    if isinstance(backend, MaterializedBackend):
+        return backend.spec
+    raise TypeError(f"not a backend: {type(backend).__name__}")
+
+
+@dataclass
+class ApproxPolicy:
+    """default backend + per-layer-pattern overrides (fnmatch globs,
+    first match wins)."""
+    default: BackendLike = field(default_factory=BackendSpec)
+    overrides: list[tuple[str, BackendLike]] = field(default_factory=list)
+
+    def backend_for(self, name: str) -> BackendLike:
+        for pat, be in self.overrides:
+            if fnmatch.fnmatch(name, pat):
+                return be
+        return self.default
+
+    def matmul(self, name: str, x: torch.Tensor, w: torch.Tensor,
+               lanes: bool = False) -> torch.Tensor:
+        return backend_matmul(x, w, self.backend_for(name), lanes=lanes)
+
+    def with_override(self, pattern: str, backend: BackendLike
+                      ) -> "ApproxPolicy":
+        return ApproxPolicy(default=self.default,
+                            overrides=[(pattern, backend)]
+                            + list(self.overrides))
+
+    # -- spec-first API -------------------------------------------------
+    def materialize(self, library=None) -> "ApproxPolicy":
+        """Bind every entry to ``library`` via the materialization cache
+        so repeated evals of equal policies share backend objects."""
+        def mat(be: BackendLike) -> MaterializedBackend:
+            if isinstance(be, MaterializedBackend):
+                return be
+            return spec_of(be).materialize(library)
+        return ApproxPolicy(
+            default=mat(self.default),
+            overrides=[(p, mat(be)) for p, be in self.overrides])
+
+    def cache_key(self) -> tuple:
+        """Hashable identity of this policy: spec-level (canonicalized
+        per datapath) for specs and canonical backends; other backends
+        are salted with the backend object itself."""
+        def key_of(be: BackendLike):
+            spec = canonicalize(spec_of(be))
+            if isinstance(be, MaterializedBackend) and not be.canonical:
+                return (spec, be)
+            return spec
+        return (key_of(self.default),
+                tuple((p, key_of(be)) for p, be in self.overrides))
+
+    # -- serialization --------------------------------------------------
+    def to_json_dict(self) -> dict:
+        return {
+            "default": spec_of(self.default).to_dict(),
+            "overrides": [[p, spec_of(be).to_dict()]
+                          for p, be in self.overrides],
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_json_dict(), sort_keys=True)
+
+    @staticmethod
+    def from_json_dict(d: dict) -> "ApproxPolicy":
+        return ApproxPolicy(
+            default=BackendSpec.from_dict(d["default"]),
+            overrides=[(p, BackendSpec.from_dict(s))
+                       for p, s in d.get("overrides", [])])
+
+    @staticmethod
+    def from_json(s: Union[str, dict]) -> "ApproxPolicy":
+        if isinstance(s, str):
+            s = json.loads(s)
+        return ApproxPolicy.from_json_dict(s)
+
+
+EXACT_POLICY = ApproxPolicy(default=BackendSpec(mode="f32"))
+
+
+# ----------------------------------------------------------------------
+# Banked evaluation — the batched resilience engine's core
+# (DESIGN.md §2.4)
+# ----------------------------------------------------------------------
+def bank_backend(bank: LutBank, mode: str = "lut",
+                 variant: str = "ref") -> MaterializedBackend:
+    """A banked backend: the ``mode``/``variant`` datapath with every
+    LUT of ``bank`` at once (one lane per bank entry).  ``ste=False``:
+    banked evaluation is forward-only."""
+    name = mode if variant == "ref" else f"{mode}_{variant}"
+    dp = get_datapath(name)
+    if not dp.bankable:
+        raise ValueError(f"datapath {name!r} is not bankable")
+    spec = BackendSpec(mode=mode, multiplier="<bank>",
+                       block_m=bank.block_m, ste=False, variant=variant)
+    return MaterializedBackend(spec=spec, datapath=dp,
+                               consts=dp.bank_consts(bank))
+
+
+def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
+              variant: str = "ref",
+              base: Optional[BackendLike] = None,
+              layer_pattern: Optional[str] = None) -> dict:
+    """Evaluate ``fn(policy)`` for every multiplier in ``bank`` in ONE
+    pass of the model, with a lane axis written out (the port of the
+    reference's ``jit(vmap(...))`` over the bank).
+
+    ``fn`` is called once, with a policy whose swept entry is a banked
+    backend (``bank_backend``): every approximated matmul then runs the
+    whole bank through one banked datapath call — one launch of the
+    banked CUDA kernel per layer under ``variant="pallas"``.
+
+      * ``layer_pattern=None`` — the banked backend is the policy
+        default (all-layers sweep, Table II);
+      * ``layer_pattern='s1_b0_conv1'`` — only that layer is banked and
+        the rest run ``base`` (per-layer sweep, Fig. 4; default golden
+        int8).  Layers before the banked one carry no lane axis and are
+        computed once, as in the reference.
+
+    ``fn`` must return a dict of tensors whose leading axis is the lane
+    axis (scalars are broadcast to every lane).  Returns that dict with
+    each value of shape ``(n_mult, ...)``; lane ``i`` equals the
+    sequential evaluation of ``bank.spec(i, mode, variant)``.
+    """
+    mb = bank_backend(bank, mode, variant)
+    if layer_pattern is None:
+        policy = ApproxPolicy(default=mb)
+    else:
+        if base is None:
+            base = BackendSpec.golden().materialize()
+        policy = ApproxPolicy(default=as_backend(base),
+                              overrides=[(layer_pattern, mb)])
+    with torch.inference_mode():
+        out = fn(policy)
+    n = bank.n_mult
+    return {k: (v.expand(n) if v.ndim == 0 else v) for k, v in out.items()}
+
+
+def per_lane(fn, x: torch.Tensor, lanes: bool) -> torch.Tensor:
+    """``fn`` applied to each lane of ``x`` and stacked (``fn(x)`` when
+    ``x`` has no lane axis).  Float reductions go through this so each
+    lane reduces a tensor of the unbanked shape, in the same order as
+    the sequential evaluation: banked and sequential results then agree
+    bit for bit."""
+    if not lanes:
+        return fn(x)
+    return torch.stack([fn(x[i]) for i in range(x.shape[0])])
+
+
+def dense(policy: ApproxPolicy, name: str, x: torch.Tensor,
+          w: torch.Tensor, b: Optional[torch.Tensor] = None,
+          lanes: bool = False) -> torch.Tensor:
+    y = policy.matmul(name, x, w, lanes=lanes)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """(low, high) padding of ``jax.lax``'s SAME convention (the extra
+    row/column goes high)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(policy: ApproxPolicy, name: str, x: torch.Tensor,
+           w: torch.Tensor, stride: int = 1, padding: str = "SAME",
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NHWC conv via im2col + backend matmul, so the multiplier
+    emulation covers convolutions exactly as TFApprox's AxConv2D does.
+
+    x: (B,H,W,Cin), or (n,B,H,W,Cin) with a bank lane axis;
+    w: (kh,kw,Cin,Cout).  Patch features are ordered (cin, kh, kw) as
+    ``jax.lax.conv_general_dilated_patches`` orders them."""
+    kh, kw, cin, cout = w.shape
+    lanes = x.ndim == 5
+    lead = x.shape[:-3]
+    h, wd = x.shape[-3], x.shape[-2]
+    if padding == "SAME":
+        pt, pb = _same_pads(h, kh, stride)
+        pl, pr = _same_pads(wd, kw, stride)
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    elif padding != "VALID":
+        raise ValueError(f"unsupported padding {padding!r}")
+    ho = conv_output_size(h, kh, stride, padding)
+    wo = conv_output_size(wd, kw, stride, padding)
+    feat = cin * kh * kw
+    # windows as a strided view (..., ho, wo, cin, kh, kw), copied once
+    # into rows of (cin, kh, kw) features
+    windows = x.unfold(-3, kh, stride).unfold(-3, kw, stride)
+    patches = windows.reshape(*lead[:1 if lanes else 0], -1, feat)
+    w2d = w.permute(2, 0, 1, 3).reshape(feat, cout)
+    y = policy.matmul(name, patches, w2d, lanes=lanes)
+    y = y.reshape(*y.shape[:-2], lead[-1], ho, wo, cout)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def conv_output_size(size: int, kernel: int, stride: int,
+                     padding: str) -> int:
+    """Spatial output size matching ``jax.lax`` conv semantics."""
+    if padding == "SAME":
+        return -(-size // stride)                 # ceil(size / stride)
+    if padding == "VALID":
+        if size < kernel:
+            return 0
+        return (size - kernel) // stride + 1
+    raise ValueError(f"unsupported padding {padding!r}")
+
+
+def conv_mult_count(x_shape, w_shape, stride: int = 1,
+                    padding: str = "SAME") -> int:
+    """Number of scalar multiplications in this conv (power model),
+    for the output dims ``conv2d`` actually produces."""
+    bsz, h, w_, cin = x_shape
+    kh, kw, _, cout = w_shape
+    ho = conv_output_size(h, kh, stride, padding)
+    wo = conv_output_size(w_, kw, stride, padding)
+    return bsz * ho * wo * kh * kw * cin * cout
+
+
+def dense_mult_count(x_shape, w_shape) -> int:
+    m = 1
+    for d in x_shape[:-1]:
+        m *= d
+    k, n = w_shape
+    return m * k * n

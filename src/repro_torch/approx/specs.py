@@ -1,0 +1,342 @@
+"""Serializable backend specs + cached materialization (port of
+``repro.approx.specs``).
+
+``BackendSpec`` is the *name* of an accelerator datapath configuration:
+a frozen, value-hashable, JSON round-trippable record.  Its fields,
+defaults, validation and ``to_dict``/JSON form are the reference's, so
+a policy JSON moves between the two packages unchanged.
+
+``variant`` names the implementation: ``"ref"`` is the plain PyTorch
+datapath; ``"pallas"`` names the hand-written-kernel datapath
+(``lut_pallas``), which in this package runs the CUDA LUT-gather
+kernels of ``repro_torch.kernels`` (the name is kept so policies stay
+interchangeable with the reference, whose ``pallas`` variant runs
+Pallas kernels).  ``"fused"`` validates but is not ported: materializing
+it raises ``NotImplementedError``.
+
+``materialize`` binds a spec to an ``ApproxLibrary`` and returns a
+``MaterializedBackend`` holding the packed numpy constants; equal specs
+get the same object back (LRU cache), and each backend keeps one tensor
+copy of its constants per device.
+"""
+from __future__ import annotations
+
+import json
+import weakref
+from collections import OrderedDict
+from dataclasses import asdict, dataclass, field, replace
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .registry import Datapath, get_datapath
+
+_EXACT_MODES = ("f32", "bf16")
+_VARIANTS = ("ref", "pallas", "fused")
+
+
+@dataclass(frozen=True)
+class BackendSpec:
+    """Value-hashable description of one emulated datapath.
+
+    ``mode`` selects the registered datapath ("f32"/"bf16" bypass
+    quantization entirely); ``variant`` selects the implementation
+    ("ref" = plain PyTorch, "pallas" = the CUDA-kernel datapath
+    ``lut_pallas``, "fused" = not ported).  ``rank=None`` means auto.
+    ``bit_width`` / ``reduce_adder`` describe composed wide datapaths
+    and are validated as in the reference."""
+
+    mode: str = "bf16"
+    multiplier: str = "mul8u_exact"
+    rank: Optional[int] = None
+    block_m: int = 512
+    ste: bool = True
+    variant: str = "ref"
+    bit_width: Optional[int] = None
+    reduce_adder: Optional[str] = None
+
+    def __post_init__(self):
+        if self.variant not in _VARIANTS:
+            raise ValueError(f"variant must be one of {_VARIANTS}, "
+                             f"got {self.variant!r}")
+        if self.bit_width is not None and not 8 <= self.bit_width <= 16:
+            raise ValueError(
+                f"bit_width must be in [8, 16] (8-bit direct LUTs, "
+                f"composed tiles above), got {self.bit_width}")
+        if self.reduce_adder is not None:
+            from ..core.families import parse_reduce
+            parse_reduce(self.reduce_adder)   # raises on bad tokens
+
+    # -- constructors ---------------------------------------------------
+    @staticmethod
+    def exact(mode: str = "bf16") -> "BackendSpec":
+        return BackendSpec(mode=mode)
+
+    @staticmethod
+    def golden() -> "BackendSpec":
+        """The paper's exact 8-bit reference datapath."""
+        return BackendSpec(mode="int8")
+
+    @staticmethod
+    def from_library(multiplier: str, mode: str = "lut",
+                     rank: Optional[int] = None,
+                     variant: str = "ref",
+                     bit_width: Optional[int] = None) -> "BackendSpec":
+        return BackendSpec(mode=mode, multiplier=multiplier, rank=rank,
+                           variant=variant, bit_width=bit_width)
+
+    # -- derived --------------------------------------------------------
+    @property
+    def is_quantized(self) -> bool:
+        return self.mode not in _EXACT_MODES
+
+    @property
+    def datapath_name(self) -> str:
+        return (self.mode if self.variant == "ref"
+                else f"{self.mode}_{self.variant}")
+
+    def with_(self, **changes) -> "BackendSpec":
+        return replace(self, **changes)
+
+    # -- serialization --------------------------------------------------
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @staticmethod
+    def from_dict(d: Mapping[str, Any]) -> "BackendSpec":
+        known = {f for f in BackendSpec.__dataclass_fields__}
+        extra = set(d) - known
+        if extra:
+            raise ValueError(f"unknown BackendSpec fields: {sorted(extra)}")
+        return BackendSpec(**dict(d))
+
+    @staticmethod
+    def from_json(s: str) -> "BackendSpec":
+        return BackendSpec.from_dict(json.loads(s))
+
+    # -- materialization ------------------------------------------------
+    def materialize(self, library=None) -> "MaterializedBackend":
+        """Bind to ``library`` through the process-wide LRU cache."""
+        return materialize(self, library)
+
+
+@dataclass(frozen=True, eq=False)  # id-hash: cache guarantees uniqueness
+class MaterializedBackend:
+    """A spec bound to packed constants.  ``consts`` holds host arrays
+    (numpy or CPU tensors) and plain values; ``device_consts(device)``
+    returns them as tensors on ``device``, copied once per device.  A
+    *banked* backend (``layers.bank_backend``) carries ``luts``
+    (n, 256, 256) and evaluates every lane of a ``LutBank`` at once.  ``canonical`` marks instances built
+    by ``materialize`` (only those are identified by spec alone in
+    policy cache keys)."""
+
+    spec: BackendSpec
+    datapath: Optional[Datapath]       # None for f32/bf16
+    consts: Mapping[str, Any] = field(default_factory=dict)
+    canonical: bool = False
+    _on_device: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def mode(self) -> str:
+        return self.spec.mode
+
+    @property
+    def ste(self) -> bool:
+        return self.spec.ste
+
+    @property
+    def multiplier(self) -> str:
+        return self.spec.multiplier
+
+    @property
+    def lanes(self) -> Optional[int]:
+        """Bank lane count of a banked backend, None otherwise."""
+        luts = self.consts.get("luts")
+        return None if luts is None else int(luts.shape[0])
+
+    def device_consts(self, device: torch.device) -> dict:
+        key = str(device)
+        out = self._on_device.get(key)
+        if out is None:
+            out = {k: _to_device(v, device) for k, v in self.consts.items()}
+            self._on_device[key] = out
+        return out
+
+
+def _to_device(v, device: torch.device):
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return v
+
+
+# ----------------------------------------------------------------------
+# Materialization cache
+# ----------------------------------------------------------------------
+_CACHE: "OrderedDict[tuple[int, BackendSpec], MaterializedBackend]" = \
+    OrderedDict()
+_CACHE_MAX = 256
+_FINALIZED: set[int] = set()
+_STATS = {"hits": 0, "misses": 0}
+
+
+def _evict_library(lid: int) -> None:
+    _FINALIZED.discard(lid)
+    for k in [k for k in _CACHE if k[0] == lid]:
+        del _CACHE[k]
+    for k in [k for k in _BANK_CACHE if k[0] == lid]:
+        del _BANK_CACHE[k]
+
+
+def _library_key(library) -> int:
+    lid = id(library)
+    if lid not in _FINALIZED:
+        _FINALIZED.add(lid)
+        # evict on library GC so a recycled id can never alias
+        weakref.finalize(library, _evict_library, lid)
+    return lid
+
+
+def _default_library():
+    from ..core.library import get_default_library
+    return get_default_library()
+
+
+_SPEC_FIELD_DEFAULTS = {"multiplier": "mul8u_exact", "rank": None,
+                        "block_m": 512, "bit_width": None,
+                        "reduce_adder": None}
+
+
+def canonicalize(spec: BackendSpec) -> BackendSpec:
+    """Reset fields the spec's datapath never reads to their defaults,
+    so equivalent configurations share one materialization / cache key
+    (every int8 spec collapses to ``BackendSpec.golden()``)."""
+    if not spec.is_quantized:
+        return replace(spec, variant="ref", **_SPEC_FIELD_DEFAULTS)
+    try:
+        dp = get_datapath(spec.datapath_name)
+    except (KeyError, NotImplementedError):
+        return spec
+    relevant = getattr(dp, "spec_fields", tuple(_SPEC_FIELD_DEFAULTS))
+    changes = {f: d for f, d in _SPEC_FIELD_DEFAULTS.items()
+               if f not in relevant and getattr(spec, f) != d}
+    return replace(spec, **changes) if changes else spec
+
+
+def materialize(spec: BackendSpec, library=None) -> MaterializedBackend:
+    """Pack ``spec`` against ``library`` (default library if None),
+    LRU-cached on the canonicalized spec so equal specs share one
+    backend object."""
+    spec = canonicalize(spec)
+    if not spec.is_quantized:
+        key = (0, spec)
+        datapath = None
+    else:
+        datapath = get_datapath(spec.datapath_name)
+        if datapath.needs_library:
+            if library is None:
+                library = _default_library()
+            key = (_library_key(library), spec)
+        else:
+            key = (0, spec)
+    hit = _CACHE.get(key)
+    if hit is not None:
+        _STATS["hits"] += 1
+        _CACHE.move_to_end(key)
+        return hit
+    _STATS["misses"] += 1
+    consts = datapath.pack(spec, library) if datapath is not None else {}
+    mb = MaterializedBackend(spec=spec, datapath=datapath, consts=consts,
+                             canonical=True)
+    _CACHE[key] = mb
+    while len(_CACHE) > _CACHE_MAX:
+        _CACHE.popitem(last=False)
+    return mb
+
+
+# ----------------------------------------------------------------------
+# LutBank: the library axis as one constant (DESIGN.md §2.4)
+# ----------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)  # id-hash: cache guarantees uniqueness
+class LutBank:
+    """A stack of 8-bit product LUTs — the *multiplier axis* of a
+    resilience sweep as one ``(n_mult, 256, 256)`` int32 array.  Lane
+    ``i`` of a banked evaluation runs ``luts[i]``, bit-identical to
+    materializing ``spec(i)`` and evaluating sequentially.  Build
+    through ``bank_for`` to share banks across sweeps.  Composed wide
+    lanes are not ported."""
+
+    names: tuple[str, ...]
+    luts: np.ndarray                  # (n_mult, 256, 256) int32
+    block_m: int = 512
+
+    def __post_init__(self):
+        if self.luts.ndim != 3 or self.luts.shape[1:] != (256, 256):
+            raise ValueError(
+                f"LutBank wants (n, 256, 256) LUTs, got {self.luts.shape}")
+        if len(self.names) != self.luts.shape[0]:
+            raise ValueError("one name per LUT slice required")
+
+    @property
+    def n_mult(self) -> int:
+        return len(self.names)
+
+    def spec(self, i: int, mode: str = "lut",
+             variant: str = "ref") -> BackendSpec:
+        """The serializable spec lane ``i`` of a banked sweep stands
+        for."""
+        return BackendSpec(mode=mode, multiplier=self.names[i],
+                           block_m=self.block_m, variant=variant)
+
+    @staticmethod
+    def from_library(names, library=None, block_m: int = 512) -> "LutBank":
+        """Pack an 8-bit candidate set (composed wide entries raise)."""
+        if library is None:
+            library = _default_library()
+        names = tuple(names)
+        luts = []
+        for n in names:
+            entry = library.entry(n)
+            if entry.width != 8 or library.composition_of(n) is not None:
+                raise NotImplementedError(
+                    f"bank lane {n!r} is a {entry.width}-bit entry; only "
+                    "8-bit banks are ported (composed widths: ROADMAP.md "
+                    "Queue 2, kernels K5-K8)")
+            luts.append(np.asarray(library.lut(n), dtype=np.int32))
+        return LutBank(names=names, luts=np.stack(luts), block_m=block_m)
+
+
+_BANK_CACHE: "OrderedDict[tuple, LutBank]" = OrderedDict()
+_BANK_CACHE_MAX = 16
+
+
+def bank_for(names, library=None, block_m: int = 512) -> LutBank:
+    """LRU-cached ``LutBank.from_library``: repeated sweeps over the
+    same candidate set reuse one packed bank."""
+    if library is None:
+        library = _default_library()
+    key = (_library_key(library), tuple(names), int(block_m))
+    hit = _BANK_CACHE.get(key)
+    if hit is not None:
+        _BANK_CACHE.move_to_end(key)
+        return hit
+    bank = LutBank.from_library(names, library, block_m=block_m)
+    _BANK_CACHE[key] = bank
+    while len(_BANK_CACHE) > _BANK_CACHE_MAX:
+        _BANK_CACHE.popitem(last=False)
+    return bank
+
+
+def materialize_cache_stats() -> dict:
+    return {"hits": _STATS["hits"], "misses": _STATS["misses"],
+            "size": len(_CACHE)}
+
+
+def clear_materialize_cache() -> None:
+    _CACHE.clear()
+    _STATS["hits"] = _STATS["misses"] = 0

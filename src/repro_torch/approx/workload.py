@@ -1,0 +1,198 @@
+"""Workload layer: model + eval data + NAMED quality metrics (port of
+``repro.approx.workload``, DESIGN.md §2.7).
+
+A ``Workload`` bundles what the DSE needs to measure application-level
+quality under an ``ApproxPolicy``, in both calling conventions the
+sweeps understand:
+
+  * ``fn(policy) -> {metric: float}`` — the sequential closure, and
+  * ``traceable_metrics(policy) -> {metric: tensor}`` — its tensor
+    core, which the batched engine (``approx.layers.bank_eval``) calls
+    once with a banked policy; each metric then carries a leading lane
+    axis.
+
+Shipped adapter: ``classification(cfg, model)`` — ResNet /
+synthetic-CIFAR top-1 accuracy, the paper's case study.  The LM
+adapters wait for the model-zoo slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Any, Callable, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .layers import ApproxPolicy, conv_mult_count, dense_mult_count
+from .objectives import ensure_objective
+
+MetricFn = Callable[[ApproxPolicy], Mapping[str, Any]]
+
+
+@dataclass
+class Workload:
+    """A named evaluation scenario: policy in, metric dict out.
+
+    ``metrics`` fixes the metric names (and their order in sweep rows);
+    ``directions`` maps each to "max"/"min" (default "max") and is
+    registered into the objectives registry at construction.
+    ``layer_counts`` optionally carries the model's per-layer
+    multiplication counts.  ``traceable_metrics`` may be ``None`` — the
+    workload then runs on the sequential sweep paths only."""
+
+    name: str
+    fn: MetricFn
+    metrics: tuple[str, ...]
+    primary: Optional[str] = None
+    traceable_metrics: Optional[MetricFn] = None
+    directions: Mapping[str, str] = field(default_factory=dict)
+    layer_counts: Optional[dict[str, int]] = None
+
+    def __post_init__(self):
+        if not self.metrics:
+            raise ValueError("a Workload needs at least one metric")
+        if self.primary is None:
+            self.primary = self.metrics[0]
+        if self.primary not in self.metrics:
+            raise ValueError(f"primary {self.primary!r} not among "
+                             f"metrics {self.metrics}")
+        for m in self.metrics:
+            ensure_objective(m, self.directions.get(m, "max"),
+                             source="workload")
+
+    # -- calling conventions -------------------------------------------
+    def measure(self, policy: ApproxPolicy) -> dict[str, float]:
+        """Sequential evaluation: every metric as a Python float, in
+        ``metrics`` order."""
+        out = self.fn(policy)
+        return {m: float(out[m]) for m in self.metrics}
+
+    def __call__(self, policy: ApproxPolicy) -> float:
+        """Legacy scalar convention: the primary metric's value."""
+        return float(self.fn(policy)[self.primary])
+
+    @property
+    def primary_direction(self) -> str:
+        return self.directions.get(self.primary, "max")
+
+    @property
+    def traceable(self):
+        """Scalar-primary projection of the tensor core (None when the
+        workload has none)."""
+        if self.traceable_metrics is None:
+            return None
+        tm, primary = self.traceable_metrics, self.primary
+        return lambda policy: tm(policy)[primary]
+
+    def cached(self, cache: dict) -> "Workload":
+        """The same workload through a policy-keyed metric-dict cache
+        (the ``explore()`` resume/widen mechanism)."""
+        def fn(policy: ApproxPolicy) -> dict[str, float]:
+            key = policy.cache_key()
+            if key not in cache:
+                cache[key] = self.measure(policy)
+            return cache[key]
+        return replace(self, fn=fn)
+
+
+def as_workload(eval_fn) -> Workload:
+    """Normalize any sweep evaluation handle into a ``Workload``: a
+    ``Workload`` passes through; anything with ``fn`` + ``traceable``
+    (a ``BankableEval``) becomes a single-metric ``accuracy`` workload
+    keeping its tensor core; a plain callable becomes a sequential-only
+    ``accuracy`` workload."""
+    if isinstance(eval_fn, Workload):
+        return eval_fn
+    traceable = getattr(eval_fn, "traceable", None)
+    seq = getattr(eval_fn, "fn", eval_fn)
+    if not callable(seq):
+        raise TypeError(f"not an evaluation function: {eval_fn!r}")
+    return Workload(
+        name=getattr(eval_fn, "name", None)
+        or getattr(eval_fn, "__name__", type(eval_fn).__name__),
+        fn=lambda policy: {"accuracy": seq(policy)},
+        metrics=("accuracy",),
+        traceable_metrics=(None if traceable is None else
+                           (lambda policy: {"accuracy": traceable(policy)})),
+        directions={"accuracy": "max"})
+
+
+# ----------------------------------------------------------------------
+# Shipped adapter
+# ----------------------------------------------------------------------
+def classification(cfg, model, *, eval_n: int = 256, batch: int = 64,
+                   name: Optional[str] = None,
+                   device: DeviceLike = None) -> Workload:
+    """ResNet / synthetic-CIFAR top-1 accuracy — the paper's case-study
+    quality metric, as a bankable workload.  ``model`` (a
+    ``repro_torch.models.resnet.ResNet``) is moved to ``device`` (the
+    GPU unless ``device="cpu"``).  Evaluation runs batch by batch, as in
+    the reference: BN statistics are per ``batch`` images, and the
+    accuracy is the mean of the per-batch accuracies."""
+    from ..data.synthetic import CifarBatches
+    from ..models import resnet
+
+    dev = resolve_device(device)
+    model = model.to(dev)
+    eval_batches = list(CifarBatches("test", eval_n, batch).eval_batches())
+    images = torch.from_numpy(
+        np.stack([b["images"] for b in eval_batches])).to(dev)
+    labels = torch.from_numpy(
+        np.stack([b["labels"] for b in eval_batches])).to(dev)
+
+    def traceable_metrics(policy):
+        accs = [resnet.accuracy(model, {"images": images[i],
+                                        "labels": labels[i]}, cfg, policy)
+                for i in range(images.shape[0])]
+        return {"accuracy": torch.mean(torch.stack(accs), dim=0)}
+
+    def fn(policy):
+        with torch.inference_mode():
+            out = traceable_metrics(policy)
+        return {k: float(v) for k, v in out.items()}
+
+    return Workload(
+        name=name or f"classification[resnet{getattr(cfg, 'depth', '')}]",
+        fn=fn, metrics=("accuracy",),
+        traceable_metrics=traceable_metrics,
+        directions={"accuracy": "max"},
+        layer_counts=resnet.layer_mult_counts(cfg))
+
+
+# ----------------------------------------------------------------------
+# MAC accounting (the Workload.layer_counts protocol; DESIGN.md §2.12)
+# ----------------------------------------------------------------------
+def _resnet_mult_counts(cfg, batch: int) -> dict[str, int]:
+    counts: dict[str, int] = {}
+    size = cfg.image_size
+    counts["conv_init"] = conv_mult_count((batch, size, size, 3),
+                                          (3, 3, 3, cfg.widths[0]))
+    cin = cfg.widths[0]
+    for s, width in enumerate(cfg.widths):
+        for b in range(cfg.n_blocks):
+            stride = 2 if (s > 0 and b == 0) else 1
+            out_size = size // stride
+            counts[f"s{s}_b{b}_conv1"] = conv_mult_count(
+                (batch, size, size, cin), (3, 3, cin, width), stride)
+            counts[f"s{s}_b{b}_conv2"] = conv_mult_count(
+                (batch, out_size, out_size, width), (3, 3, width, width))
+            if cin != width:
+                counts[f"s{s}_b{b}_proj"] = conv_mult_count(
+                    (batch, size, size, cin), (1, 1, cin, width), stride)
+            size = out_size
+            cin = width
+    counts["head"] = dense_mult_count((batch, cfg.widths[-1]),
+                                      (cfg.widths[-1], cfg.n_classes))
+    return counts
+
+
+def layer_mult_counts(cfg, batch: int = 1,
+                      seq_len: int = 16) -> dict[str, int]:
+    """Per-layer-tag multiplication counts.  ResNet configs only; the
+    LM families arrive with the model-zoo slice (ROADMAP.md Queue 1)."""
+    if hasattr(cfg, "widths"):          # ResNetConfig, without an import
+        return _resnet_mult_counts(cfg, batch)
+    raise NotImplementedError(
+        "layer_mult_counts for LM configs is not ported yet (ROADMAP.md "
+        "Queue 1, model zoo)")

@@ -1,0 +1,25 @@
+// lut_matmul: bit-true LUT-gather approximate matmul on 8-bit codes,
+//
+//   out[m, n] = sum_k LUT[qa[m, k], qw[k, n]]        (exact int32)
+//
+// Replaces the TPU kernel approx_matmul_lut_pallas
+// (src/repro/kernels/approx_matmul.py:55, pallas_call at :69), which
+// pins the int32 table in VMEM, pads M/N/K to 128 and subtracts the
+// K-pad's pk * LUT[0,0] afterwards.
+//
+// Bound on an H100: shared-memory gather throughput, one table lookup
+// per multiply (no tensor cores); see lut_gather.cuh for the design
+// (uint16 table in shared memory, persistent blocks, N tile sized to
+// the real N, masked ragged edges instead of padding).
+#include "lut_gather.cuh"
+
+extern "C" int lut_matmul_launch(const int* qa, const int* qw,
+                                 const uint16_t* lut, int* out, int M,
+                                 int K, int N, int grid, void* stream) {
+  return lutmm::launch(qa, 0, qw, lut, out, 1, M, K, N, grid,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* lutmm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,95 @@
+"""Import boundary of the PyTorch port: ``src/repro_torch`` and
+``chip_smoke.py`` import neither JAX nor the JAX package, and the
+port's entry points never fall back to the CPU on their own."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_has_the_main_path_modules():
+    rel = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    for mod in ("approx/quant.py", "approx/registry.py", "approx/specs.py",
+                "approx/backend.py", "approx/layers.py",
+                "approx/workload.py", "approx/resilience.py",
+                "approx/dse.py", "kernels/ops.py", "kernels/ref.py",
+                "kernels/datapaths.py", "models/resnet.py",
+                "models/weights.py", "launch/case_study.py"):
+        assert mod in rel, mod
+    assert (PORT / "kernels" / "csrc" / "lut_matmul.cu").exists()
+    assert (PORT / "kernels" / "csrc" / "lut_matmul_bank.cu").exists()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, importlib, pkgutil, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_entry_points_without_cuda_raise(monkeypatch):
+    from repro_torch.approx.workload import classification
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import case_study
+    from repro_torch.models import resnet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    cfg = resnet.resnet_config(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classification(cfg, resnet.ResNet(cfg), eval_n=8, batch=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        case_study.run()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    """chip_smoke.py copied into an empty directory (or run without a
+    GPU) exits nonzero and prints no result line."""
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
