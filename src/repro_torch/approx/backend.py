@@ -6,7 +6,10 @@ Modes (each a registered datapath, see ``repro_torch.approx.registry``):
 
   * ``f32`` / ``bf16`` — exact float (the paper's pre-quantization net)
   * ``int8``           — exact uint8-quantized datapath (golden 8-bit)
-  * ``lut``            — approximate multiplier, bit-true 256x256 LUT
+  * ``lut``            — approximate multiplier, bit-true LUT emulation
+                         at 8 bits or composed 12/16 bits (plain
+                         PyTorch, or the CUDA kernels under the
+                         ``pallas``/``fused`` variants)
 
 Gradients: straight-through estimator (``torch.autograd.Function``) —
 the backward pass is the exact f32 matmul.
@@ -24,7 +27,7 @@ from typing import Union
 
 import torch
 
-from .quant import calibrate, quantize
+from .quant import calibrate, dequant_sums, quantize
 from .specs import BackendSpec, MaterializedBackend, materialize
 
 BackendLike = Union[None, BackendSpec, MaterializedBackend]
@@ -50,32 +53,32 @@ def _quantized_matmul(x: torch.Tensor, w: torch.Tensor,
     """x: (M, K), or (n, M, K) with ``lanes``; w: (K, N) ->
     (M, N), or (n, M, N) when ``x`` or the backend is banked."""
     dp = backend.datapath
-    qp_a = calibrate(x, lanes=lanes)
-    qp_w = calibrate(w)
+    consts = backend.device_consts(x.device)
+    if dp.fused:
+        # single-kernel datapath: calibration, quantization, gather and
+        # code sums live in its kernel — hand it the float operands
+        return dp.forward_fused(x, w, consts, lanes)
+    # operand width: 8, a composed entry's 12/16, or per-lane widths
+    # (n,) in a mixed-width bank (then every lane quantizes at its own
+    # width and the codes carry the lane axis)
+    bits = consts.get("bits", 8)
+    qp_a = calibrate(x, bits, lanes=lanes)
+    qp_w = calibrate(w, bits)
     qa = quantize(x, qp_a)
     qw = quantize(w, qp_w)
     za, zw = qp_a.zero_point, qp_w.zero_point
     k = x.shape[-1]
-    s = dp.forward_q(qa, qw, backend.device_consts(x.device))
+    # int32 sums, or f32 already for composed datapaths (limbs
+    # recombined)
+    s = dp.forward_q(qa, qw, consts)
     row = torch.sum(qa, dim=-1, dtype=torch.int32)[..., None]   # (.., M, 1)
-    col = torch.sum(qw, dim=0, dtype=torch.int32)               # (N,)
+    col = torch.sum(qw, dim=-2, dtype=torch.int32)[..., None, :]  # (.., 1, N)
     if dp.exact_int32:
         # exact datapath: Σ (qa-za)(qw-zw) with int32 accumulation
         acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
-    else:
-        s = s.to(torch.float32)
-        rowf = row.to(torch.float32)
-        colf = col.to(torch.float32)
-        zaf, zwf = za.to(torch.float32), zw.to(torch.float32)
-        # trunc is an exact identity on these integer-valued products
-        # but pins each one to its own f32 rounding, as the reference
-        # does to keep its variants bit-identical; each is its own
-        # eager op here, so nothing contracts mul+sub into an FMA
-        t_row = torch.trunc(zwf * rowf)
-        t_col = torch.trunc(zaf * colf)
-        t_k = torch.trunc(k * zaf * zwf)
-        acc = s - t_row - t_col + t_k
-    return acc * (qp_a.scale * qp_w.scale)
+        return acc * (qp_a.scale * qp_w.scale)
+    return dequant_sums(s.to(torch.float32), row, col, za, zw,
+                        qp_a.scale, qp_w.scale, k)
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor,

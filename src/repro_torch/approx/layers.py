@@ -116,11 +116,26 @@ EXACT_POLICY = ApproxPolicy(default=BackendSpec(mode="f32"))
 # Banked evaluation — the batched resilience engine's core
 # (DESIGN.md §2.4)
 # ----------------------------------------------------------------------
+def _check_bank_variant(bank: LutBank, variant: str) -> None:
+    """A mixed-reduce bank encodes per-lane shift/add trees, which only
+    the runtime-tree fused kernels select per lane; the static-tree
+    variants would silently run every lane under one tree."""
+    if bank.is_mixed_reduce and variant != "fused":
+        raise ValueError(
+            f"bank mixes reduction trees ({sorted(set(bank.reduces))}); "
+            f"the {variant!r} variant runs one static tree — run "
+            "mixed-reduce banks under variant='fused'")
+
+
 def bank_backend(bank: LutBank, mode: str = "lut",
                  variant: str = "ref") -> MaterializedBackend:
     """A banked backend: the ``mode``/``variant`` datapath with every
-    LUT of ``bank`` at once (one lane per bank entry).  ``ste=False``:
-    banked evaluation is forward-only."""
+    LUT of ``bank`` at once (one lane per bank entry).  A bank with
+    composed wide lanes also carries each lane's operand width, product
+    mask and reduce code (the reference's ``_bank_lane_backend``), so
+    one call mixes 8-bit and 12/16-bit lanes.  ``ste=False``: banked
+    evaluation is forward-only."""
+    _check_bank_variant(bank, variant)
     name = mode if variant == "ref" else f"{mode}_{variant}"
     dp = get_datapath(name)
     if not dp.bankable:
@@ -142,7 +157,8 @@ def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
     ``fn`` is called once, with a policy whose swept entry is a banked
     backend (``bank_backend``): every approximated matmul then runs the
     whole bank through one banked datapath call — one launch of the
-    banked CUDA kernel per layer under ``variant="pallas"``.
+    banked CUDA kernel per layer under ``variant="pallas"`` (K2) or
+    ``"fused"`` (K4, or K8 for a bank with wide lanes).
 
       * ``layer_pattern=None`` — the banked backend is the policy
         default (all-layers sweep, Table II);

@@ -15,10 +15,19 @@ array, as in the reference (``repro.approx.quant``).
 
 Bit parity with the reference: every reference main path runs under
 ``jax.jit``, where XLA rewrites the calibration's division by the
-constant ``qmax`` into a multiply by its float32 reciprocal.  The port
-does the same multiply, so scales, zero points and codes equal the
-jitted reference bit for bit.  ``bits`` is a static Python int here;
-per-lane traced widths arrive with the composed-width datapaths.
+constant ``qmax`` into a multiply by its float32 reciprocal — at 8, 12
+and 16 bits alike, and also for a width traced under ``vmap`` (the
+reference then selects among constant-divisor scales, one per
+``TRACED_WIDTHS`` entry, each rewritten the same way).  The port does
+the same multiply, so scales, zero points and codes equal the jitted
+reference bit for bit.
+
+``bits`` is a Python int, or a per-lane width tensor ``(n,)`` with
+values in ``TRACED_WIDTHS`` (a mixed-width bank).  Per-lane widths give
+per-lane parameters of shape ``(n, 1, ..., 1)``: with ``lanes=True``
+each lane of the tensor calibrates on its own, and an unbanked tensor
+is calibrated once per lane width, as the reference's ``vmap`` over the
+bank does.
 
 ``lanes=True`` marks a tensor whose leading axis is a bank lane axis
 (the batched resilience engine, ``approx.layers.bank_eval``): min/max
@@ -27,21 +36,46 @@ exactly as the reference's ``vmap`` lane does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
+
+Bits = Union[int, torch.Tensor]
+
+#: Widths a per-lane ``bits`` tensor may take (the bankable datapath
+#: widths); a Python-int width is unrestricted.
+TRACED_WIDTHS = (8, 12, 16)
 
 
 class QuantParams(NamedTuple):
     scale: torch.Tensor       # f32, scalar or (n, 1, ..., 1) per lane
     zero_point: torch.Tensor  # int32 in [0, qmax], same shape as scale
-    qmax: float = 255.0       # 2^bits - 1
+    qmax: Union[float, torch.Tensor] = 255.0   # 2^bits - 1
 
 
-def qmax_for(bits: int) -> float:
-    """``2^bits - 1`` (exact in float32 for every width <= 24)."""
-    return float((1 << int(bits)) - 1)
+def _recip(bits: int) -> float:
+    """float32(1 / (2^bits - 1)): jitted XLA's reciprocal of qmax."""
+    return float(np.float32(1.0 / ((1 << bits) - 1)))
+
+
+def _select(bits: torch.Tensor, value) -> torch.Tensor:
+    """Per-lane ``value(b)`` for each ``TRACED_WIDTHS`` entry, as an f32
+    tensor of ``bits``' shape; other widths take the widest entry's
+    value (the reference's ``jnp.select`` default)."""
+    out = torch.full(bits.shape, value(TRACED_WIDTHS[-1]),
+                     dtype=torch.float32, device=bits.device)
+    for b in TRACED_WIDTHS[:-1]:
+        out = torch.where(bits == b, value(b), out)
+    return out
+
+
+def qmax_for(bits: Bits) -> Union[float, torch.Tensor]:
+    """``2^bits - 1`` (exact in float32 for every width <= 24): a float
+    for an int width, an f32 tensor for per-lane widths."""
+    if isinstance(bits, int):
+        return float((1 << bits) - 1)
+    return _select(bits, lambda b: float((1 << b) - 1))
 
 
 def _lane_extremes(x: torch.Tensor, lanes: bool):
@@ -52,18 +86,32 @@ def _lane_extremes(x: torch.Tensor, lanes: bool):
             torch.amax(x, dim=dims, keepdim=True))
 
 
-def calibrate(x: torch.Tensor, bits: int = 8, eps: float = 1e-8,
+def calibrate(x: torch.Tensor, bits: Bits = 8, eps: float = 1e-8,
               lanes: bool = False) -> QuantParams:
     """Min/max affine calibration to the full unsigned ``bits`` range,
-    per lane when ``lanes`` is set."""
+    per lane when ``lanes`` is set or ``bits`` is a per-lane tensor."""
     lo, hi = _lane_extremes(x, lanes)
     lo = torch.clamp_max(lo, 0.0).to(torch.float32)
     hi = torch.clamp_min(hi, 0.0).to(torch.float32)
-    qmax = qmax_for(bits)
-    recip = float(np.float32(1.0 / qmax))    # jitted XLA's reciprocal
+    if isinstance(bits, int):
+        qmax = qmax_for(bits)
+        recip = _recip(bits)
+    else:
+        bits = torch.as_tensor(bits, device=x.device).reshape(-1)
+        shape = (bits.numel(),) + (1,) * (x.ndim - 1 if lanes else x.ndim)
+        qmax = qmax_for(bits).reshape(shape)
+        recip = _select(bits, _recip).reshape(shape)
     scale = torch.clamp_min((hi - lo) * recip, eps)
-    zp = torch.clamp(torch.round(-lo / scale), 0.0, qmax).to(torch.int32)
+    zp = clip_codes(torch.round(-lo / scale), qmax).to(torch.int32)
     return QuantParams(scale=scale, zero_point=zp, qmax=qmax)
+
+
+def clip_codes(q: torch.Tensor, qmax) -> torch.Tensor:
+    """``clip(q, 0, qmax)`` for a float or per-lane tensor ``qmax``."""
+    q = torch.clamp_min(q, 0.0)
+    if isinstance(qmax, torch.Tensor):
+        return torch.minimum(q, qmax)
+    return torch.clamp_max(q, qmax)
 
 
 def scalar_params(qp_a: QuantParams, qp_w: QuantParams) -> tuple:
@@ -75,8 +123,31 @@ def scalar_params(qp_a: QuantParams, qp_w: QuantParams) -> tuple:
 
 def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     q = torch.round(x.to(torch.float32) / qp.scale) + qp.zero_point
-    return torch.clamp(q, 0.0, qp.qmax).to(torch.int32)
+    return clip_codes(q, qp.qmax).to(torch.int32)
 
 
 def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     return (q - qp.zero_point).to(torch.float32) * qp.scale
+
+
+def dequant_sums(s: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                 za, zw, sa, sw, k: int) -> torch.Tensor:
+    """The f32 zero-point correction and dequant of a non-exact
+    datapath, the reference's ``backend._quantized_matmul`` (and the
+    fused kernels' caller-side ``_dequant``/``_bank_dequant``):
+    ``s`` the raw f32 sums (..., M, N); ``row`` (..., M, 1) and ``col``
+    (..., 1, N) the int32 code sums; ``za, zw, sa, sw`` scalars or
+    per-lane ``(n, 1, 1)``.
+
+    ``trunc`` is an exact identity on these integer-valued products but
+    pins each one to its own f32 rounding, as the reference does to keep
+    its variants bit-identical; each is its own eager op here, so
+    nothing contracts mul+sub into an FMA."""
+    rowf = row.to(torch.float32)
+    colf = col.to(torch.float32)
+    zaf, zwf = za.to(torch.float32), zw.to(torch.float32)
+    t_row = torch.trunc(zwf * rowf)
+    t_col = torch.trunc(zaf * colf)
+    t_k = torch.trunc(k * zaf * zwf)
+    acc = s - t_row - t_col + t_k
+    return acc * (sa * sw)

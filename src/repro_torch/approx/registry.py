@@ -1,7 +1,7 @@
 """Pluggable datapath registry (port of ``repro.approx.registry``).
 
 A *datapath* is the arithmetic core of the accelerator being emulated:
-given uint8 operand codes it returns the raw accumulated products
+given unsigned operand codes it returns the raw accumulated products
 ``Σ_k mul(qa[m,k], qw[k,n])``.  Zero-point correction, scaling and the
 straight-through gradient live in ``repro_torch.approx.backend`` and are
 shared by every datapath.
@@ -10,11 +10,15 @@ Built-in datapaths registered here:
 
   * ``int8`` — exact uint8 datapath (the paper's golden reference),
                int32-exact correction arithmetic
-  * ``lut``  — bit-true 256x256 LUT emulation, a blocked gather in
-               plain PyTorch (the reference's ``jnp.take`` path)
+  * ``lut``  — bit-true LUT emulation in plain PyTorch (the reference's
+               ``jnp.take`` path), width-generic: 8-bit entries gather
+               their own 256x256 LUT, composed 12/16-bit entries
+               (DESIGN.md §2.6) gather four digit products from their
+               tile LUT, reduce them by the recipe's shift/add tree and
+               accumulate two exact int32 limbs
 
-The hand-written CUDA variant (``lut_pallas``, named after the
-reference's Pallas datapath it replaces) is registered by
+The hand-written CUDA variants — ``lut_pallas`` and ``lut_fused``, named
+after the reference's Pallas datapaths they replace — are registered by
 ``repro_torch.kernels.datapaths`` and resolved lazily on first lookup.
 
 ``forward_q`` takes codes as int32 tensors: ``qa`` is ``(M, K)`` or,
@@ -22,7 +26,13 @@ inside a banked evaluation, ``(n, M, K)`` with one lane per bank entry;
 ``consts`` holds the backend's constants as tensors on the codes'
 device (``MaterializedBackend.device_consts``).  A banked backend
 carries ``luts`` (n, 256, 256) instead of ``lut`` and returns
-``(n, M, N)``.
+``(n, M, N)``; a wide bank also carries per-lane ``bits``, ``masks``
+and ``reduce_codes``, and its weight codes ``qw`` are per lane
+``(n, K, N)`` (each lane quantizes at its own width).
+
+uint32 arithmetic of the composed shift/add tree runs in int64 masked
+to 32 bits (``torch.uint32`` supports few ops); shifts of 32 or more
+give 0, as XLA's do.
 """
 from __future__ import annotations
 
@@ -31,16 +41,21 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.families import parse_reduce
+
 MAX_LUT_K = 33030  # int32-safe accumulation bound: 2^31 / 255^2
+# Composed wide products accumulate as two 16-bit limbs (DESIGN.md
+# §2.6): each limb is < 2^16, so int32 limb sums stay exact for up to
+# 2^31 / (2^16 - 1) contraction terms.
+MAX_COMPOSED_K = (1 << 31) // ((1 << 16) - 1)  # = 32768
 
 #: The ROADMAP.md item that ports each datapath this package does not
 #: have yet.
 _NOT_PORTED = {
     "lowrank": "ROADMAP.md Queue 2, lowrank (kernel K9, lowrank_matmul)",
-    "fused": "ROADMAP.md Queue 2, the fused variant (kernels K3/K4, "
-             "fused_matmul)",
-    "composed": "ROADMAP.md Queue 2, composed widths (kernels K5-K8, "
-                "composed_matmul)",
+    "composed_pallas": "ROADMAP.md Queue 1, the two-step composed path "
+                       "(kernels K5/K6, composed_matmul); composed "
+                       "widths run under variant='fused' or 'ref'",
 }
 
 
@@ -53,11 +68,15 @@ class Datapath:
     ``exact_int32`` datapaths return int32 sums whose zero-point
     correction stays in int32; the rest are corrected in float32.
     ``bankable`` datapaths accept a banked ``luts`` constant and run a
-    whole LUT bank in one call (the batched resilience engine)."""
+    whole LUT bank in one call (the batched resilience engine).
+    ``fused`` datapaths take the FLOAT operands through
+    ``forward_fused(x, w, consts, lanes)`` and calibrate, quantize,
+    gather and dequant themselves; ``forward_q`` is never called."""
 
     name: str = "?"
     exact_int32: bool = False
     needs_library: bool = True
+    fused: bool = False
     spec_fields: tuple = ("multiplier", "rank", "block_m")
     bankable: bool = False
 
@@ -66,8 +85,18 @@ class Datapath:
 
     def bank_consts(self, bank) -> dict:
         """Numpy constants of a banked backend over ``bank`` (a
-        ``LutBank``); only ``bankable`` datapaths are asked."""
-        return {"luts": bank.luts, "block_m": bank.block_m}
+        ``LutBank``); only ``bankable`` datapaths are asked.  A bank with
+        composed wide lanes adds the per-lane operand widths, 2W-bit
+        product masks (0 = narrow lane), ``encode_reduce`` codes and the
+        bank's static reduction tree (the reference's
+        ``_bank_lane_backend``)."""
+        consts = {"luts": bank.luts, "block_m": bank.block_m}
+        if bank.any_wide:
+            consts.update(composed=True, bits=bank.lane_bits,
+                          masks=bank.lane_masks.astype(np.int64),
+                          reduce=parse_reduce(bank.reduce),
+                          reduce_codes=bank.lane_reduce_codes)
+        return consts
 
     def forward_q(self, qa: torch.Tensor, qw: torch.Tensor, consts: dict
                   ) -> torch.Tensor:
@@ -88,7 +117,7 @@ def register_datapath(name: str) -> Callable[[type], type]:
 
 
 def get_datapath(name: str) -> Datapath:
-    if name not in _REGISTRY and name.endswith("_pallas"):
+    if name not in _REGISTRY and name.endswith(("_pallas", "_fused")):
         # the CUDA-kernel variants live in the kernel layer
         import repro_torch.kernels.datapaths  # noqa: F401  (registers)
     if name not in _REGISTRY:
@@ -106,24 +135,242 @@ def available_datapaths() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def _validate_reduce(spec, comp) -> tuple:
+    """The parsed reduction of the entry's composition recipe, checked
+    against the spec's ``reduce_adder`` declaration when present."""
+    reduce = parse_reduce(comp["reduce"])
+    declared = getattr(spec, "reduce_adder", None)
+    if declared is not None and parse_reduce(declared) != reduce:
+        raise ValueError(
+            f"spec declares reduce_adder={declared!r} but composed "
+            f"entry {spec.multiplier!r} reduces with "
+            f"{comp['reduce']!r}")
+    return reduce
+
+
 def pack_lut(spec, library) -> dict:
-    """Numpy constants of the 8-bit LUT datapaths: the entry's own
-    256x256 int32 product LUT and the row blocking.  Composed wide
-    entries (12/16-bit, executed through a tile LUT) are not ported."""
+    """Numpy constants of the (width-generic) LUT datapaths.
+
+    8-bit entries pack their own 256x256 LUT.  Composed wide entries
+    pack the composition TILE's 256x256 LUT plus the composition
+    descriptor — operand width (``bits``), the ``composed`` dispatch
+    flag, the 2W-bit product ``mask`` and the parsed ``reduce`` tree
+    (DESIGN.md §2.6)."""
     entry = library.entry(spec.multiplier,
                           bit_width=getattr(spec, "bit_width", None))
-    if library.composition_of(spec.multiplier) is not None:
-        raise NotImplementedError(
-            f"{spec.multiplier!r} is a composed {entry.width}-bit entry; "
-            f"composed datapaths are not ported yet "
-            f"({_NOT_PORTED['composed']})")
-    if getattr(spec, "reduce_adder", None) is not None:
+    comp = library.composition_of(spec.multiplier)
+    lut = np.asarray(library.tile_lut(spec.multiplier), dtype=np.int32)
+    consts = {"lut": lut, "block_m": int(spec.block_m)}
+    if comp is not None:
+        consts.update(composed=True, bits=int(entry.width),
+                      mask=int(lane_mask_np(entry.width)),
+                      reduce=_validate_reduce(spec, comp))
+    elif getattr(spec, "reduce_adder", None) is not None:
         raise ValueError(
             f"reduce_adder={spec.reduce_adder!r} is only meaningful "
             f"for composed wide entries; {spec.multiplier!r} is "
             f"{entry.width}-bit and materializes directly")
-    lut = np.asarray(library.tile_lut(spec.multiplier), dtype=np.int32)
-    return {"lut": lut, "block_m": int(spec.block_m)}
+    return consts
+
+
+# ----------------------------------------------------------------------
+# Composed wide products: tiled 8x8 partial products + shift/add tree
+# (DESIGN.md §2.6).  uint32 values live in int64 tensors, masked to 32
+# bits after every operation that could leave them.
+# ----------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+
+
+def _shl(a: torch.Tensor, s) -> torch.Tensor:
+    """uint32 ``a << s`` for a shift ``s >= 0`` (int or int64 tensor):
+    0 from 32 on."""
+    if isinstance(s, int):
+        return (a << s) & _M32 if s < 32 else torch.zeros_like(a)
+    return torch.where(s < 32, (a << torch.clamp_max(s, 31)) & _M32, 0)
+
+
+def _shr(a: torch.Tensor, s) -> torch.Tensor:
+    """uint32 ``a >> s`` for a shift ``s >= 0`` (int or int64 tensor):
+    0 from 32 on."""
+    if isinstance(s, int):
+        return a >> s if s < 32 else torch.zeros_like(a)
+    return torch.where(s < 32, a >> torch.clamp_max(s, 31), 0)
+
+
+def reduce_apply(a: torch.Tensor, b: torch.Tensor,
+                 reduce: tuple) -> torch.Tensor:
+    """One reduction-tree adder on uint32 values (int64 tensors in
+    [0, 2^32)) — the vectorized semantics of the library's adder
+    families, bit-identical to the gate-level generators in
+    ``repro_torch.core.families``.  (An int64 holds every intermediate
+    here, so only results are masked to 32 bits.)"""
+    kind, k = reduce
+    if kind == "exact":
+        return (a + b) & _M32
+    if kind == "trunc":
+        return (((a >> k) + (b >> k)) << k) & _M32
+    if kind == "loa":
+        carry = (a >> (k - 1)) & (b >> (k - 1)) & 1
+        return (((a | b) & ((1 << k) - 1))
+                | ((((a >> k) + (b >> k) + carry) << k) & _M32))
+    raise ValueError(f"unknown reduction kind {kind!r}")
+
+
+def composed_reduce(pp00, pp01, pp10, pp11, reduce: tuple) -> torch.Tensor:
+    """uint32 shift/add tree over the four digit products:
+    ``p = ADD(ADD(pp00, ADD(pp01, pp10) << 8), pp11 << 16)`` — the tree
+    ``core.families.composed_multiplier`` builds in gates.  Callers
+    apply ``product_mask(bits)`` to keep the netlist's 2W output bits."""
+    s1 = reduce_apply(pp01, pp10, reduce)
+    s2 = reduce_apply(pp00, (s1 << 8) & _M32, reduce)
+    return reduce_apply(s2, (pp11 << 16) & _M32, reduce)
+
+
+#: Order fixing the integer encoding of reduction kinds for the fused
+#: kernels (``encode_reduce``); index == wire value.
+REDUCE_KINDS = ("exact", "trunc", "loa")
+
+
+def encode_reduce(reduce: tuple) -> tuple[int, int]:
+    """A parsed ``(kind, k)`` reduction as two small ints — the runtime
+    encoding the fused composed kernels consume, so one kernel serves
+    every adder family and mixed-reduce banks."""
+    kind, k = reduce
+    if kind not in REDUCE_KINDS:
+        raise ValueError(f"unknown reduction kind {kind!r}")
+    return (REDUCE_KINDS.index(kind), int(k))
+
+
+def reduce_apply_dyn(a: torch.Tensor, b: torch.Tensor, kind,
+                     k) -> torch.Tensor:
+    """``reduce_apply`` with the reduction selected by runtime integers
+    ``(kind, k)`` (see ``encode_reduce``): tensors broadcastable against
+    ``a``, or host ints.  Tensor codes compute all three adder families
+    and select; a host code computes its own family only (the same
+    values).  ``k`` is read as uint32 and ``loa`` uses ``max(k, 1)`` for
+    its low part, as the reference does."""
+    if isinstance(k, int):
+        k &= _M32
+        km = max(k, 1)
+        low = ((1 << km) - 1) & _M32 if km < 32 else _M32
+    else:
+        k = torch.as_tensor(k, device=a.device).to(torch.int64) & _M32
+        km = torch.clamp_min(k, 1)
+        low = (_shl(torch.ones_like(km), km) - 1) & _M32
+
+    def exact():
+        return (a + b) & _M32
+
+    def half_sum():
+        return (_shr(a, k) + _shr(b, k)) & _M32
+
+    def trunc():
+        return _shl(half_sum(), k)
+
+    def loa():
+        carry = _shr(a, km - 1) & _shr(b, km - 1) & 1
+        return ((a | b) & low) | _shl((half_sum() + carry) & _M32, k)
+
+    if isinstance(kind, int):
+        return exact() if kind == 0 else trunc() if kind == 1 else loa()
+    kind = torch.as_tensor(kind, device=a.device)
+    return torch.where(kind == 0, exact(),
+                       torch.where(kind == 1, trunc(), loa()))
+
+
+def composed_reduce_dyn(pp00, pp01, pp10, pp11, kind, k) -> torch.Tensor:
+    """``composed_reduce`` with a runtime-selected adder family — the
+    same shift/add tree, every node through ``reduce_apply_dyn``."""
+    s1 = reduce_apply_dyn(pp01, pp10, kind, k)
+    s2 = reduce_apply_dyn(pp00, (s1 << 8) & _M32, kind, k)
+    return reduce_apply_dyn(s2, (pp11 << 16) & _M32, kind, k)
+
+
+def product_mask(bits):
+    """Mask keeping the composed netlist's 2W output bits (``0xFFFFFF``
+    at W=12, ``0xFFFFFFFF`` at W=16): a Python int for an int width,
+    an int64 tensor for a width tensor (a right shift of all-ones, so
+    no shift reaches the full register width)."""
+    if isinstance(bits, int):
+        return (1 << (2 * bits)) - 1 if bits < 16 else _M32
+    shift = (32 - 2 * torch.as_tensor(bits).to(torch.int64)) & _M32
+    return _shr(torch.full_like(shift, _M32), shift)
+
+
+def lane_mask_np(bits) -> np.ndarray:
+    """Host-side per-lane selector-and-mask of the banked composed
+    engines: 0 for narrow (8-bit) lanes — "take the plain tile sum" —
+    and the 2W-bit ``product_mask`` for wide lanes."""
+    bits = np.asarray(bits, np.int64)
+    masks = np.where(bits >= 16, 0xFFFFFFFF, (1 << (2 * bits)) - 1)
+    return np.where(bits > 8, masks, 0).astype(np.uint32)
+
+
+def digit_products(qa, qw, flat_lut):
+    """The four (rows, K, N) tile-LUT digit products of W-bit codes
+    (``q & 255`` and ``q >> 8``), as int64."""
+    a0, a1 = qa & 255, qa >> 8
+    w0, w1 = qw & 255, qw >> 8
+
+    def pp(x, y):
+        idx = x[:, :, None].long() * 256 + y[None, :, :].long()
+        return flat_lut[idx].to(torch.int64)
+
+    return pp(a0, w0), pp(a0, w1), pp(a1, w0), pp(a1, w1)
+
+
+def composed_product(qa: torch.Tensor, qw: torch.Tensor,
+                     flat_lut: torch.Tensor, reduce: tuple,
+                     bits: int = 16) -> torch.Tensor:
+    """Elementwise composed product of W-bit codes (broadcastable
+    shapes) as an int64 holding the exact uint32, truncated to the
+    netlist's 2W output bits."""
+    def pp(x, y):
+        return flat_lut[(x * 256 + y).long()].to(torch.int64)
+    a0, a1 = qa & 255, qa >> 8
+    w0, w1 = qw & 255, qw >> 8
+    return composed_reduce(pp(a0, w0), pp(a0, w1), pp(a1, w0),
+                           pp(a1, w1), reduce) & product_mask(bits)
+
+
+def _composed_gather_block(qa_blk: torch.Tensor, qw: torch.Tensor,
+                           flat_lut: torch.Tensor, mask, reduce: tuple
+                           ) -> torch.Tensor:
+    """Composed-product row block: (mb,K) x (K,N) -> (mb,N) f32.
+
+    Wide products are truncated to the lane's ``mask`` (the netlist's
+    2W output bits), split into two 16-bit limbs accumulated exactly in
+    int32 (``K <= MAX_COMPOSED_K``), then recombined in f32.
+    ``mask == 0`` marks a narrow lane, which takes the plain 8-bit tile
+    sum (``pp00`` alone)."""
+    pp00, pp01, pp10, pp11 = digit_products(qa_blk, qw, flat_lut)
+    p = composed_reduce(pp00, pp01, pp10, pp11, reduce) & mask
+    s_lo = torch.sum(p & 0xFFFF, dim=1, dtype=torch.int32)
+    s_hi = torch.sum(p >> 16, dim=1, dtype=torch.int32)
+    s00 = torch.sum(pp00, dim=1, dtype=torch.int32).to(torch.float32)
+    wide = s_lo.to(torch.float32) + 65536.0 * s_hi.to(torch.float32)
+    if isinstance(mask, int):
+        return wide if mask else s00
+    return torch.where(mask != 0, wide, s00)
+
+
+def composed_forward(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
+                     mask, reduce: tuple, block_m: int) -> torch.Tensor:
+    """Blocked composed matmul on codes (the ``lut`` datapath's core):
+    (M,K) x (K,N) -> (M,N) f32."""
+    m, k = qa.shape
+    if k > MAX_COMPOSED_K:
+        raise ValueError(
+            f"K={k} exceeds int32-safe composed limb accumulation "
+            f"bound {MAX_COMPOSED_K}")
+    flat = lut.reshape(-1).to(torch.int32)
+    mb = max(1, min(block_m, m))
+    out = torch.empty((m, qw.shape[1]), dtype=torch.float32,
+                      device=qa.device)
+    for start in range(0, m, mb):
+        out[start:start + mb] = _composed_gather_block(
+            qa[start:start + mb], qw, flat, mask, reduce)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -169,9 +416,11 @@ def lut_gather(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
 
 @register_datapath("lut")
 class LutDatapath(Datapath):
-    """Blocked bit-true LUT matmul on codes (8-bit):
-    (M,K) x (K,N) -> (M,N) i32.  A banked backend's ``luts``, or codes
-    with a lane axis, run lane by lane through the same gather."""
+    """Blocked bit-true LUT matmul on codes, width-generic: 8-bit
+    (M,K) x (K,N) -> (M,N) i32; composed wide (``consts["composed"]``)
+    -> (M,N) f32 through ``composed_forward``.  A banked backend's
+    ``luts``, or codes with a lane axis, run lane by lane through the
+    same gather."""
 
     spec_fields = ("multiplier", "block_m", "bit_width", "reduce_adder")
     bankable = True
@@ -182,10 +431,19 @@ class LutDatapath(Datapath):
     def forward_q(self, qa, qw, consts):
         block_m = consts["block_m"]
         luts = consts.get("luts")
+        composed = consts.get("composed", False)
+
+        def one(i, a, w):
+            lut = consts["lut"] if luts is None else luts[i]
+            if not composed:
+                return lut_gather(a, w, lut, block_m)
+            mask = consts["mask"] if luts is None else consts["masks"][i]
+            return composed_forward(a, w, lut, mask, consts["reduce"],
+                                    block_m)
+
         if luts is None and qa.ndim == 2:
-            return lut_gather(qa, qw, consts["lut"], block_m)
+            return one(0, qa, qw)
         n = qa.shape[0] if luts is None else luts.shape[0]
         return torch.stack([
-            lut_gather(qa[i] if qa.ndim == 3 else qa, qw,
-                       consts["lut"] if luts is None else luts[i], block_m)
-            for i in range(n)])
+            one(i, qa[i] if qa.ndim == 3 else qa,
+                qw[i] if qw.ndim == 3 else qw) for i in range(n)])

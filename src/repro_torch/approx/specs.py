@@ -11,8 +11,11 @@ datapath; ``"pallas"`` names the hand-written-kernel datapath
 (``lut_pallas``), which in this package runs the CUDA LUT-gather
 kernels of ``repro_torch.kernels`` (the name is kept so policies stay
 interchangeable with the reference, whose ``pallas`` variant runs
-Pallas kernels).  ``"fused"`` validates but is not ported: materializing
-it raises ``NotImplementedError``.
+Pallas kernels); ``"fused"`` names the single-kernel datapath
+(``lut_fused``: quantize, gather, accumulate and code sums in one CUDA
+kernel, at 8 bits and at composed 12/16 bits).  Composed widths under
+``"pallas"`` (the two-step kernels K5/K6) are not ported yet and raise
+``NotImplementedError``.
 
 ``materialize`` binds a spec to an ``ApproxLibrary`` and returns a
 ``MaterializedBackend`` holding the packed numpy constants; equal specs
@@ -30,7 +33,9 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from .registry import Datapath, get_datapath
+from ..core.families import parse_reduce
+from .quant import TRACED_WIDTHS
+from .registry import Datapath, encode_reduce, get_datapath, lane_mask_np
 
 _EXACT_MODES = ("f32", "bf16")
 _VARIANTS = ("ref", "pallas", "fused")
@@ -43,7 +48,8 @@ class BackendSpec:
     ``mode`` selects the registered datapath ("f32"/"bf16" bypass
     quantization entirely); ``variant`` selects the implementation
     ("ref" = plain PyTorch, "pallas" = the CUDA-kernel datapath
-    ``lut_pallas``, "fused" = not ported).  ``rank=None`` means auto.
+    ``lut_pallas``, "fused" = the fused CUDA datapath ``lut_fused``).
+    ``rank=None`` means auto.
     ``bit_width`` / ``reduce_adder`` describe composed wide datapaths
     and are validated as in the reference."""
 
@@ -65,7 +71,6 @@ class BackendSpec:
                 f"bit_width must be in [8, 16] (8-bit direct LUTs, "
                 f"composed tiles above), got {self.bit_width}")
         if self.reduce_adder is not None:
-            from ..core.families import parse_reduce
             parse_reduce(self.reduce_adder)   # raises on bad tokens
 
     # -- constructors ---------------------------------------------------
@@ -130,9 +135,9 @@ class MaterializedBackend:
     (numpy or CPU tensors) and plain values; ``device_consts(device)``
     returns them as tensors on ``device``, copied once per device.  A
     *banked* backend (``layers.bank_backend``) carries ``luts``
-    (n, 256, 256) and evaluates every lane of a ``LutBank`` at once.  ``canonical`` marks instances built
-    by ``materialize`` (only those are identified by spec alone in
-    policy cache keys)."""
+    (n, 256, 256) and evaluates every lane of a ``LutBank`` at once.
+    ``canonical`` marks instances built by ``materialize`` (only those
+    are identified by spec alone in policy cache keys)."""
 
     spec: BackendSpec
     datapath: Optional[Datapath]       # None for f32/bf16
@@ -264,16 +269,26 @@ def materialize(spec: BackendSpec, library=None) -> MaterializedBackend:
 # ----------------------------------------------------------------------
 @dataclass(frozen=True, eq=False)  # id-hash: cache guarantees uniqueness
 class LutBank:
-    """A stack of 8-bit product LUTs — the *multiplier axis* of a
-    resilience sweep as one ``(n_mult, 256, 256)`` int32 array.  Lane
-    ``i`` of a banked evaluation runs ``luts[i]``, bit-identical to
-    materializing ``spec(i)`` and evaluating sequentially.  Build
-    through ``bank_for`` to share banks across sweeps.  Composed wide
-    lanes are not ported."""
+    """A stack of tile LUTs — the *multiplier axis* of a resilience
+    sweep as one ``(n_mult, 256, 256)`` int32 array.  Lane ``i`` of a
+    banked evaluation runs ``luts[i]``, bit-identical to materializing
+    ``spec(i)`` and evaluating sequentially.  Build through ``bank_for``
+    to share banks across sweeps.
+
+    Width-generic (DESIGN.md §2.6): lanes may MIX operand widths.  An
+    8-bit lane's slice is its own product LUT; a composed wide lane's
+    slice is its composition TILE's LUT, with the lane's operand width
+    in ``bit_widths``.  Wide lanes share the static ``reduce`` tree
+    unless ``reduces`` records one tree per lane, which only the
+    ``fused`` variant evaluates (its kernel takes the tree as runtime
+    data)."""
 
     names: tuple[str, ...]
-    luts: np.ndarray                  # (n_mult, 256, 256) int32
+    luts: np.ndarray                  # (n_mult, 256, 256) int32 tiles
     block_m: int = 512
+    bit_widths: Optional[tuple[int, ...]] = None   # None = all 8-bit
+    reduce: str = "exact"
+    reduces: Optional[tuple[str, ...]] = None
 
     def __post_init__(self):
         if self.luts.ndim != 3 or self.luts.shape[1:] != (256, 256):
@@ -281,10 +296,55 @@ class LutBank:
                 f"LutBank wants (n, 256, 256) LUTs, got {self.luts.shape}")
         if len(self.names) != self.luts.shape[0]:
             raise ValueError("one name per LUT slice required")
+        if self.bit_widths is not None:
+            if len(self.bit_widths) != len(self.names):
+                raise ValueError("one bit width per lane required")
+            bad = sorted(set(self.bit_widths) - set(TRACED_WIDTHS))
+            if bad:
+                raise ValueError(
+                    f"unsupported lane widths {bad}; banked engines "
+                    f"run per-lane widths from {TRACED_WIDTHS}")
+        if self.reduces is not None and len(self.reduces) != len(self.names):
+            raise ValueError("one reduce per lane required")
 
     @property
     def n_mult(self) -> int:
         return len(self.names)
+
+    @property
+    def is_mixed_reduce(self) -> bool:
+        """True when lanes carry more than one distinct reduction tree
+        — only the runtime-tree ``fused`` engines can bank such a set."""
+        if self.reduces is None:
+            return False
+        return len({parse_reduce(r) for r in self.reduces}) > 1
+
+    @property
+    def lane_reduce_codes(self) -> np.ndarray:
+        """(n_mult, 2) int32 ``encode_reduce`` codes, one per lane
+        (uniform banks repeat the shared ``reduce``)."""
+        rs = (self.reduces if self.reduces is not None
+              else (self.reduce,) * self.n_mult)
+        return np.asarray([encode_reduce(parse_reduce(r)) for r in rs],
+                          dtype=np.int32).reshape(-1, 2)
+
+    @property
+    def lane_bits(self) -> np.ndarray:
+        """(n_mult,) per-lane operand widths (int32)."""
+        if self.bit_widths is None:
+            return np.full(self.n_mult, 8, dtype=np.int32)
+        return np.asarray(self.bit_widths, dtype=np.int32)
+
+    @property
+    def any_wide(self) -> bool:
+        """True when any lane runs the composed (>8-bit) datapath."""
+        return bool((self.lane_bits > 8).any())
+
+    @property
+    def lane_masks(self) -> np.ndarray:
+        """(n_mult,) uint32 per-lane 2W-bit product masks (0 marks a
+        narrow lane)."""
+        return lane_mask_np(self.lane_bits)
 
     def spec(self, i: int, mode: str = "lut",
              variant: str = "ref") -> BackendSpec:
@@ -294,38 +354,65 @@ class LutBank:
                            block_m=self.block_m, variant=variant)
 
     @staticmethod
-    def from_library(names, library=None, block_m: int = 512) -> "LutBank":
-        """Pack an 8-bit candidate set (composed wide entries raise)."""
+    def from_library(names, library=None, block_m: int = 512,
+                     mixed_reduce: bool = False) -> "LutBank":
+        """Pack a (possibly mixed-width) candidate set: 8-bit entries
+        contribute their own LUT, composed wide entries their tile's.
+        Raises when wide lanes disagree on the reduction tree unless
+        ``mixed_reduce=True``, which records per-lane trees for the
+        runtime-tree ``fused`` engines."""
         if library is None:
             library = _default_library()
         names = tuple(names)
-        luts = []
+        luts, widths, reduces = [], [], {}
         for n in names:
             entry = library.entry(n)
-            if entry.width != 8 or library.composition_of(n) is not None:
-                raise NotImplementedError(
-                    f"bank lane {n!r} is a {entry.width}-bit entry; only "
-                    "8-bit banks are ported (composed widths: ROADMAP.md "
-                    "Queue 2, kernels K5-K8)")
-            luts.append(np.asarray(library.lut(n), dtype=np.int32))
-        return LutBank(names=names, luts=np.stack(luts), block_m=block_m)
+            comp = library.composition_of(n)
+            if entry.width not in TRACED_WIDTHS:
+                raise ValueError(
+                    f"bank lane {n!r} is {entry.width}-bit; banked "
+                    f"sweeps support widths {TRACED_WIDTHS}")
+            luts.append(np.asarray(library.tile_lut(n), dtype=np.int32))
+            widths.append(int(entry.width))
+            if comp is not None:
+                reduces[n] = comp["reduce"]
+        reduce = "exact"
+        per_lane: Optional[tuple] = None
+        if reduces:
+            if len({parse_reduce(r) for r in reduces.values()}) > 1:
+                if not mixed_reduce:
+                    raise ValueError(
+                        "mixed reduction trees in one bank: "
+                        f"{sorted(set(reduces.values()))}; sweep each "
+                        "reduction family in its own bank, or pass "
+                        "mixed_reduce=True to bank them through the "
+                        "runtime-tree fused engines")
+                per_lane = tuple(reduces.get(n, "exact") for n in names)
+            else:
+                reduce = next(iter(reduces.values()))
+        return LutBank(names=names, luts=np.stack(luts), block_m=block_m,
+                       bit_widths=tuple(widths), reduce=reduce,
+                       reduces=per_lane)
 
 
 _BANK_CACHE: "OrderedDict[tuple, LutBank]" = OrderedDict()
 _BANK_CACHE_MAX = 16
 
 
-def bank_for(names, library=None, block_m: int = 512) -> LutBank:
+def bank_for(names, library=None, block_m: int = 512,
+             mixed_reduce: bool = False) -> LutBank:
     """LRU-cached ``LutBank.from_library``: repeated sweeps over the
     same candidate set reuse one packed bank."""
     if library is None:
         library = _default_library()
-    key = (_library_key(library), tuple(names), int(block_m))
+    key = (_library_key(library), tuple(names), int(block_m),
+           bool(mixed_reduce))
     hit = _BANK_CACHE.get(key)
     if hit is not None:
         _BANK_CACHE.move_to_end(key)
         return hit
-    bank = LutBank.from_library(names, library, block_m=block_m)
+    bank = LutBank.from_library(names, library, block_m=block_m,
+                                mixed_reduce=mixed_reduce)
     _BANK_CACHE[key] = bank
     while len(_BANK_CACHE) > _BANK_CACHE_MAX:
         _BANK_CACHE.popitem(last=False)

@@ -11,8 +11,10 @@ sweeps understand:
     once with a banked policy; each metric then carries a leading lane
     axis.
 
-Shipped adapter: ``classification(cfg, model)`` — ResNet /
-synthetic-CIFAR top-1 accuracy, the paper's case study.  The LM
+Shipped adapters: ``classification(cfg, model)`` — ResNet /
+synthetic-CIFAR top-1 accuracy, the paper's case study — and
+``logit_fidelity(forward, inputs)`` — mean |logit error| against a
+reference datapath, the wide-width study's fidelity axis.  The LM
 adapters wait for the model-zoo slice.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .layers import ApproxPolicy, conv_mult_count, dense_mult_count
+from .layers import (EXACT_POLICY, ApproxPolicy, conv_mult_count,
+                     dense_mult_count, per_lane)
 from .objectives import ensure_objective
 
 MetricFn = Callable[[ApproxPolicy], Mapping[str, Any]]
@@ -158,6 +161,60 @@ def classification(cfg, model, *, eval_n: int = 256, batch: int = 64,
         traceable_metrics=traceable_metrics,
         directions={"accuracy": "max"},
         layer_counts=resnet.layer_mult_counts(cfg))
+
+
+def logit_fidelity(forward, inputs, *,
+                   ref_policy: ApproxPolicy = EXACT_POLICY,
+                   name: str = "logit_fidelity",
+                   layer_counts: Optional[dict[str, int]] = None
+                   ) -> Workload:
+    """Logit fidelity vs a reference datapath (default: exact f32).
+
+    ``forward(policy, x) -> logits`` is the model closure; ``inputs``
+    the eval batches.  Metrics:
+
+      * ``logit_mae`` (minimize) — mean over batches of the per-batch
+        mean |logits − reference|, the continuous axis where datapath
+        width shows while top-1 accuracy saturates (DESIGN.md §2.6);
+      * ``top1_agreement`` (maximize) — fraction of argmax decisions
+        matching the reference.
+
+    The reference logits are computed once, at construction.  Under a
+    banked policy the logits carry a lane axis; every mean then runs
+    lane by lane (``per_lane``), so a banked lane equals its sequential
+    evaluation bit for bit."""
+    inputs = list(inputs)
+    with torch.inference_mode():
+        ref = [forward(ref_policy, x) for x in inputs]
+
+    def traceable_metrics(policy):
+        maes, agree = [], []
+        for x, r in zip(inputs, ref):
+            logits = forward(policy, x)
+            lanes = logits.ndim == r.ndim + 1
+            maes.append(per_lane(lambda t: torch.mean(torch.abs(t - r)),
+                                 logits, lanes))
+            agree.append(per_lane(lambda t: torch.mean(
+                (torch.argmax(t, -1) == torch.argmax(r, -1))
+                .to(torch.float32)), logits, lanes))
+        lanes = maes[0].ndim == 1
+        return {"logit_mae": per_lane(torch.mean,
+                                      torch.stack(maes, -1), lanes),
+                "top1_agreement": per_lane(torch.mean,
+                                           torch.stack(agree, -1), lanes)}
+
+    def fn(policy):
+        with torch.inference_mode():
+            out = traceable_metrics(policy)
+        return {k: float(v) for k, v in out.items()}
+
+    return Workload(name=name, fn=fn,
+                    metrics=("logit_mae", "top1_agreement"),
+                    primary="logit_mae",
+                    traceable_metrics=traceable_metrics,
+                    directions={"logit_mae": "min",
+                                "top1_agreement": "max"},
+                    layer_counts=layer_counts)
 
 
 # ----------------------------------------------------------------------

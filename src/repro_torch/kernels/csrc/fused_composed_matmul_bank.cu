@@ -1,0 +1,33 @@
+// fused_composed_matmul_bank: the fused composed datapath for a bank
+// that mixes operand widths (8, 12, 16 bits; mask 0 = narrow lane) and
+// reduction trees, in one launch.  Per lane l: its table (a tile LUT),
+// quantization scalars fp[l] = (sa, sw, qmax), ip[l] = (za, zw), 2W-bit
+// mask masks[l] and reduce code rcodes[l] = (kind, k); outputs the
+// limbs lo, hi (n, M, N) and the code sums row (n, M), col (n, N).
+// x is shared (lane stride 0, re-quantized per lane) or banked.
+//
+// Replaces the TPU kernel fused_composed_matmul_bank_pallas
+// (src/repro/kernels/fused_matmul.py:590, pallas_call at :614), which
+// carries the per-lane masks and codes in SMEM beside the scalars and
+// double-buffers the next lane's table by DMA.
+//
+// Bound on an H100: shared-memory gather throughput (four lookups per
+// product on wide lanes, one on narrow lanes) plus the adder tree.  The
+// persistent blocks of fused_gather.cuh stage each lane's table once;
+// the lane's mask and code are uniform across a block, so the
+// narrow/wide and tree-kind branches never diverge within a warp.
+#include "fused_gather.cuh"
+
+extern "C" int fused_composed_matmul_bank_launch(
+    const float* x, long long x_lane_stride, const float* w,
+    const uint16_t* luts, const unsigned* masks, const int* rcodes,
+    const float* fp, const int* ip, int* lo, int* hi, int* row, int* col,
+    int n_lanes, int M, int K, int N, int grid, void* stream) {
+  return fusedmm::launch<true>(x, x_lane_stride, w, luts, fp, ip, masks,
+                               rcodes, lo, hi, row, col, n_lanes, M, K, N,
+                               grid, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* lutmm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

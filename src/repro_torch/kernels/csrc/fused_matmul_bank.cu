@@ -1,0 +1,37 @@
+// fused_matmul_bank: the fused 8-bit datapath for a whole bank of n
+// product tables in one launch, with per-lane quantization scalars:
+//
+//   acc[l, m, n] = sum_k LUT_l[quant(x_l; sa_l, za_l), quant(w; sw_l, zw_l)]
+//   row[l, m], col[l, n]: the lane's code sums          (exact int32)
+//
+// x is shared (M, K) (lane stride 0: each lane re-quantizes it with its
+// own scalars) or banked (n, M, K); w is shared (K, N).
+//
+// Replaces the TPU kernel fused_matmul_bank_pallas
+// (src/repro/kernels/fused_matmul.py:487, pallas_call at :508), whose
+// grid puts the lane axis first and double-buffers the next lane's
+// table by DMA.
+//
+// Bound on an H100: shared-memory gather throughput (one lookup per
+// product).  Two uint16 tables do not fit next to the tiles, so instead
+// of double buffering, the persistent blocks of fused_gather.cuh walk
+// contiguous (lane, tile) ranges and stage each lane's table once.
+#include "fused_gather.cuh"
+
+extern "C" int fused_matmul_bank_launch(const float* x,
+                                        long long x_lane_stride,
+                                        const float* w,
+                                        const uint16_t* luts,
+                                        const float* fp, const int* ip,
+                                        int* acc, int* row, int* col,
+                                        int n_lanes, int M, int K, int N,
+                                        int grid, void* stream) {
+  return fusedmm::launch<false>(x, x_lane_stride, w, luts, fp, ip, nullptr,
+                                nullptr, acc, nullptr, row, col, n_lanes, M,
+                                K, N, grid,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* lutmm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -2,18 +2,35 @@
 ``repro.kernels.datapaths``).
 
 Imported lazily by ``repro_torch.approx.registry.get_datapath`` the
-first time a ``*_pallas`` datapath is requested.  The name is the
-reference's (``BackendSpec(variant="pallas")``), so policies move
-between the packages unchanged; here the datapath runs the hand-written
-CUDA kernels through ``kernels.ops``.
+first time a ``*_pallas`` or ``*_fused`` datapath is requested.  The
+names are the reference's (``BackendSpec(variant="pallas")`` and
+``variant="fused"``), so policies move between the packages unchanged;
+here the datapaths run the hand-written CUDA kernels through
+``kernels.ops``.
+
+``lut_pallas`` runs 8-bit entries only: composed 12/16-bit entries under
+it need the two-step composed kernels K5/K6, not ported yet, and raise
+``NotImplementedError`` rather than compute a narrow result.
+``lut_fused`` runs every width.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..approx.registry import Datapath, pack_lut, register_datapath
+from ..approx.quant import calibrate, scalar_params
+from ..approx.registry import (_NOT_PORTED, Datapath, encode_reduce,
+                               pack_lut, register_datapath)
 from .approx_matmul import lut_to_uint16
-from .ops import approx_matmul_lut, approx_matmul_lut_bank
+from .ops import (approx_matmul_lut, approx_matmul_lut_bank,
+                  fused_composed_matmul_lut, fused_composed_matmul_lut_bank,
+                  fused_matmul_lut, fused_matmul_lut_bank)
+
+
+def _composed_not_ported(what: str):
+    return NotImplementedError(
+        f"{what} under variant='pallas' needs the two-step composed "
+        f"kernels, not ported yet ({_NOT_PORTED['composed_pallas']})")
 
 
 @register_datapath("lut_pallas")
@@ -30,10 +47,15 @@ class LutPallasDatapath(Datapath):
 
     def pack(self, spec, library) -> dict:
         consts = pack_lut(spec, library)
+        if consts.get("composed"):
+            raise _composed_not_ported(
+                f"composed {consts['bits']}-bit entry {spec.multiplier!r}")
         consts["lut16"] = lut_to_uint16(torch.from_numpy(consts["lut"]))
         return consts
 
     def bank_consts(self, bank) -> dict:
+        if bank.any_wide:
+            raise _composed_not_ported("a bank with 12/16-bit lanes")
         return {**super().bank_consts(bank),
                 "luts16": lut_to_uint16(torch.from_numpy(bank.luts))}
 
@@ -47,3 +69,64 @@ class LutPallasDatapath(Datapath):
             luts = consts["lut16"].expand(qa.shape[0], 256, 256)
             return approx_matmul_lut_bank(qa, qw, luts.contiguous())
         return approx_matmul_lut(qa, qw, consts["lut16"])
+
+
+@register_datapath("lut_fused")
+class LutFusedDatapath(Datapath):
+    """Single-kernel LUT emulation: the backend hands this datapath the
+    FLOAT operands; calibration (min/max, outside the kernel) yields the
+    quantization scalars, and one CUDA kernel quantizes, gathers,
+    accumulates and sums the codes — K3 for one 8-bit multiplier, K4
+    for an 8-bit bank, K7 for one composed 12/16-bit multiplier, K8 for
+    a bank with wide lanes (per-lane widths, masks and reduce codes, so
+    one launch mixes widths and reduce trees).  The f32 epilogue runs in
+    ``kernels.ops``.  Bit-identical to ``lut`` at every width."""
+
+    spec_fields = ("multiplier", "bit_width", "reduce_adder")
+    bankable = True
+    fused = True
+
+    def pack(self, spec, library) -> dict:
+        consts = pack_lut(spec, library)
+        consts["lut16"] = lut_to_uint16(torch.from_numpy(consts["lut"]))
+        if consts.get("composed"):
+            # device-resident once per device, so no launch copies it
+            consts["reduce_code"] = np.asarray(
+                [encode_reduce(consts["reduce"])], dtype=np.int32)
+        return consts
+
+    def bank_consts(self, bank) -> dict:
+        return {**super().bank_consts(bank),
+                "luts16": lut_to_uint16(torch.from_numpy(bank.luts))}
+
+    def forward_fused(self, x, w, consts, lanes: bool = False):
+        """x (M,K), or (n,M,K) with ``lanes``; w (K,N) -> (M,N), or
+        (n,M,N) when ``x`` or the backend is banked."""
+        bits = consts.get("bits", 8)
+        sp = scalar_params(calibrate(x, bits, lanes=lanes),
+                           calibrate(w, bits))
+        luts = consts.get("luts16")
+        if luts is None and x.ndim == 3:
+            # lane-carrying x through one table: the banked kernel with
+            # the table repeated per lane (the reference's vmap rule)
+            luts = consts["lut16"].expand(x.shape[0], 256, 256).contiguous()
+        composed = consts.get("composed", False)
+        if luts is None:
+            if composed:
+                return fused_composed_matmul_lut(
+                    x, w, consts["lut16"], consts["mask"],
+                    consts["reduce_code"], *sp)
+            return fused_matmul_lut(x, w, consts["lut16"], *sp)
+        if composed:
+            banked = "luts16" in consts
+            masks = consts["masks"] if banked else consts["mask"]
+            codes = (consts["reduce_codes"] if banked
+                     else consts["reduce_code"])
+            return fused_composed_matmul_lut_bank(x, w, luts, masks, codes,
+                                                  *sp)
+        return fused_matmul_lut_bank(x, w, luts, *sp)
+
+    def forward_q(self, qa, qw, consts):
+        raise TypeError(
+            "lut_fused is a fused datapath: the backend routes float "
+            "operands through forward_fused, never quantized codes")

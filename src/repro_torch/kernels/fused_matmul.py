@@ -1,0 +1,194 @@
+"""CUDA kernels K3, K4, K7, K8: the fused quantize → LUT-gather →
+accumulate datapath, at 8 bits and at composed 12/16 bits.
+
+Hopper counterparts of the reference's TPU kernels in
+``repro/kernels/fused_matmul.py``:
+
+  * K3 ``fused_matmul`` (``csrc/fused_matmul.cu``) — f32 x (M,K), w (K,N)
+    quantized in the kernel with scalar params, one LUT gather per
+    product: int32 ``acc`` (M,N), ``row`` (M,), ``col`` (N,) code sums;
+  * K4 ``fused_matmul_bank`` (``csrc/fused_matmul_bank.cu``) — K3 over a
+    bank of n tables with per-lane scalars, x shared or banked:
+    (n,M,N), (n,M), (n,N);
+  * K7 ``fused_composed_matmul`` (``csrc/fused_composed_matmul.cu``) —
+    12/16-bit codes as base-256 digits, four tile-LUT gathers, the
+    shift/add tree named by a runtime reduce code, 2W-bit mask: int32
+    limbs ``lo``, ``hi`` (M,N) and the code sums;
+  * K8 ``fused_composed_matmul_bank`` (``csrc/fused_composed_matmul_bank
+    .cu``) — K7 over a bank mixing widths (mask 0 = narrow lane) and
+    reduce trees.
+
+Per-lane values travel as device tensors (``pack_scalars``,
+``pack_codes``), so no launch waits on the host.  The kernels return
+integers only; the f32 limb recombination and the zero-point correction
+and dequant (``dequant``, the reference's ``_dequant`` and
+``_bank_dequant`` at once) run as eager PyTorch ops in the caller, each
+rounded on its own, as the reference leaves them to its jitted caller.
+
+Callers go through ``repro_torch.kernels.ops``, which validates the
+operands and sends CPU tensors to the plain versions (``kernels.ref``).
+Each launcher's ``.launches`` counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..approx.quant import dequant_sums
+from . import build
+from .approx_matmul import _ptr, sm_count
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "fused_matmul": [_P] * 8 + [_I] * 4 + [_P],
+    "fused_matmul_bank": [_P, _L] + [_P] * 7 + [_I] * 5 + [_P],
+    "fused_composed_matmul": [_P] * 11 + [_I] * 4 + [_P],
+    "fused_composed_matmul_bank": [_P, _L] + [_P] * 10 + [_I] * 5 + [_P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    fn = getattr(build.load(name), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lane_vec(v, n: int, dtype, device) -> torch.Tensor:
+    """``v`` (a number, or a tensor of one or ``n`` values) as ``(n,)``
+    on ``device``; a number is filled on the device (no host copy)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((n,), v, dtype=dtype, device=device)
+    v = v.to(device=device, dtype=dtype).reshape(-1)
+    if v.numel() == 1:
+        return v.expand(n)
+    if v.numel() != n:
+        raise ValueError(f"per-lane value has {v.numel()} entries, the "
+                         f"bank {n} lanes")
+    return v
+
+
+def pack_scalars(n: int, device, sa, za, sw, zw, qmax) -> tuple:
+    """Per-lane quantization scalars as the kernels read them:
+    ``fp`` (n, 3) f32 = (sa, sw, qmax), ``ip`` (n, 2) int32 = (za, zw).
+    Each input is a number, a one-value tensor or an ``(n,)`` tensor."""
+    fp = torch.stack([_lane_vec(v, n, torch.float32, device)
+                      for v in (sa, sw, qmax)], dim=1)
+    ip = torch.stack([_lane_vec(v, n, torch.int32, device)
+                      for v in (za, zw)], dim=1)
+    return fp, ip
+
+
+def pack_codes(n: int, device, mask, rcode) -> tuple:
+    """Per-lane composed descriptors: ``masks`` (n,) int64 holding the
+    uint32 2W-bit product masks (0 = narrow lane) and ``rcodes`` (n, 2)
+    int32 ``encode_reduce`` codes (one code, (2,) or (1, 2), is shared
+    by every lane)."""
+    masks = _lane_vec(mask, n, torch.int64, device)
+    rcodes = torch.as_tensor(rcode, dtype=torch.int32).to(device)
+    rcodes = rcodes.reshape(-1, 2)
+    if rcodes.shape[0] not in (1, n):
+        raise ValueError(f"{rcodes.shape[0]} reduce codes for {n} lanes")
+    return masks, rcodes.expand(n, 2)
+
+
+def dequant(s: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+            fp: torch.Tensor, ip: torch.Tensor, k: int) -> torch.Tensor:
+    """Caller-side f32 correction and dequant of the kernels' outputs
+    (``approx.quant.dequant_sums``): ``s`` (M,N) or (n,M,N) f32 sums,
+    ``row``/``col`` the kernel's code sums, ``fp``/``ip`` the packed
+    scalars.  The same ops per element as the unfused backend, so the
+    fused and two-step datapaths agree bit for bit."""
+    lane = (-1, 1, 1) if s.ndim == 3 else ()
+    return dequant_sums(s, row[..., :, None], col[..., None, :],
+                        ip[:, 0].reshape(lane), ip[:, 1].reshape(lane),
+                        fp[:, 0].reshape(lane), fp[:, 1].reshape(lane), k)
+
+
+def limbs_to_f32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``lo + 65536 * hi`` in f32 (the multiply is exact, so one
+    rounding, whatever contracts)."""
+    return lo.to(torch.float32) + 65536.0 * hi.to(torch.float32)
+
+
+def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
+    """int64 masks in [0, 2^32) as the int32 bit patterns the kernels
+    read as uint32."""
+    return torch.where(masks >= 1 << 31, masks - (1 << 32),
+                       masks).to(torch.int32).contiguous()
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch(name: str, fn, x, w, luts16, fp, ip, codes=()):
+    """Launch one fused kernel; returns its int32 outputs with a lane
+    axis.  ``codes`` = (masks, rcodes) for the composed kernels."""
+    banked = name.endswith("_bank")
+    n_lanes = luts16.shape[0] if banked else 1
+    m, k = x.shape[-2:]
+    n = w.shape[1]
+    dev = x.device
+    mats = [torch.empty((n_lanes, m, n), dtype=torch.int32, device=dev)
+            for _ in range(2 if codes else 1)]
+    row = torch.empty((n_lanes, m), dtype=torch.int32, device=dev)
+    col = torch.empty((n_lanes, n), dtype=torch.int32, device=dev)
+    if m == 0 or n == 0 or n_lanes == 0:
+        # nothing to gather; a kernel that walks no tile writes no sum
+        return (*(t.zero_() for t in mats), row.zero_(), col.zero_())
+    # every operand stays referenced here until the launch is queued:
+    # a temporary freed earlier could be handed to the next allocation
+    # and overwritten before the kernel reads it
+    ins = [w, luts16]
+    if codes:
+        ins += [_mask_bits(codes[0]), codes[1].contiguous()]
+    ins += [fp.contiguous(), ip.contiguous(), *mats, row, col]
+    lead = ((_ptr(x), m * k if x.ndim == 3 else 0) if banked
+            else (_ptr(x),))
+    dims = (n_lanes, m, k, n) if banked else (m, k, n)
+    err = _launcher(name)(
+        *lead, *(_ptr(t) for t in ins), *dims,
+        sm_count(x.device.index or 0), _stream(x))
+    build.check(name, err)
+    fn.launches += 1
+    return (*mats, row, col)
+
+
+def fused_matmul(x, w, lut16, fp, ip) -> tuple:
+    """Launch K3.  x (M,K), w (K,N) f32, lut16 (256,256) uint16, fp (1,3),
+    ip (1,2), all contiguous on one CUDA device (checked by
+    ``ops.fused_matmul_lut``) -> acc (M,N), row (M,), col (N,) int32."""
+    return tuple(t[0] for t in _launch("fused_matmul", fused_matmul, x, w,
+                                       lut16, fp, ip))
+
+
+def fused_matmul_bank(x, w, luts16, fp, ip) -> tuple:
+    """Launch K4.  x (M,K) shared or (n,M,K) banked, luts16 (n,256,256),
+    fp (n,3), ip (n,2) -> acc (n,M,N), row (n,M), col (n,N) int32."""
+    return _launch("fused_matmul_bank", fused_matmul_bank, x, w, luts16,
+                   fp, ip)
+
+
+def fused_composed_matmul(x, w, lut16, masks, rcodes, fp, ip) -> tuple:
+    """Launch K7.  As K3 plus masks (1,) int64 and rcodes (1,2) int32
+    -> lo, hi (M,N), row (M,), col (N,) int32."""
+    return tuple(t[0] for t in _launch(
+        "fused_composed_matmul", fused_composed_matmul, x, w, lut16, fp,
+        ip, (masks, rcodes)))
+
+
+def fused_composed_matmul_bank(x, w, luts16, masks, rcodes, fp,
+                               ip) -> tuple:
+    """Launch K8.  As K4 plus masks (n,) int64 and rcodes (n,2) int32
+    -> lo, hi (n,M,N), row (n,M), col (n,N) int32."""
+    return _launch("fused_composed_matmul_bank", fused_composed_matmul_bank,
+                   x, w, luts16, fp, ip, (masks, rcodes))
+
+
+for _fn in (fused_matmul, fused_matmul_bank, fused_composed_matmul,
+            fused_composed_matmul_bank):
+    _fn.launches = 0

@@ -4,25 +4,35 @@
 They repeat each kernel's arithmetic with ordinary tensor ops — the
 ``lut`` datapath's blocked gather — so the CPU tests can compare them
 with the JAX reference and ``chip_smoke.py`` can compare each kernel
-with its plain version on the card.  They are no yardstick of speed.
+with its plain version on the card.  The fused versions take the
+kernels' own packed arguments (``fused_matmul.pack_scalars`` /
+``pack_codes``) and return the kernels' integer outputs; the f32 result
+is ``fused_matmul.dequant`` of them, as in ``kernels.ops``.  They are no
+yardstick of speed.
 """
 from __future__ import annotations
 
 import torch
 
-from ..approx.registry import lut_gather
+from ..approx.quant import clip_codes
+from ..approx.registry import (composed_forward, composed_reduce_dyn,
+                               digit_products, lut_gather)
 
 # gather block: keeps the (rows, K, N) int64 index tensor near 2^24
 # elements whatever the shape
 _BLOCK_ELEMS = 1 << 24
 
 
+def _rows(qw: torch.Tensor) -> int:
+    k, n = qw.shape
+    return max(1, _BLOCK_ELEMS // max(1, k * n))
+
+
 def approx_matmul_lut_ref(qa: torch.Tensor, qw: torch.Tensor,
                           lut: torch.Tensor) -> torch.Tensor:
     """Σ_k LUT[qa[m,k], qw[k,n]] with int32 accumulation.
     qa: (M,K) int32 codes in [0,255]; qw: (K,N); lut: (256,256)."""
-    k, n = qw.shape
-    return lut_gather(qa, qw, lut, max(1, _BLOCK_ELEMS // max(1, k * n)))
+    return lut_gather(qa, qw, lut, _rows(qw))
 
 
 def approx_matmul_lut_bank_ref(qa: torch.Tensor, qw: torch.Tensor,
@@ -33,3 +43,109 @@ def approx_matmul_lut_bank_ref(qa: torch.Tensor, qw: torch.Tensor,
     return torch.stack([
         approx_matmul_lut_ref(qa if qa.ndim == 2 else qa[b], qw, luts[b])
         for b in range(luts.shape[0])])
+
+
+def composed_matmul_ref(qa: torch.Tensor, qw: torch.Tensor,
+                        lut: torch.Tensor, mask,
+                        reduce: tuple = ("exact", 0)) -> torch.Tensor:
+    """Composed wide (12/16-bit) matmul on codes: digit products through
+    the 256x256 tile LUT, the static ``reduce`` tree, the 2W-bit
+    ``mask`` (0 = narrow lane), exact int32 limbs recombined in f32 —
+    (M,K) x (K,N) -> (M,N) f32 (the ``lut`` datapath's composed core)."""
+    return composed_forward(qa, qw, lut, mask, reduce, _rows(qw))
+
+
+def _quant(v: torch.Tensor, scale, zp, qmax) -> torch.Tensor:
+    """The kernels' in-register quantize, op for op: round, + zero point
+    in f32, clip to [0, qmax], cast."""
+    q = torch.round(v.to(torch.float32) / scale) + zp
+    return clip_codes(q, qmax).to(torch.int32)
+
+
+def _lane_codes(x, w, b, fp, ip):
+    qa = _quant(x if x.ndim == 2 else x[b], fp[b, 0], ip[b, 0], fp[b, 2])
+    qw = _quant(w, fp[b, 1], ip[b, 1], fp[b, 2])
+    return qa, qw
+
+
+def _stack(per_lane: list) -> tuple:
+    return tuple(torch.stack(ts) for ts in zip(*per_lane))
+
+
+def _sums(qa, qw) -> tuple:
+    return (torch.sum(qa, dim=1, dtype=torch.int32),
+            torch.sum(qw, dim=0, dtype=torch.int32))
+
+
+def fused_matmul_bank_ref(x: torch.Tensor, w: torch.Tensor,
+                          luts: torch.Tensor, fp: torch.Tensor,
+                          ip: torch.Tensor) -> tuple:
+    """K4's plain version: x (M,K) shared or (n,M,K) banked f32, w (K,N),
+    luts (n,256,256), fp (n,3) = (sa, sw, qmax), ip (n,2) = (za, zw) ->
+    acc (n,M,N), row (n,M), col (n,N) int32."""
+    out = []
+    for b in range(luts.shape[0]):
+        qa, qw = _lane_codes(x, w, b, fp, ip)
+        out.append((approx_matmul_lut_ref(qa, qw, luts[b]),
+                    *_sums(qa, qw)))
+    return _stack(out)
+
+
+def fused_matmul_ref(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
+                     fp: torch.Tensor, ip: torch.Tensor) -> tuple:
+    """K3's plain version: x (M,K), w (K,N) f32, lut (256,256), fp (1,3),
+    ip (1,2) -> acc (M,N), row (M,), col (N,) int32."""
+    return tuple(t[0] for t in fused_matmul_bank_ref(x, w, lut[None], fp,
+                                                     ip))
+
+
+def _composed_limbs(qa, qw, lut, mask: int, kind: int, k: int) -> tuple:
+    """(lo, hi) int32 limb sums of the composed product under the reduce
+    code (kind, k); a narrow lane (mask 0) sums the low-digit products
+    and its hi limb is 0."""
+    if not mask:
+        return (approx_matmul_lut_ref(qa & 255, qw & 255, lut),
+                torch.zeros((qa.shape[0], qw.shape[1]), dtype=torch.int32,
+                            device=qa.device))
+    flat = lut.reshape(-1).to(torch.int32)
+    rows = _rows(qw)
+    lo = torch.empty((qa.shape[0], qw.shape[1]), dtype=torch.int32,
+                     device=qa.device)
+    hi = torch.empty_like(lo)
+    for start in range(0, qa.shape[0], rows):
+        pp = digit_products(qa[start:start + rows], qw, flat)
+        p = composed_reduce_dyn(*pp, kind, k) & mask
+        lo[start:start + rows] = torch.sum(p & 0xFFFF, dim=1,
+                                           dtype=torch.int32)
+        hi[start:start + rows] = torch.sum(p >> 16, dim=1,
+                                           dtype=torch.int32)
+    return lo, hi
+
+
+def fused_composed_matmul_bank_ref(x: torch.Tensor, w: torch.Tensor,
+                                   luts: torch.Tensor, masks: torch.Tensor,
+                                   rcodes: torch.Tensor, fp: torch.Tensor,
+                                   ip: torch.Tensor) -> tuple:
+    """K8's plain version: as ``fused_matmul_bank_ref`` plus masks (n,)
+    int64 (uint32 values, 0 = narrow lane) and rcodes (n,2) int32
+    ``encode_reduce`` codes -> lo, hi (n,M,N), row (n,M), col (n,N)
+    int32."""
+    out = []
+    # per-lane codes read on the host: each lane computes its own tree
+    # family only (reduce_apply_dyn's host-code path, same values)
+    for b, (mask, (kind, k)) in enumerate(zip(masks.tolist(),
+                                              rcodes.tolist())):
+        qa, qw = _lane_codes(x, w, b, fp, ip)
+        out.append((*_composed_limbs(qa, qw, luts[b], mask, kind, k),
+                    *_sums(qa, qw)))
+    return _stack(out)
+
+
+def fused_composed_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                              lut: torch.Tensor, masks: torch.Tensor,
+                              rcodes: torch.Tensor, fp: torch.Tensor,
+                              ip: torch.Tensor) -> tuple:
+    """K7's plain version: masks (1,), rcodes (1,2), fp (1,3), ip (1,2)
+    -> lo, hi (M,N), row (M,), col (N,) int32."""
+    return tuple(t[0] for t in fused_composed_matmul_bank_ref(
+        x, w, lut[None], masks, rcodes, fp, ip))

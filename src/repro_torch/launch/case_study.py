@@ -1,16 +1,19 @@
 """The paper's case study on the GPU: Table II and Fig. 4 for the trained
-ResNet-8 at full width, through the CUDA LUT-gather kernels (the port's
+ResNet-8 at full width, through the CUDA kernels (the port's
 counterpart of ``benchmarks/resilience_full.py`` plus ``dse.explore``).
 
-Steps, all with ``mode="lut", variant="pallas"`` (the CUDA datapath):
+Steps, all with ``mode="lut"`` and the CUDA datapath named by
+``variant``: ``"pallas"`` (default; LUT gathers on codes, kernels K1/K2)
+or ``"fused"`` (quantize and gather in one kernel, K3/K4):
 
   1. the circuit library, the paper's case-study candidate set
      (``case_study_names``: 16 Pareto picks plus the truncation/BAM
      baselines Table II always reports), and the f32 / golden-int8
      accuracies of the committed checkpoint;
   2. the all-layers sweep (Table II) sequentially — one multiplier at a
-     time, kernel K1 — and batched — the whole bank at once, kernel K2 —
-     failing unless both give the same accuracies;
+     time, kernel K1 (K3 fused) — and batched — the whole bank at once,
+     kernel K2 (K4 fused) — failing unless both give the same
+     accuracies;
   3. ``explore(batch=True)``: the batched all-layers and per-layer
      (Fig. 4, the 9 conv layers) sweeps, and ``select_multiplier`` at a
      1-point accuracy budget.
@@ -98,7 +101,8 @@ def _setup(device: DeviceLike, eval_n: int, batch: int, n_mult: int):
 
 def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
         n_mult: int = 16, max_accuracy_drop: float = 0.01,
-        log: Callable[[str], None] = print) -> dict:
+        log: Callable[[str], None] = print,
+        variant: str = "pallas") -> dict:
     """Run the case study; returns a JSON-able record (rows, selection,
     wall times).  Raises when the batched sweep disagrees with the
     sequential one."""
@@ -111,13 +115,13 @@ def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
         f"{len(names)} multipliers")
 
     seq, seq_s = _timed(lambda: all_layers_sweep(
-        wl, counts, names, lib, mode="lut", variant="pallas"), dev)
+        wl, counts, names, lib, mode="lut", variant=variant), dev)
     bat, bat_s = _timed(lambda: all_layers_sweep(
-        wl, counts, names, lib, mode="lut", variant="pallas", batch=True),
+        wl, counts, names, lib, mode="lut", variant=variant, batch=True),
         dev)
     result, explore_s = _timed(lambda: explore(
         workload=wl, library=lib, multipliers=names, mode="lut",
-        variant="pallas", batch=True,
+        variant=variant, batch=True,
         quality_bound=max_accuracy_drop), dev)
     accs = {"sequential": [r.accuracy for r in seq],
             "batched": [r.accuracy for r in bat],
@@ -133,7 +137,8 @@ def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu",
-        "eval_n": eval_n, "batch": batch, "multipliers": names,
+        "variant": variant, "eval_n": eval_n, "batch": batch,
+        "multipliers": names,
         "accuracy_f32": acc_f32, "accuracy_int8": acc_int8,
         "all_layers_sequential_s": seq_s, "all_layers_batched_s": bat_s,
         "explore_batched_s": explore_s,
@@ -144,7 +149,8 @@ def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
 
 def profile_batched_sweep(device: DeviceLike = None, eval_n: int = 256,
                           batch: int = 64, n_mult: int = 16, top: int = 15,
-                          log: Callable[[str], None] = print) -> dict:
+                          log: Callable[[str], None] = print,
+                          variant: str = "pallas") -> dict:
     """Where the time of the batched all-layers sweep goes: one warm-up
     sweep, then one under ``torch.profiler``.  Reports the wall time,
     the device's busy share (summed kernel time over wall time; one
@@ -155,7 +161,7 @@ def profile_batched_sweep(device: DeviceLike = None, eval_n: int = 256,
 
     def sweep():
         return all_layers_sweep(wl, wl.layer_counts, names, lib,
-                                mode="lut", variant="pallas", batch=True)
+                                mode="lut", variant=variant, batch=True)
 
     _timed(sweep, dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -200,13 +206,16 @@ def main() -> None:
     ap.add_argument("--eval-n", type=int, default=256)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--n-mult", type=int, default=16)
+    ap.add_argument("--variant", default="pallas",
+                    choices=("pallas", "fused"),
+                    help="CUDA datapath (pallas: K1/K2, fused: K3/K4)")
     ap.add_argument("--out", default=None, help="write the record here")
     ap.add_argument("--profile", action="store_true",
                     help="profile one batched all-layers sweep instead")
     args = ap.parse_args()
     step = profile_batched_sweep if args.profile else run
     record = step(args.device, eval_n=args.eval_n, batch=args.batch,
-                  n_mult=args.n_mult)
+                  n_mult=args.n_mult, variant=args.variant)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=2)

@@ -3,7 +3,8 @@ LUT datapaths (ref and the CUDA-kernel variant, which runs its plain
 version on the CPU) bit for bit on ragged shapes; f32 within 1e-5
 relative (float sums in another order).  Also: banked evaluation lane
 by lane, the JSON form of specs and policies across the two packages,
-and the datapaths that are not ported yet."""
+and the datapaths that are not ported yet (lowrank; composed widths
+under the two-step ``pallas`` kernels)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,20 +180,28 @@ def test_spec_and_policy_json_cross_packages():
 
 
 def test_unported_datapaths_raise_with_roadmap_item(libs):
+    """lowrank is not ported; composed widths are, except under the
+    two-step ``pallas`` kernels (K5/K6), which raise rather than compute
+    a narrow result."""
     _, port, names = libs
-    for spec in (BackendSpec(mode="lut", multiplier=names[0],
-                             variant="fused"),
-                 BackendSpec(mode="lowrank", multiplier=names[0]),
+    for spec in (BackendSpec(mode="lowrank", multiplier=names[0]),
                  BackendSpec(mode="lowrank", multiplier=names[0],
                              variant="pallas")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             spec.materialize(port)
     lib = port_build("tiny")
     wide = lib.add_composed(names[0], 12, samples=1 << 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BackendSpec(mode="lut", multiplier=wide.name).materialize(lib)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LutBank.from_library([names[0], wide.name], lib)
+    for variant in ("ref", "fused"):
+        assert BackendSpec(mode="lut", multiplier=wide.name,
+                           variant=variant).materialize(lib).consts["bits"] \
+            == 12
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K5/K6"):
+        BackendSpec(mode="lut", multiplier=wide.name,
+                    variant="pallas").materialize(lib)
+    bank = LutBank.from_library([names[0], wide.name], lib)
+    assert bank.any_wide and bank.bit_widths == (8, 12)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K5/K6"):
+        bank_backend(bank, "lut", "pallas")
 
 
 def test_materialize_cache_shares_backends(libs):

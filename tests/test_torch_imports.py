@@ -35,11 +35,14 @@ def test_port_has_the_main_path_modules():
                 "approx/backend.py", "approx/layers.py",
                 "approx/workload.py", "approx/resilience.py",
                 "approx/dse.py", "kernels/ops.py", "kernels/ref.py",
-                "kernels/datapaths.py", "models/resnet.py",
-                "models/weights.py", "launch/case_study.py"):
+                "kernels/datapaths.py", "kernels/fused_matmul.py",
+                "models/resnet.py", "models/weights.py",
+                "launch/case_study.py", "launch/wide_pareto.py"):
         assert mod in rel, mod
-    assert (PORT / "kernels" / "csrc" / "lut_matmul.cu").exists()
-    assert (PORT / "kernels" / "csrc" / "lut_matmul_bank.cu").exists()
+    from repro_torch.kernels.build import KERNELS
+    assert len(KERNELS) == 6
+    for name in KERNELS:
+        assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists(), name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -79,6 +82,9 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         classification(cfg, resnet.ResNet(cfg), eval_n=8, batch=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         case_study.run()
+    from repro_torch.launch import wide_pareto
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wide_pareto.run()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

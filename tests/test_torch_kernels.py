@@ -145,7 +145,8 @@ def test_launch_counters_untouched_on_cpu():
     ops.reset_launch_counts()
     ops.approx_matmul_lut(_t(_codes(4, 5)), _t(_codes(5, 3)),
                           _t(np.ones((256, 256), np.int32)))
-    assert ops.launch_counts() == {"lut_matmul": 0, "lut_matmul_bank": 0}
+    assert set(ops.launch_counts().values()) == {0}
+    assert {"lut_matmul", "lut_matmul_bank"} <= set(ops.launch_counts())
 
 
 def test_build_names_by_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
@@ -174,4 +175,5 @@ def test_cuda_kernels_match_plain(cuda, m, k, n, library_luts):
     assert torch.equal(got, ref.approx_matmul_lut_ref(qa, qw, luts[0]))
     got = ops.approx_matmul_lut_bank(qa, qw, luts)
     assert torch.equal(got, ref.approx_matmul_lut_bank_ref(qa, qw, luts))
-    assert ops.launch_counts() == {"lut_matmul": 1, "lut_matmul_bank": 1}
+    counts = ops.launch_counts()
+    assert counts["lut_matmul"] == counts["lut_matmul_bank"] == 1

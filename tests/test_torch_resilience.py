@@ -102,7 +102,8 @@ def test_batch_requires_bankable_eval(env):
                                   port_lib, batch=True)
     assert port_res.can_bank(port_wl, "lut", "pallas")
     assert not port_res.can_bank(port_wl, "int8")
-    assert not port_res.can_bank(port_wl, "lut", "fused")
+    assert port_res.can_bank(port_wl, "lut", "fused")
+    assert not port_res.can_bank(port_wl, "lowrank", "pallas")
 
 
 def _fake_accuracy(spec_of, library):
