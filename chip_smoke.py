@@ -13,17 +13,31 @@ Phases (any failure exits nonzero):
      the f32 results of the fused kernels after the eager epilogue), at
      every shape the main paths give it: shared and banked activations,
      the 17-table case-study bank, the mixed-width wide-study bank
-     (8/12/16-bit lanes), a bank mixing exact/trunc/loa trees, ragged
-     shapes and a table with LUT[0,0] != 0;
+     (8/12/16-bit lanes; K6 with per-lane codes as the study gives it),
+     a bank mixing exact/trunc/loa trees, ragged shapes and a table with
+     LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
+     population (32 candidates, 8192 vectors) for the 8-bit multiplier
+     and adder;
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
-     accuracies must be equal list for list, and the wide-width Pareto
-     study (``repro_torch.launch.wide_pareto``, K3/K7/K8), which fails
-     unless its two gates hold; fails unless every kernel ran, and unless
-     the CUDA datapaths' banked logits equal the plain datapath's;
-  4. timings — each kernel and its plain version at the main-path
-     shapes (CUDA events after warm-up) beside its bound.
+     accuracies must be equal list for list; the wide-width Pareto study
+     (``repro_torch.launch.wide_pareto``) under ``"fused"`` (K3/K7/K8)
+     and ``"pallas"`` (K1/K5/K6), each failing unless its two gates
+     hold, and the pallas rows must equal the fused ones; the circuit
+     library evolved on the card (``repro_torch.core.build_library``,
+     budget ``small``, ``engine="device"``: K11 scores every generation,
+     K10 re-verifies each search's final circuit), then the ``tiny``
+     build under ``engine="device"`` on the card and ``"numpy"`` on the
+     host, which must be equal; fails unless every kernel ran, and
+     unless the CUDA datapaths' banked logits equal the plain
+     datapath's;
+  4. K10 against ``Netlist.eval_words`` and its plain version on
+     exhaustive planes (65 536 vectors) for every evolved netlist of the
+     built library;
+  5. timings — each kernel and its plain version at the main-path
+     shapes (CUDA events after warm-up) beside its bound, and a CGP
+     generation's wall split into host and device time.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -43,6 +57,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 EVAL_N, BATCH, N_LANES = 256, 64, 17
+LIBRARY_BUDGET = "small"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; shared-memory table
 # lookups per SM per clock (one 32-lane LDS a clock, no bank conflicts)
 HBM_BYTES_PER_S = 3.35e12
@@ -61,6 +76,11 @@ SOURCES = {
                               "fused_matmul.py:539"),
     "fused_composed_matmul_bank": ("fused_composed_matmul_bank.cu",
                                    "fused_matmul.py:590"),
+    "composed_matmul": ("composed_matmul.cu", "composed_matmul.py:118"),
+    "composed_matmul_bank": ("composed_matmul_bank.cu",
+                             "composed_matmul.py:158"),
+    "bitsim": ("bitsim.cu", "bitsim.py:73"),
+    "bitsim_pop": ("bitsim_pop.cu", "bitsim.py:149"),
 }
 
 
@@ -74,6 +94,38 @@ def _codes(shape, gen, device):
     import torch
     return torch.randint(0, 256, shape, generator=gen, dtype=torch.int32,
                          device=device)
+
+
+def _wcodes(shape, gen, device):
+    """16-bit codes: every digit of a composed (12/16-bit) operand."""
+    import torch
+    return torch.randint(0, 1 << 16, shape, generator=gen,
+                         dtype=torch.int32, device=device)
+
+
+def _populations(device) -> dict:
+    """One CGP generation of the ``small`` ladder per evolved family
+    (8 rungs x lambda 4 = 32 mutants of the padded seed) with the search
+    planes of its evaluator (8192 vectors): the population kernel K11's
+    inputs on the main path."""
+    import numpy as np
+    from repro_torch.core.cgp import CgpParams, mutate, pad_nodes
+    from repro_torch.core.evolve_pop import PopEvaluator
+    from repro_torch.core.netlist import stack_netlists
+    from repro_torch.core.seeds import array_multiplier, ripple_carry_adder
+    from repro_torch.kernels import ops
+    out = {}
+    for name, exact, seed in (("mul8", array_multiplier(8), 1234),
+                              ("add8", ripple_carry_adder(8), 4321)):
+        ev = PopEvaluator(exact, CgpParams(metric="mae", seed=seed),
+                          engine="device", device=device)
+        padded = pad_nodes(exact, exact.n_nodes, seed=seed + 100)
+        rng = np.random.default_rng(seed)
+        pop = [mutate(padded, rng, 4) for _ in range(32)]
+        out[name] = {"netlists": pop, "words": ev.planes32,
+                     "tensors": ops.netlist_tensors(stack_netlists(pop),
+                                                    exact.n_i, device)}
+    return out
 
 
 def _floats(shape, gen, device, scale=1.0):
@@ -174,10 +226,12 @@ def _scalars(x, w, bits):
 
 def phase_compare(shapes: dict, device) -> dict:
     import torch
+    from repro_torch.approx.registry import encode_reduce
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(0)
     t = _tables(device)
+    wide = t["wide"]
     max_err = {name: 0.0 for name in SOURCES}
     cases = 0
 
@@ -234,9 +288,85 @@ def phase_compare(shapes: dict, device) -> dict:
                   [fm.dequant(s, want[-2], want[-1], fp, ip, k)],
                   f"{what} f32")
         del x, w, xb17, xbw
+        # two-step composed on codes (K5, K6): 16-bit codes; the wide
+        # study's 12-lane bank with shared or per-lane codes
+        qa, qw = _wcodes((m, k), gen, device), _wcodes((k, n), gen, device)
+        for lut, mask, red in ((wide["luts"][-5], 0xFFFFFFFF, ("loa", 4)),
+                               (t["rand"], 0xFFFFFF, ("trunc", 3)),
+                               (t["rand"], 0, ("loa", 4))):
+            masks1 = torch.tensor([mask], dtype=torch.int64, device=device)
+            code1 = torch.tensor([encode_reduce(red)], dtype=torch.int32,
+                                 device=device)
+            want = ref.composed_matmul_limbs_ref(
+                qa, qw, lut.to(torch.int32), masks1, code1)
+            check("composed_matmul",
+                  ops.composed_matmul_lut(qa, qw, lut, mask, red, raw=True),
+                  want, f"{what} mask {mask:#x} {red}")
+            check("composed_matmul",
+                  [ops.composed_matmul_lut(qa, qw, lut, mask, red)],
+                  [fm.limbs_to_f32(*want)], f"{what} f32")
+        luts_r = wide["luts"].clone()
+        luts_r[-1] = t["rand"]                      # LUT00 != 0 wide lane
+        codes_w = wide["codes"]
+        for a_, w_, tab in ((qa, qw, wide["luts"]),
+                            (_wcodes((n_wide, m, k), gen, device),
+                             _wcodes((n_wide, k, n), gen, device),
+                             wide["luts"]),
+                            (qa, qw, luts_r)):
+            want = ref.composed_matmul_bank_ref(
+                a_, w_, tab.to(torch.int32), wide["masks"], codes_w)
+            check("composed_matmul_bank",
+                  ops.composed_matmul_lut_bank(a_, w_, tab, wide["masks"],
+                                               ("loa", 4), raw=True),
+                  want, f"{what} qa{tuple(a_.shape)} qw{tuple(w_.shape)}")
+            check("composed_matmul_bank",
+                  [ops.composed_matmul_lut_bank(a_, w_, tab, wide["masks"],
+                                                ("loa", 4))],
+                  [fm.limbs_to_f32(*want)], f"{what} f32")
+        del qa, qw
+    for name, pop in _populations(device).items():
+        check("bitsim_pop", [ops.bitsim_pop_planes(*pop["tensors"],
+                                                   pop["words"])],
+              [ref.bitsim_pop_ref(*pop["tensors"], pop["words"])],
+              f"{name} generation (32 x {pop['words'].shape[1]} words)")
     print(f"[compare] {cases} kernel-vs-plain cases bit-exact; max abs "
           f"err {max_err}")
     return {"cases": cases, "max_abs_err": max_err}
+
+
+def phase_compare_library(lib, device, max_err: dict) -> dict:
+    """K10 against ``Netlist.eval_words`` and its plain version on
+    exhaustive planes (65 536 vectors) for every evolved netlist of the
+    library built on the main path."""
+    import torch
+    from repro_torch.core.netlist import exhaustive_inputs
+    from repro_torch.kernels import ops, ref
+    evolved = [e for e in lib.entries.values() if e.source == "evolved"]
+    if not evolved:
+        raise AssertionError("the built library has no evolved entry")
+    planes = {}
+    for e in evolved:
+        nl = e.netlist
+        if nl.n_i not in planes:
+            p64 = exhaustive_inputs(nl.n_i)
+            planes[nl.n_i] = (p64, ops.words_to_device(
+                ops.split_planes64(p64), device))
+        p64, words = planes[nl.n_i]
+        tens = ops.netlist_tensors((nl.funcs, nl.in0, nl.in1, nl.outputs),
+                                   nl.n_i, device)
+        got = ops.bitsim_planes(*tens, words)
+        plain = ref.bitsim_ref(*tens, words)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            max_err["bitsim"] = max(max_err["bitsim"], float(
+                (got.double() - plain.double()).abs().max()))
+            raise AssertionError(f"bitsim != plain on {e.name}")
+        if not (ops.join_planes32(ops.words_to_host(got))
+                == nl.eval_words(p64)).all():
+            raise AssertionError(f"bitsim != eval_words on {e.name}")
+    print(f"[compare] K10 equals eval_words and its plain version on "
+          f"{len(evolved)} evolved netlists, exhaustive planes")
+    return {"netlists": len(evolved)}
 
 
 def _drive(name: str, fn, kernels: tuple):
@@ -328,20 +458,92 @@ def phase_main(device) -> dict:
                              f"one: {accs}")
     print("[main] fused case study accuracies equal the pallas ones, "
           "list for list")
-    record, wall, launches = _drive(
-        "wide-width Pareto study",
-        lambda: wide_pareto.run(device, eval_n=EVAL_N, batch=BATCH,
-                                log=log),
-        ("fused_matmul", "fused_composed_matmul",
-         "fused_composed_matmul_bank"))
-    out["wide_pareto"] = {**record, "main_path_s": wall,
-                          "launches": launches}
-    for k, v in launches.items():
-        out["launches"][k] += v
+    wide_rows = {}
+    for variant, kernels in (("fused", ("fused_matmul",
+                                        "fused_composed_matmul",
+                                        "fused_composed_matmul_bank")),
+                             ("pallas", ("lut_matmul", "composed_matmul",
+                                         "composed_matmul_bank"))):
+        record, wall, launches = _drive(
+            f"wide-width Pareto study ({variant})",
+            lambda: wide_pareto.run(device, eval_n=EVAL_N, batch=BATCH,
+                                    log=log, variant=variant), kernels)
+        if len(record["sweep"]) != 12 or record["variant"] != variant:
+            raise AssertionError(f"wide study ({variant}) output malformed")
+        wide_rows[variant] = record["sweep"]
+        key = "wide_pareto" if variant == "fused" else "wide_pareto_pallas"
+        out[key] = {**record, "main_path_s": wall, "launches": launches}
+        for k, v in launches.items():
+            out["launches"][k] += v
+    if wide_rows["pallas"] != wide_rows["fused"]:
+        raise AssertionError(f"wide study rows differ between variants: "
+                             f"{wide_rows}")
+    print("[main] wide study rows (accuracy, logit_mae) under pallas equal "
+          "the fused ones, point for point")
+    lib, record = phase_library(device, log, out["launches"])
+    out["library"] = record
     if min(out["launches"].values()) <= 0:
         raise AssertionError(f"a kernel never ran on the main paths: "
                              f"{out['launches']}")
-    return out
+    return out, lib
+
+
+def _same_library(a, b) -> bool:
+    return (list(a.entries) == list(b.entries)
+            and all(a.entries[n].as_dict() == b.entries[n].as_dict()
+                    for n in a.entries))
+
+
+def phase_library(device, log, launches_total: dict):
+    """Path A: the circuit library evolved on the card through its CLI's
+    ``run`` (K11 every generation, K10 for each search's exhaustive
+    re-verification), then the ``tiny`` build on the card and on the
+    host, which must be equal entry for entry."""
+    import math
+    from repro_torch.core import build_library
+    out_path = os.path.join(OUT_DIR, f"library_{LIBRARY_BUDGET}_device.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    (lib, record), wall, launches = _drive(
+        f"circuit library ({LIBRARY_BUDGET}, engine=device)",
+        lambda: build_library.run(LIBRARY_BUDGET, "device", device,
+                                  out_path, log=log),
+        ("bitsim_pop", "bitsim"))
+    for k, v in launches.items():
+        launches_total[k] += v
+    evo = record["evolution"]
+    composed = record["sources"].get("composed", 0)
+    if (record["sources"].get("evolved", 0) <= 0 or composed <= 0
+            or set(evo) != {"mul8u", "add8u"}
+            or not all(math.isfinite(x) for e in lib.entries.values()
+                       for x in e.errors.as_dict().values()
+                       if isinstance(x, float))):
+        raise AssertionError(f"library build output malformed: {record}")
+    split = {}
+    for fam, st in evo.items():
+        gen_s = st["evolve_s"] / st["generations"]
+        dev_s = st["score_device_s"] / st["evaluator_calls"]
+        split[fam] = {"generation_ms": gen_s * 1e3,
+                      "device_ms": dev_s * 1e3,
+                      "host_ms": (gen_s - dev_s) * 1e3}
+        log(f"{fam}: {st['generations']} generations of "
+            f"{st['rungs']} x {st['lam']} candidates, evolved in "
+            f"{st['evolve_s']:.2f} s; per generation "
+            f"{split[fam]['generation_ms']:.2f} ms = host "
+            f"{split[fam]['host_ms']:.2f} + device (K11 + reduce) "
+            f"{split[fam]['device_ms']:.2f}")
+    tiny = {}
+    for engine in ("device", "numpy"):
+        tiny[engine], rec = build_library.run("tiny", engine, device, None,
+                                              log=log)
+        record[f"tiny_{engine}_s"] = rec["wall_s"]
+    if not _same_library(tiny["device"], tiny["numpy"]):
+        raise AssertionError("the tiny library built on the card differs "
+                             "from the host build")
+    log(f"tiny library: engine=device on the card equals engine=numpy, "
+        f"entry for entry ({len(tiny['numpy'].entries)} entries)")
+    record.update(main_path_s=wall, launches=launches,
+                  generation_split=split)
+    return lib, record
 
 
 def _time(fn, reps: int, warmup: int) -> float:
@@ -362,9 +564,10 @@ def phase_timing(shapes: dict, device) -> dict:
     """Per main-path shape: kernel and plain times (ms) and the bound.
     The banked kernels run the activations the all-layers sweeps give
     them: shared at conv_init, banked after; K4 the 17-lane case-study
-    bank, K7 one 16-bit composed multiplier, K8 the wide study's
-    mixed-width bank."""
+    bank, K7 and K5 one 16-bit composed multiplier, K8 and K6 the wide
+    study's mixed-width bank; then K10/K11 (``_bitsim_timing``)."""
     import torch
+    from repro_torch.approx.quant import calibrate, quantize
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(1)
@@ -440,14 +643,98 @@ def phase_timing(shapes: dict, device) -> dict:
             row(name, label, mkn, lanes, per_product * m * k * n, nbytes,
                 lambda: op(xin, w, tab, *codes, *sp, raw=True),
                 lambda: plain(xin, w, tab32, *packed, fp, ip))
-        del x, w, fused
+        # two-step composed on codes: K5 one 16-bit loa4 multiplier, K6
+        # the wide study's bank, each on the codes the two-step datapath
+        # makes of K7's and K8's operands (per-lane widths give per-lane
+        # codes of both operands), so both pairs do the same lookups
+        qa, qw = (quantize(v, calibrate(v, 16)) for v in (x, w))
+        xw = fused[3][2]
+        qab = quantize(xw, calibrate(xw, wide["bits"], lanes=xw.ndim == 3))
+        qwb = quantize(w, calibrate(w, wide["bits"]))
+        del x, w, fused, xw
+        lut16 = wide["luts"][-5]
+        mask1, code1 = wide["masks"][-5:-4], wide["codes"][-5:-4]
+        row("composed_matmul", label, mkn, 1, 4 * m * k * n,
+            (m * k + k * n) * 4 + lut_b + 2 * out_b,
+            lambda: ops.composed_matmul_lut(qa, qw, lut16, mask1,
+                                            ("loa", 4), raw=True),
+            lambda: ref.composed_matmul_limbs_ref(
+                qa, qw, lut16.to(torch.int32), mask1, code1))
+        wide32 = wide["luts"].to(torch.int32)
+        row("composed_matmul_bank", label, mkn, n_wide,
+            (4 * (n_wide - n_narrow) + n_narrow) * m * k * n,
+            (qab.numel() + qwb.numel()) * 4 + n_wide * (lut_b + 2 * out_b),
+            lambda: ops.composed_matmul_lut_bank(qab, qwb, wide["luts"],
+                                                 wide["masks"], ("loa", 4),
+                                                 raw=True),
+            lambda: ref.composed_matmul_bank_ref(qab, qwb, wide32,
+                                                 wide["masks"],
+                                                 wide["codes"]))
+        del qa, qw, qab, qwb
     for r in rows:
         print(f"[timing] {r['kernel']:26s} {r['layer']:12s} "
               f"M={r['M']:6d} K={r['K']:4d} N={r['N']:3d} x{r['lanes']:2d}: "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%})")
+    rows += _bitsim_timing(device, lookup_rate)
     return {"lookup_rate_per_s": lookup_rate, "wide_bank": t["wide_names"],
             "rows": rows}
+
+
+def _bitsim_timing(device, lookup_rate: float) -> list:
+    """K11 on one CGP generation of the ``small`` ladder (32 candidates,
+    8192 vectors) and K10 on the exact 8-bit circuits over exhaustive
+    planes (65 536 vectors), beside their bounds.  A gate-word step is
+    shared-memory traffic: one access per input its gate reads plus the
+    store, counted over the active gates only (the inactive ones do not
+    change the outputs); bytes: planes, netlist arrays and outputs, each
+    once."""
+    from repro_torch.core.gates import GATE_ARITY
+    from repro_torch.core.netlist import exhaustive_inputs
+    from repro_torch.core.seeds import array_multiplier, ripple_carry_adder
+    from repro_torch.kernels import ops, ref
+
+    def accesses(nls, words):
+        return sum(int((GATE_ARITY[nl.funcs][nl.active_mask()] + 1).sum())
+                   for nl in nls) * words
+
+    cases = []
+    for name, pop in _populations(device).items():
+        words = pop["words"]
+        cases.append(("bitsim_pop", f"{name} generation", pop["netlists"],
+                      pop["tensors"], words, ops.bitsim_pop_planes,
+                      ref.bitsim_pop_ref))
+    for name, nl in (("mul8 exact", array_multiplier(8)),
+                     ("add8 exact", ripple_carry_adder(8))):
+        words = ops.words_to_device(ops.split_planes64(
+            exhaustive_inputs(nl.n_i)), device)
+        tens = ops.netlist_tensors((nl.funcs, nl.in0, nl.in1, nl.outputs),
+                                   nl.n_i, device)
+        cases.append(("bitsim", f"{name} exhaustive", [nl], tens, words,
+                      ops.bitsim_planes, ref.bitsim_ref))
+    rows = []
+    for kernel, label, nls, tens, words, op, plain in cases:
+        n_i, w = words.shape
+        n_o = nls[0].n_o
+        steps = accesses(nls, w)
+        nbytes = (n_i * w + sum(t.numel() for t in tens)
+                  + len(nls) * n_o * w) * 4
+        ops_ms = steps / lookup_rate * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        r = {"kernel": kernel, "layer": label, "candidates": len(nls),
+             "words": w, "accesses": steps, "bytes": nbytes,
+             "ms": _time(lambda: op(*tens, words), reps=20, warmup=3),
+             "plain_ms": _time(lambda: plain(*tens, words), reps=1,
+                               warmup=1),
+             "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+             "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        rows.append(r)
+        print(f"[timing] {kernel:26s} {label:18s} x{len(nls):2d} "
+              f"{w:5d} words: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} "
+              f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%})")
+    return rows
 
 
 def summary(compare: dict, main: dict, timing: dict) -> dict:
@@ -486,7 +773,9 @@ def main() -> int:
     shapes = main_path_shapes(resnet.resnet_config(8), BATCH)
     details = {"card": card, **phase_build()}
     details["compare"] = phase_compare(shapes, device)
-    details["main"] = phase_main(device)
+    details["main"], lib = phase_main(device)
+    details["compare"]["library"] = phase_compare_library(
+        lib, device, details["compare"]["max_abs_err"])
     details["timing"] = phase_timing(shapes, device)
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -53,9 +53,6 @@ MAX_COMPOSED_K = (1 << 31) // ((1 << 16) - 1)  # = 32768
 #: have yet.
 _NOT_PORTED = {
     "lowrank": "ROADMAP.md Queue 2, lowrank (kernel K9, lowrank_matmul)",
-    "composed_pallas": "ROADMAP.md Queue 1, the two-step composed path "
-                       "(kernels K5/K6, composed_matmul); composed "
-                       "widths run under variant='fused' or 'ref'",
 }
 
 

@@ -13,9 +13,8 @@ kernels of ``repro_torch.kernels`` (the name is kept so policies stay
 interchangeable with the reference, whose ``pallas`` variant runs
 Pallas kernels); ``"fused"`` names the single-kernel datapath
 (``lut_fused``: quantize, gather, accumulate and code sums in one CUDA
-kernel, at 8 bits and at composed 12/16 bits).  Composed widths under
-``"pallas"`` (the two-step kernels K5/K6) are not ported yet and raise
-``NotImplementedError``.
+kernel, at 8 bits and at composed 12/16 bits).  Under ``"pallas"``
+composed widths run the two-step composed kernels (K5/K6).
 
 ``materialize`` binds a spec to an ``ApproxLibrary`` and returns a
 ``MaterializedBackend`` holding the packed numpy constants; equal specs

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -423,17 +424,73 @@ def _evolve_family(
     return added
 
 
+def _evolve_family_pop(
+    lib: ApproxLibrary, kind: str, width: int, exact: Netlist,
+    e_max_ladder: list[float], metric: str, generations: int, seed: int,
+    engine: str, device=None, stats: Optional[dict] = None,
+) -> int:
+    """Population-parallel ladder (DESIGN.md §2.9): every rung of the
+    e_max ladder runs from the shared seed as one generation-synchronous
+    sweep — one fused evaluation per generation scores all
+    len(ladder) * λ offspring (one K11 launch on the device engine).
+    Admits every improved feasible parent of every rung plus each rung's
+    final circuit; unlike the legacy chained ladder it does NOT thin
+    intermediate parents, which is where the extra archive entries at
+    equal generation budget come from.  ``stats``, when given, receives
+    this family's timings under its prefix."""
+    from .evolve_pop import PopEvaluator, evolve_ladder
+    prefix = ("mul" if kind == "multiplier" else "add") + f"{width}u_E"
+    collected: list[Netlist] = []
+
+    def keep(_run: int, nl: Netlist, err: float, area: float) -> None:
+        collected.append(nl)
+
+    t0 = time.perf_counter()
+    params = CgpParams(metric=metric, generations=generations, seed=seed)
+    padded = pad_nodes(exact, exact.n_nodes, seed=seed + 100)
+    ev = PopEvaluator(exact, params, engine=engine, device=device)
+    results = evolve_ladder(padded, exact, e_max_ladder, params,
+                            on_candidate=keep, evaluator=ev)
+    t1 = time.perf_counter()
+    collected.extend(r.netlist for r in results)
+    added = 0
+    for nl in collected:
+        nl = nl.compact()
+        name = prefix + _genome_tag(nl)
+        if name in lib.entries:
+            continue
+        lib.add_netlist(nl, kind, width, "evolved", exact, name=name)
+        added += 1
+    if stats is not None:
+        stats[prefix[:-2]] = {
+            "engine": engine, "rungs": len(e_max_ladder),
+            "generations": generations, "lam": params.lam,
+            "n_nodes": padded.n_nodes, "search_vectors": ev.num,
+            "evaluator_calls": ev.n_calls, "scored": ev.n_scored,
+            "evolve_s": t1 - t0, "score_host_s": ev.host_s,
+            "score_device_s": ev.device_s,
+            "admit_s": time.perf_counter() - t1, "added": added}
+    return added
+
+
 def build_default_library(budget: str = "small",
                           progress: bool = False,
-                          engine: str = "legacy") -> ApproxLibrary:
+                          engine: str = "legacy",
+                          device=None,
+                          stats: Optional[dict] = None) -> ApproxLibrary:
     """Budgets: 'tiny' (tests, seconds), 'small' (default artifact,
     ~minutes), 'full' (hours — the paper's scale knob).
 
-    ``engine`` picks the evolutionary search backend.  Only 'legacy'
-    (the sequential chained-ladder ``cgp.evolve``, byte-stable) is
-    ported; the population-parallel engines ('numpy' / 'device') raise
-    ``NotImplementedError`` until the device CGP engine is ported
-    (ROADMAP.md Queue 1)."""
+    ``engine`` picks the evolutionary search backend: 'legacy' keeps
+    the sequential chained-ladder ``cgp.evolve`` (byte-stable default
+    artifact); 'numpy' / 'device' run the population-parallel
+    generational ladder (``evolve_pop.evolve_ladder``, one fused
+    evaluation per generation — one K11 launch on ``device`` for
+    'device', default the GPU), admit every improved feasible parent
+    without thinning, and additionally register composed 12/16-bit rows
+    over the evolved 8-bit Pareto tiles (DESIGN.md §2.9).  ``stats``,
+    when given, receives each evolved family's timings
+    (``_evolve_family_pop``)."""
     cfg = {
         "tiny": dict(gens=40, ladder=3, mult_widths=(8,), add_widths=(8,),
                      wide_samples=4096, comp_tiles=1, comp_widths=(12,)),
@@ -449,11 +506,9 @@ def build_default_library(budget: str = "small",
     if engine not in ("legacy", "numpy", "device"):
         raise ValueError(f"unknown engine {engine!r} "
                          "(expected 'legacy', 'numpy' or 'device')")
-    if engine != "legacy":
-        raise NotImplementedError(
-            f"engine={engine!r} needs the population-parallel CGP engine, "
-            "which is not ported yet (ROADMAP.md Queue 1, device CGP "
-            "engine); use engine='legacy'")
+    if engine == "device":
+        from ..device import resolve_device
+        device = resolve_device(device)
     lib = ApproxLibrary()
 
     def log(msg: str) -> None:
@@ -483,9 +538,26 @@ def build_default_library(budget: str = "small",
             max_out = float((2 ** w - 1) ** 2)
             ladder = [max_out * (2.0 ** -e) for e in
                       np.linspace(14, 4, cfg["ladder"])]
-            n = _evolve_family(lib, "multiplier", w, exact, ladder,
-                               "mae", cfg["gens"], seed=1234)
+            if engine == "legacy":
+                n = _evolve_family(lib, "multiplier", w, exact, ladder,
+                                   "mae", cfg["gens"], seed=1234)
+            else:
+                n = _evolve_family_pop(lib, "multiplier", w, exact,
+                                       ladder, "mae", cfg["gens"],
+                                       seed=1234, engine=engine,
+                                       device=device, stats=stats)
             log(f"mul{w}: evolved {n}")
+
+    # composed wide rows over the freshly evolved 8-bit Pareto tiles
+    # (population engines only — the legacy build stays byte-stable)
+    if engine != "legacy":
+        front = [e for e in lib.pareto_front("multiplier", 8, "mae")
+                 if e.source == "evolved"]
+        for tile in front[:cfg["comp_tiles"]]:
+            for cw in cfg["comp_widths"]:
+                lib.add_composed(tile.name, cw, reduce="exact",
+                                 samples=cfg["wide_samples"])
+                log(f"mul{cw}: composed over {tile.name}")
 
     # ---- adders --------------------------------------------------------
     for w in cfg["add_widths"]:
@@ -503,8 +575,14 @@ def build_default_library(budget: str = "small",
             max_out = float(2 ** (w + 1) - 1)
             ladder = [max_out * (2.0 ** -e) for e in
                       np.linspace(9, 2, cfg["ladder"])]
-            n = _evolve_family(lib, "adder", w, exact, ladder, "mae",
-                               cfg["gens"], seed=4321)
+            if engine == "legacy":
+                n = _evolve_family(lib, "adder", w, exact, ladder, "mae",
+                                   cfg["gens"], seed=4321)
+            else:
+                n = _evolve_family_pop(lib, "adder", w, exact, ladder,
+                                       "mae", cfg["gens"], seed=4321,
+                                       engine=engine, device=device,
+                                       stats=stats)
             log(f"add{w}: evolved {n}")
 
     return lib

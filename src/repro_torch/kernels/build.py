@@ -21,7 +21,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 KERNELS = ("lut_matmul", "lut_matmul_bank", "fused_matmul",
            "fused_matmul_bank", "fused_composed_matmul",
-           "fused_composed_matmul_bank")
+           "fused_composed_matmul_bank", "composed_matmul",
+           "composed_matmul_bank", "bitsim", "bitsim_pop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

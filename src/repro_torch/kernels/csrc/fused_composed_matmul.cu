@@ -30,7 +30,7 @@ extern "C" int fused_composed_matmul_launch(const float* x, const float* w,
                                             int* lo, int* hi, int* row,
                                             int* col, int M, int K, int N,
                                             int grid, void* stream) {
-  return fusedmm::launch<true>(x, 0, w, lut, fp, ip, mask, rcode, lo, hi,
+  return fusedmm::launch<true>(x, 0, w, 0, lut, fp, ip, mask, rcode, lo, hi,
                                row, col, 1, M, K, N, grid,
                                static_cast<cudaStream_t>(stream));
 }

@@ -23,7 +23,7 @@ extern "C" int fused_composed_matmul_bank_launch(
     const uint16_t* luts, const unsigned* masks, const int* rcodes,
     const float* fp, const int* ip, int* lo, int* hi, int* row, int* col,
     int n_lanes, int M, int K, int N, int grid, void* stream) {
-  return fusedmm::launch<true>(x, x_lane_stride, w, luts, fp, ip, masks,
+  return fusedmm::launch<true>(x, x_lane_stride, w, 0, luts, fp, ip, masks,
                                rcodes, lo, hi, row, col, n_lanes, M, K, N,
                                grid, static_cast<cudaStream_t>(stream));
 }

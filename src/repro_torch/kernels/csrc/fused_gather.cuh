@@ -1,6 +1,7 @@
 // Shared body of the fused quantize -> LUT-gather -> accumulate kernels
 // (fused_matmul.cu, fused_matmul_bank.cu, fused_composed_matmul.cu,
-// fused_composed_matmul_bank.cu).  For each lane l:
+// fused_composed_matmul_bank.cu) and of the two-step composed kernels on
+// codes (composed_matmul.cu, composed_matmul_bank.cu).  For each lane l:
 //
 //   qa = clip(rint(x_l / sa_l) + za_l, 0, qmax_l)     (M, K) codes
 //   qw = clip(rint(w   / sw_l) + zw_l, 0, qmax_l)     (K, N) codes
@@ -13,12 +14,18 @@
 //
 // x: f32 (M, K) per lane, lane stride 0 when the activations are shared
 // (each lane still quantizes them with its own scale and zero point);
-// w: f32 (K, N), shared; luts: uint16 (n_lanes, 256, 256); fp: f32
+// w: f32 (K, N), shared (lane stride 0; the codes of a mixed-width bank
+// are per lane, (n_lanes, K, N)); luts: uint16 (n_lanes, 256, 256); fp: f32
 // (n_lanes, 3) = (sa, sw, qmax); ip: int32 (n_lanes, 2) = (za, zw);
 // masks: uint32 (n_lanes,); rcodes: int32 (n_lanes, 2) = encode_reduce
 // (kind, k).  Every per-lane value is read from device memory, so no
 // launch waits on the host.  The f32 correction and dequant stay with
 // the caller (eager PyTorch), as the TPU kernels leave them to theirs.
+//
+// Instantiated on int operands (In = int: composed_matmul*.cu), the
+// kernel reads x and w as int32 W-bit codes, stages them as they are
+// (no quantize, no per-lane scalars: fp and ip are not read) and keeps
+// no code sums (row_out and col_out are not written).
 //
 // Bit-exact quantization: IEEE division (__fdiv_rn), rint (half to
 // even, like jnp.round), + zero point in f32, clip, then the int cast
@@ -41,6 +48,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 // Internal linkage throughout: each kernel library carries its own copy,
@@ -72,6 +80,16 @@ __device__ __forceinline__ int quantize(float v, float scale, float zp,
                                         float qmax) {
   const float q = rintf(__fdiv_rn(v, scale)) + zp;
   return (int)fminf(fmaxf(q, 0.0f), qmax);
+}
+
+// The code a staged operand element becomes: quantized from f32, or an
+// int32 code taken as it is.
+__device__ __forceinline__ int stage_code(float v, float scale, float zp,
+                                          float qmax) {
+  return quantize(v, scale, zp, qmax);
+}
+__device__ __forceinline__ int stage_code(int v, float, float, float) {
+  return v;
 }
 
 // uint32 shifts with XLA's semantics: a shift of 32 or more gives 0
@@ -107,10 +125,10 @@ __device__ __forceinline__ unsigned composed_tree(unsigned p00,
   return reduce_dyn(s2, p11 << 16, kind, k);
 }
 
-template <bool kComposed>
+template <bool kComposed, typename In>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_kernel(const float* __restrict__ x, long long x_lane_stride,
-             const float* __restrict__ w,
+fused_kernel(const In* __restrict__ x, long long x_lane_stride,
+             const In* __restrict__ w, long long w_lane_stride,
              const uint16_t* __restrict__ luts,
              const float* __restrict__ fp, const int* __restrict__ ip,
              const unsigned* __restrict__ masks,
@@ -118,6 +136,9 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
              int* __restrict__ out_lo, int* __restrict__ out_hi,
              int* __restrict__ row_out, int* __restrict__ col_out,
              int n_lanes, int M, int K, int N, int tn) {
+  // f32 operands are quantized per lane and their code sums kept; int32
+  // codes are staged as they are
+  constexpr bool kQuant = std::is_same<In, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* s_lut = reinterpret_cast<uint16_t*>(smem);
   const int tm = kThreads / tn;            // rows per tile
@@ -152,11 +173,13 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
       uint4* dst = reinterpret_cast<uint4*>(s_lut);
       for (int i = tid; i < kLutEntries * 2 / 16; i += kThreads)
         dst[i] = src[i];
-      sa = fp[lane * 3];
-      sw = fp[lane * 3 + 1];
-      qmax = fp[lane * 3 + 2];
-      za = (float)ip[lane * 2];
-      zw = (float)ip[lane * 2 + 1];
+      if (kQuant) {
+        sa = fp[lane * 3];
+        sw = fp[lane * 3 + 1];
+        qmax = fp[lane * 3 + 2];
+        za = (float)ip[lane * 2];
+        zw = (float)ip[lane * 2 + 1];
+      }
       if (kComposed) {
         mask = masks[lane];
         kind = rcodes[lane * 2];
@@ -164,7 +187,8 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
       }
       staged_lane = lane;
     }
-    const float* x_lane = x + (size_t)lane * x_lane_stride;
+    const In* x_lane = x + (size_t)lane * x_lane_stride;
+    const In* w_lane = w + (size_t)lane * w_lane_stride;
 
     // unsigned: int32 sums wrap modulo 2^32 like the reference's
     unsigned lo[kNT], hi[kNT], col_sum[kNT];
@@ -180,7 +204,7 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
         const int m = m0 + rr;
         int q = 0;
         if (m < M && kk < kc)
-          q = quantize(x_lane[(size_t)m * K + k0 + kk], sa, za, qmax);
+          q = stage_code(x_lane[(size_t)m * K + k0 + kk], sa, za, qmax);
         s_a[rr * (kKC + 1) + kk] = q;
       }
       for (int e = tid; e < kKC * tile_n; e += kThreads) {
@@ -188,16 +212,16 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
         const int n = n0 + nn;
         int q = 0;
         if (n < N && kk < kc)
-          q = quantize(w[(size_t)(k0 + kk) * N + n], sw, zw, qmax);
+          q = stage_code(w_lane[(size_t)(k0 + kk) * N + n], sw, zw, qmax);
         s_w[kk * tile_n + nn] = q;
       }
       __syncthreads();                     // chunk (and table) staged
 
       const int* a_row = s_a + r * (kKC + 1);
       const int* w_grp = s_w + g * kNT;
-      if (g == 0)
+      if (kQuant && g == 0)
         for (int kk = 0; kk < kc; ++kk) row_sum += (unsigned)a_row[kk];
-      if (r == 0)
+      if (kQuant && r == 0)
         for (int kk = 0; kk < kc; ++kk)
 #pragma unroll
           for (int j = 0; j < kNT; ++j)
@@ -252,9 +276,10 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
           if (kComposed) out_hi[o + n] = (int)hi[j];
         }
       }
-      if (n0 == 0 && g == 0) row_out[(size_t)lane * M + m] = (int)row_sum;
+      if (kQuant && n0 == 0 && g == 0)
+        row_out[(size_t)lane * M + m] = (int)row_sum;
     }
-    if (m0 == 0 && r == 0) {
+    if (kQuant && m0 == 0 && r == 0) {
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + g * kNT + j;
@@ -266,8 +291,9 @@ fused_kernel(const float* __restrict__ x, long long x_lane_stride,
 
 // Launch on `stream` with `grid` persistent blocks; returns the launch's
 // cudaGetLastError().
-template <bool kComposed>
-inline int launch(const float* x, long long x_lane_stride, const float* w,
+template <bool kComposed, typename In>
+inline int launch(const In* x, long long x_lane_stride, const In* w,
+                  long long w_lane_stride,
                   const uint16_t* luts, const float* fp, const int* ip,
                   const unsigned* masks, const int* rcodes, int* out_lo,
                   int* out_hi, int* row_out, int* col_out, int n_lanes,
@@ -276,14 +302,15 @@ inline int launch(const float* x, long long x_lane_stride, const float* w,
   static bool configured = false;          // once: the largest tile's need
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_kernel<kComposed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_kernel<kComposed, In>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes(1));
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  fused_kernel<kComposed><<<grid, kThreads, smem_bytes(tn), stream>>>(
-      x, x_lane_stride, w, luts, fp, ip, masks, rcodes, out_lo, out_hi,
-      row_out, col_out, n_lanes, M, K, N, tn);
+  fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn), stream>>>(
+      x, x_lane_stride, w, w_lane_stride, luts, fp, ip, masks, rcodes,
+      out_lo, out_hi, row_out, col_out, n_lanes, M, K, N, tn);
   return (int)cudaGetLastError();
 }
 

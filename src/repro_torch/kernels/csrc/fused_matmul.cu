@@ -23,7 +23,7 @@ extern "C" int fused_matmul_launch(const float* x, const float* w,
                                    const int* ip, int* acc, int* row,
                                    int* col, int M, int K, int N, int grid,
                                    void* stream) {
-  return fusedmm::launch<false>(x, 0, w, lut, fp, ip, nullptr, nullptr,
+  return fusedmm::launch<false>(x, 0, w, 0, lut, fp, ip, nullptr, nullptr,
                                 acc, nullptr, row, col, 1, M, K, N, grid,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,7 @@ extern "C" int fused_matmul_bank_launch(const float* x,
                                         int* acc, int* row, int* col,
                                         int n_lanes, int M, int K, int N,
                                         int grid, void* stream) {
-  return fusedmm::launch<false>(x, x_lane_stride, w, luts, fp, ip, nullptr,
+  return fusedmm::launch<false>(x, x_lane_stride, w, 0, luts, fp, ip, nullptr,
                                 nullptr, acc, nullptr, row, col, n_lanes, M,
                                 K, N, grid,
                                 static_cast<cudaStream_t>(stream));

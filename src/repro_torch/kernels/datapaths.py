@@ -8,10 +8,9 @@ names are the reference's (``BackendSpec(variant="pallas")`` and
 here the datapaths run the hand-written CUDA kernels through
 ``kernels.ops``.
 
-``lut_pallas`` runs 8-bit entries only: composed 12/16-bit entries under
-it need the two-step composed kernels K5/K6, not ported yet, and raise
-``NotImplementedError`` rather than compute a narrow result.
-``lut_fused`` runs every width.
+``lut_pallas`` runs the two-step kernels on codes at every width: K1/K2
+for 8-bit entries and banks, K5/K6 for composed 12/16-bit entries and
+banks with wide lanes.  ``lut_fused`` runs the single-kernel path.
 """
 from __future__ import annotations
 
@@ -19,27 +18,29 @@ import numpy as np
 import torch
 
 from ..approx.quant import calibrate, scalar_params
-from ..approx.registry import (_NOT_PORTED, Datapath, encode_reduce,
-                               pack_lut, register_datapath)
+from ..approx.registry import (Datapath, encode_reduce, pack_lut,
+                               register_datapath)
 from .approx_matmul import lut_to_uint16
 from .ops import (approx_matmul_lut, approx_matmul_lut_bank,
+                  composed_matmul_lut, composed_matmul_lut_bank,
                   fused_composed_matmul_lut, fused_composed_matmul_lut_bank,
                   fused_matmul_lut, fused_matmul_lut_bank)
 
 
-def _composed_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} under variant='pallas' needs the two-step composed "
-        f"kernels, not ported yet ({_NOT_PORTED['composed_pallas']})")
-
-
 @register_datapath("lut_pallas")
 class LutPallasDatapath(Datapath):
-    """Bit-true 8-bit LUT emulation through the CUDA LUT-gather kernels:
-    K1 (``approx_matmul_lut``) for one multiplier, K2
-    (``approx_matmul_lut_bank``) for a banked backend — one launch per
-    layer for the whole bank.  The product tables are packed once as
-    uint16 (range-checked on the host), so no launch re-checks them."""
+    """Bit-true LUT emulation through the CUDA gather kernels on codes,
+    width-generic.  8-bit entries: K1 (``approx_matmul_lut``) for one
+    multiplier, K2 (``approx_matmul_lut_bank``) for a banked backend —
+    one launch per layer for the whole bank.  Composed 12/16-bit
+    entries: K5 (``composed_matmul_lut``) on the entry's tile LUT, and
+    K6 (``composed_matmul_lut_bank``) for a bank with wide lanes (8-bit
+    lanes ride along with mask 0) under the bank's one static reduce
+    tree; both return f32 (limbs recombined).  The tables are packed once
+    as uint16 (range-checked on the host), so no launch re-checks them.
+    Codes that carry a lane axis through one table run the banked kernel
+    with the table repeated per lane, as the reference's vmap rule
+    does."""
 
     # kernel does its own blocking, so block_m is not a spec field
     spec_fields = ("multiplier", "bit_width", "reduce_adder")
@@ -47,28 +48,28 @@ class LutPallasDatapath(Datapath):
 
     def pack(self, spec, library) -> dict:
         consts = pack_lut(spec, library)
-        if consts.get("composed"):
-            raise _composed_not_ported(
-                f"composed {consts['bits']}-bit entry {spec.multiplier!r}")
         consts["lut16"] = lut_to_uint16(torch.from_numpy(consts["lut"]))
         return consts
 
     def bank_consts(self, bank) -> dict:
-        if bank.any_wide:
-            raise _composed_not_ported("a bank with 12/16-bit lanes")
         return {**super().bank_consts(bank),
                 "luts16": lut_to_uint16(torch.from_numpy(bank.luts))}
 
     def forward_q(self, qa, qw, consts):
-        if "luts16" in consts:
-            return approx_matmul_lut_bank(qa, qw, consts["luts16"])
-        if qa.ndim == 3:
-            # lane-carrying codes through one table: the banked kernel
-            # with the table repeated per lane, as the reference's vmap
-            # rule does
-            luts = consts["lut16"].expand(qa.shape[0], 256, 256)
-            return approx_matmul_lut_bank(qa, qw, luts.contiguous())
-        return approx_matmul_lut(qa, qw, consts["lut16"])
+        banked = "luts16" in consts
+        luts = consts.get("luts16")
+        if luts is None and qa.ndim == 3:
+            luts = consts["lut16"].expand(qa.shape[0], 256, 256).contiguous()
+        if consts.get("composed"):
+            if luts is None:
+                return composed_matmul_lut(qa, qw, consts["lut16"],
+                                           consts["mask"], consts["reduce"])
+            masks = consts["masks"] if banked else consts["mask"]
+            return composed_matmul_lut_bank(qa, qw, luts, masks,
+                                            consts["reduce"])
+        if luts is None:
+            return approx_matmul_lut(qa, qw, consts["lut16"])
+        return approx_matmul_lut_bank(qa, qw, luts)
 
 
 @register_datapath("lut_fused")

@@ -86,9 +86,15 @@ def pack_codes(n: int, device, mask, rcode) -> tuple:
     """Per-lane composed descriptors: ``masks`` (n,) int64 holding the
     uint32 2W-bit product masks (0 = narrow lane) and ``rcodes`` (n, 2)
     int32 ``encode_reduce`` codes (one code, (2,) or (1, 2), is shared
-    by every lane)."""
+    by every lane).  One host code, a ``(kind, k)`` pair of ints, is
+    filled on the device, so no launch waits for a host copy."""
     masks = _lane_vec(mask, n, torch.int64, device)
-    rcodes = torch.as_tensor(rcode, dtype=torch.int32).to(device)
+    if isinstance(rcode, tuple) and len(rcode) == 2 \
+            and all(isinstance(c, int) for c in rcode):
+        rcodes = torch.empty((1, 2), dtype=torch.int32, device=device)
+        rcodes[0, 0], rcodes[0, 1] = rcode
+    else:
+        rcodes = torch.as_tensor(rcode, dtype=torch.int32).to(device)
     rcodes = rcodes.reshape(-1, 2)
     if rcodes.shape[0] not in (1, n):
         raise ValueError(f"{rcodes.shape[0]} reduce codes for {n} lanes")

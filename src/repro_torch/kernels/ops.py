@@ -9,6 +9,10 @@ The reference reaches its banked kernels through ``custom_vmap`` rules
 on the single-table ops; the port writes the bank axis out instead, so
 the banked datapaths call the ``*_bank`` wrappers directly.
 
+The bitsim wrappers carry uint32 words as int32 bit patterns
+(``bitsim_planes``, ``bitsim_pop_planes``); ``bitsim`` and ``bitsim_pop``
+take and return the uint64 planes of ``Netlist.eval_words`` on the host.
+
 The fused wrappers take float operands and the pre-calibrated
 quantization scalars (``quant.scalar_params``; numbers or tensors, per
 lane for the banked ones) and return the f32 result; ``raw=True``
@@ -17,11 +21,17 @@ limbs, then the row and column code sums).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..approx.registry import MAX_COMPOSED_K, MAX_LUT_K
+from ..approx.registry import MAX_COMPOSED_K, MAX_LUT_K, encode_reduce
+from ..core.gates import GATE_ARITY
+from ..core.netlist import stack_netlists
+from ..device import DeviceLike, resolve_device
 from . import ref
 from .approx_matmul import lut_matmul, lut_to_uint16
+from .bitsim import bitsim_pop_words, bitsim_words
+from .composed_matmul import composed_matmul, composed_matmul_bank
 from .fused_matmul import (dequant, fused_composed_matmul,
                            fused_composed_matmul_bank, fused_matmul,
                            fused_matmul_bank, limbs_to_f32, pack_codes,
@@ -33,23 +43,28 @@ KERNELS = {"lut_matmul": lut_matmul, "lut_matmul_bank": lut_matmul_bank,
            "fused_matmul": fused_matmul,
            "fused_matmul_bank": fused_matmul_bank,
            "fused_composed_matmul": fused_composed_matmul,
-           "fused_composed_matmul_bank": fused_composed_matmul_bank}
+           "fused_composed_matmul_bank": fused_composed_matmul_bank,
+           "composed_matmul": composed_matmul,
+           "composed_matmul_bank": composed_matmul_bank,
+           "bitsim": bitsim_words, "bitsim_pop": bitsim_pop_words}
 
 
 def _check_codes(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
-                 a_ndim: tuple, lut_shape: tuple) -> None:
-    if qa.ndim not in a_ndim or qw.ndim != 2:
+                 a_ndim: tuple, lut_shape: tuple,
+                 bound: int = MAX_LUT_K,
+                 what: str = "LUT accumulation",
+                 w_ndim: tuple = (2,)) -> None:
+    if qa.ndim not in a_ndim or qw.ndim not in w_ndim:
         raise ValueError(f"qa must have {' or '.join(map(str, a_ndim))} "
-                         f"dims and qw 2, got {tuple(qa.shape)} and "
-                         f"{tuple(qw.shape)}")
+                         f"dims and qw {' or '.join(map(str, w_ndim))}, "
+                         f"got {tuple(qa.shape)} and {tuple(qw.shape)}")
     k = qa.shape[-1]
-    if qw.shape[0] != k:
+    if qw.shape[-2] != k:
         raise ValueError(f"contraction mismatch: qa K={k}, qw K="
-                         f"{qw.shape[0]}")
-    if k > MAX_LUT_K:
+                         f"{qw.shape[-2]}")
+    if k > bound:
         raise ValueError(
-            f"K={k} exceeds the int32-safe LUT accumulation bound "
-            f"{MAX_LUT_K}")
+            f"K={k} exceeds the int32-safe {what} bound {bound}")
     if tuple(lut.shape) != lut_shape:
         raise ValueError(f"LUT shape must be {lut_shape}, got "
                          f"{tuple(lut.shape)}")
@@ -99,6 +114,48 @@ def approx_matmul_lut_bank(qa: torch.Tensor, qw: torch.Tensor,
                          f"{n}")
     return _dispatch(lut_matmul_bank, ref.approx_matmul_lut_bank_ref,
                      qa, qw, luts)
+
+
+def composed_matmul_lut(qa: torch.Tensor, qw: torch.Tensor,
+                        lut: torch.Tensor, mask,
+                        reduce: tuple = ("exact", 0), *,
+                        raw: bool = False):
+    """Composed wide (12/16-bit) matmul on W-bit codes (kernel K5):
+    digit products through the 256x256 tile LUT, the static ``reduce``
+    tree, ``mask`` the 2W-bit product mask (0 = narrow lane: the plain
+    tile sum), exact int32 limbs recombined as ``lo + 65536 * hi`` in
+    f32.  qa (M,K), qw (K,N) int32, lut (256,256) int32 or uint16 ->
+    (M,N) f32 (``raw=True``: the limbs)."""
+    _check_codes(qa, qw, lut, (2,), (256, 256), MAX_COMPOSED_K,
+                 "composed limb accumulation")
+    masks, rcodes = pack_codes(1, qa.device, mask, encode_reduce(reduce))
+    lo, hi = _dispatch(composed_matmul, ref.composed_matmul_limbs_ref, qa,
+                       qw, lut, masks, rcodes)
+    return (lo, hi) if raw else limbs_to_f32(lo, hi)
+
+
+def composed_matmul_lut_bank(qa: torch.Tensor, qw: torch.Tensor,
+                             luts: torch.Tensor, masks,
+                             reduce: tuple = ("exact", 0), *,
+                             raw: bool = False):
+    """Banked composed matmul, one launch for a whole mixed-width bank
+    (kernel K6): qa (M,K) shared or (n,M,K) banked codes, qw (K,N) shared
+    or (n,K,N) banked (a bank mixing widths quantizes the weights per
+    lane), luts (n,256,256) tile LUTs, masks (n,) per-lane 2W-bit masks
+    (0 = narrow lane), one static ``reduce`` tree for every lane ->
+    (n,M,N) f32, lane ``b`` equal to ``composed_matmul_lut(qa_b, qw_b,
+    luts[b], masks[b], reduce)``."""
+    n = luts.shape[0] if luts.ndim == 3 else -1
+    _check_codes(qa, qw, luts, (2, 3), (n, 256, 256), MAX_COMPOSED_K,
+                 "composed limb accumulation", (2, 3))
+    for name, t in (("qa", qa), ("qw", qw)):
+        if t.ndim == 3 and t.shape[0] != n:
+            raise ValueError(f"banked {name} has {t.shape[0]} lanes, the "
+                             f"bank {n}")
+    masks, rcodes = pack_codes(n, qa.device, masks, encode_reduce(reduce))
+    lo, hi = _dispatch(composed_matmul_bank, ref.composed_matmul_bank_ref,
+                       qa, qw, luts, masks, rcodes)
+    return (lo, hi) if raw else limbs_to_f32(lo, hi)
 
 
 def _check_fused(x: torch.Tensor, w: torch.Tensor, luts: torch.Tensor,
@@ -198,6 +255,139 @@ def fused_composed_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
                     ref.fused_composed_matmul_bank_ref, x, w, luts, masks,
                     rcodes, fp, ip)
     return _finish(out, fp, ip, x.shape[-1], raw)
+
+
+def _check_netlist(funcs, in0, in1, outs, planes, pop: bool) -> None:
+    nd = 2 if pop else 1
+    if funcs.ndim != nd or in0.shape != funcs.shape \
+            or in1.shape != funcs.shape or outs.ndim != nd \
+            or outs.shape[:-1] != funcs.shape[:-1] or planes.ndim != 2:
+        raise ValueError(
+            f"netlist arrays must be {'(P, n) ' if pop else '(n,) '}"
+            f"with matching shapes and planes (n_i, W), got funcs "
+            f"{tuple(funcs.shape)}, in0 {tuple(in0.shape)}, in1 "
+            f"{tuple(in1.shape)}, outs {tuple(outs.shape)}, planes "
+            f"{tuple(planes.shape)}")
+    for name, t in (("funcs", funcs), ("in0", in0), ("in1", in1),
+                    ("outs", outs), ("planes", planes)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != planes.device:
+            raise ValueError(f"{name} on {t.device}, planes on "
+                             f"{planes.device}")
+
+
+def _dispatch_netlist(kernel, plain, *args):
+    dev = args[-1].device
+    if dev.type == "cpu":
+        return plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return kernel(*args)
+
+
+def bitsim_planes(funcs: torch.Tensor, in0: torch.Tensor,
+                  in1: torch.Tensor, outs: torch.Tensor,
+                  planes: torch.Tensor) -> torch.Tensor:
+    """One gate netlist on bit-planes (kernel K10): funcs/in0/in1
+    (n_nodes,), outs (n_o,) int32, planes (n_i, W) int32 words (uint32
+    bit patterns) -> (n_o, W) int32 words.  Gate semantics of
+    ``core.gates``; each input a gate uses must name an earlier signal
+    (``netlist_tensors`` checks that on the host)."""
+    _check_netlist(funcs, in0, in1, outs, planes, pop=False)
+    return _dispatch_netlist(bitsim_words, ref.bitsim_ref, funcs, in0,
+                             in1, outs, planes)
+
+
+def bitsim_pop_planes(funcs: torch.Tensor, in0: torch.Tensor,
+                      in1: torch.Tensor, outs: torch.Tensor,
+                      planes: torch.Tensor) -> torch.Tensor:
+    """A population of stacked netlists on shared bit-planes in one
+    launch (kernel K11): funcs/in0/in1 (P, n_nodes), outs (P, n_o) int32
+    (``core.netlist.stack_netlists``), planes (n_i, W) int32 words ->
+    (P, n_o, W) int32 words, row p equal to ``bitsim_planes`` on
+    candidate p."""
+    _check_netlist(funcs, in0, in1, outs, planes, pop=True)
+    return _dispatch_netlist(bitsim_pop_words, ref.bitsim_pop_ref, funcs,
+                             in0, in1, outs, planes)
+
+
+def split_planes64(planes64: np.ndarray) -> np.ndarray:
+    """(n, W) uint64 bit-planes -> (n, 2W) uint32 lanes, low word first
+    (the lane layout both bitsim kernels consume)."""
+    n, w64 = planes64.shape
+    planes32 = np.empty((n, 2 * w64), dtype=np.uint32)
+    planes32[:, 0::2] = (planes64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    planes32[:, 1::2] = (planes64 >> np.uint64(32)).astype(np.uint32)
+    return planes32
+
+
+def join_planes32(planes32: np.ndarray) -> np.ndarray:
+    """Inverse of ``split_planes64`` on the trailing axis (any rank)."""
+    return (planes32[..., 0::2].astype(np.uint64)
+            | (planes32[..., 1::2].astype(np.uint64) << np.uint64(32)))
+
+
+def words_to_device(planes32: np.ndarray, device) -> torch.Tensor:
+    """uint32 words as the int32 tensor (same bits) the kernels take."""
+    return torch.from_numpy(np.ascontiguousarray(planes32).view(
+        np.int32)).to(device)
+
+
+def words_to_host(words: torch.Tensor) -> np.ndarray:
+    """The kernels' int32 words back as uint32 numpy words."""
+    return words.cpu().numpy().view(np.uint32)
+
+
+def netlist_tensors(arrays, n_i: int, device) -> list:
+    """Netlist arrays ``(funcs, in0, in1, outs)`` — one netlist's, or a
+    population's from ``stack_netlists`` — as int32 tensors on
+    ``device``, after checking on the host that every input a gate uses
+    (its ``core.gates.GATE_ARITY``) and every output names an earlier
+    signal: the kernels read signals at those indices unchecked."""
+    funcs, in0, in1, outs = (np.asarray(a, dtype=np.int32) for a in arrays)
+    if funcs.size and (funcs.min() < 0 or funcs.max() >= len(GATE_ARITY)):
+        raise ValueError("invalid gate function code")
+    limit = n_i + np.arange(funcs.shape[-1])
+    arity = GATE_ARITY[funcs]
+    for k, idx in ((1, in0), (2, in1)):
+        used = arity >= k
+        if np.any(used & ((idx < 0) | (idx >= limit))):
+            raise ValueError("a gate input violates the feed-forward "
+                             "order")
+    if np.any((outs < 0) | (outs >= n_i + funcs.shape[-1])):
+        raise ValueError("output index out of range")
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (funcs, in0, in1, outs)]
+
+
+def bitsim(netlist, planes64: np.ndarray,
+           device: DeviceLike = None) -> np.ndarray:
+    """Evaluate a ``core.netlist.Netlist`` on uint64 bit-planes through
+    kernel K10 on ``device`` (default: the GPU) — the drop-in for
+    ``netlist.eval_words``; ``device="cpu"`` runs the plain version."""
+    dev = resolve_device(device)
+    arrs = netlist_tensors((netlist.funcs, netlist.in0, netlist.in1,
+                            netlist.outputs), netlist.n_i, dev)
+    out = bitsim_planes(*arrs, words_to_device(split_planes64(planes64),
+                                               dev))
+    return join_planes32(words_to_host(out))
+
+
+def bitsim_pop(netlists, planes64: np.ndarray,
+               device: DeviceLike = None) -> np.ndarray:
+    """Evaluate a population of same-interface netlists on shared uint64
+    bit-planes in one launch of kernel K11 -> (P, n_o, W) uint64, row p
+    equal to ``netlists[p].eval_words(planes64)``.  Mixed node counts
+    are padded with inactive const0 nodes (``stack_netlists``)."""
+    dev = resolve_device(device)
+    netlists = list(netlists)
+    arrs = netlist_tensors(stack_netlists(netlists), netlists[0].n_i, dev)
+    out = bitsim_pop_planes(*arrs, words_to_device(
+        split_planes64(planes64), dev))
+    return join_planes32(words_to_host(out))
 
 
 def launch_counts() -> dict[str, int]:

@@ -7,7 +7,9 @@ with the JAX reference and ``chip_smoke.py`` can compare each kernel
 with its plain version on the card.  The fused versions take the
 kernels' own packed arguments (``fused_matmul.pack_scalars`` /
 ``pack_codes``) and return the kernels' integer outputs; the f32 result
-is ``fused_matmul.dequant`` of them, as in ``kernels.ops``.  They are no
+is ``fused_matmul.dequant`` of them, as in ``kernels.ops``.  The
+composed versions on codes return the kernels' int32 limbs, the bitsim
+versions int32 words holding the uint32 bit patterns.  They are no
 yardstick of speed.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..approx.quant import clip_codes
+from ..core.gates import GATE_ARITY
 from ..approx.registry import (composed_forward, composed_reduce_dyn,
                                digit_products, lut_gather)
 
@@ -149,3 +152,61 @@ def fused_composed_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     -> lo, hi (M,N), row (M,), col (N,) int32."""
     return tuple(t[0] for t in fused_composed_matmul_bank_ref(
         x, w, lut[None], masks, rcodes, fp, ip))
+
+
+def composed_matmul_bank_ref(qa: torch.Tensor, qw: torch.Tensor,
+                             luts: torch.Tensor, masks: torch.Tensor,
+                             rcodes: torch.Tensor) -> tuple:
+    """K6's plain version: qa (M,K) shared or (n,M,K) banked int32 W-bit
+    codes, qw (K,N) shared or (n,K,N) banked, luts (n,256,256) tile LUTs,
+    masks (n,) int64 (uint32 values, 0 = narrow lane), rcodes (n,2) int32
+    ``encode_reduce`` codes -> lo, hi (n,M,N) int32 limbs."""
+    return _stack([
+        _composed_limbs(qa if qa.ndim == 2 else qa[b],
+                        qw if qw.ndim == 2 else qw[b], luts[b], mask, kind,
+                        k)
+        for b, (mask, (kind, k)) in enumerate(zip(masks.tolist(),
+                                                  rcodes.tolist()))])
+
+
+def composed_matmul_limbs_ref(qa: torch.Tensor, qw: torch.Tensor,
+                              lut: torch.Tensor, masks: torch.Tensor,
+                              rcodes: torch.Tensor) -> tuple:
+    """K5's plain version: masks (1,), rcodes (1,2) -> lo, hi (M,N) int32
+    limbs (``composed_matmul_ref`` is their f32 recombination)."""
+    return tuple(t[0] for t in composed_matmul_bank_ref(
+        qa, qw, lut[None], masks, rcodes))
+
+
+# the ten gate functions of core/gates.py on int32 words (uint32 bit
+# patterns): identity, not, and, or, xor, nand, nor, xnor, const0, const1
+_GATES = (lambda a, b: a, lambda a, b: ~a, lambda a, b: a & b,
+          lambda a, b: a | b, lambda a, b: a ^ b, lambda a, b: ~(a & b),
+          lambda a, b: ~(a | b), lambda a, b: ~(a ^ b),
+          lambda a, b: torch.zeros_like(a), lambda a, b: ~torch.zeros_like(a))
+
+
+def bitsim_ref(funcs: torch.Tensor, in0: torch.Tensor, in1: torch.Tensor,
+               outs: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """K10's plain version: a gate netlist on bit-planes, gate by gate.
+    funcs/in0/in1 (n_nodes,), outs (n_o,) int32; planes (n_i, W) int32
+    words (uint32 bit patterns) -> (n_o, W) int32 words.  A gate reads
+    only the inputs its arity uses, as ``Netlist.eval_words`` does."""
+    zeros = planes.new_zeros(planes.shape[1])
+    sigs = list(planes.unbind(0))
+    for f, a, b in zip(funcs.tolist(), in0.tolist(), in1.tolist()):
+        arity = int(GATE_ARITY[f])
+        sigs.append(_GATES[f](sigs[a] if arity >= 1 else zeros,
+                              sigs[b] if arity >= 2 else zeros))
+    return torch.stack([sigs[o] for o in outs.tolist()])
+
+
+def bitsim_pop_ref(funcs: torch.Tensor, in0: torch.Tensor,
+                   in1: torch.Tensor, outs: torch.Tensor,
+                   planes: torch.Tensor) -> torch.Tensor:
+    """K11's plain version: ``bitsim_ref`` per candidate, stacked.
+    funcs/in0/in1 (P, n_nodes), outs (P, n_o); planes (n_i, W) shared ->
+    (P, n_o, W) int32 words."""
+    return torch.stack([bitsim_ref(funcs[p], in0[p], in1[p], outs[p],
+                                   planes)
+                        for p in range(funcs.shape[0])])

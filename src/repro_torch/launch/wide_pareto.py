@@ -1,5 +1,5 @@
 """The wide-width (composed 12/16-bit) Pareto study on the GPU, through
-the fused CUDA datapath (the port's counterpart of
+the CUDA datapaths (the port's counterpart of
 ``benchmarks/wide_width_pareto.py``).
 
 The paper's extended library spans wider circuits than the 8-bit rows;
@@ -7,22 +7,28 @@ composed W-bit multipliers decompose into tiled 8x8 LUT partial
 products reduced by library adder trees (DESIGN.md §2.6), so 12/16-bit
 candidates evaluate end to end beside the 8-bit ones.  On the trained
 ResNet-8 (full width) and the synthetic CIFAR-10 test split, with
-``mode="lut", variant="fused"``:
+``mode="lut"`` and the CUDA datapath named by ``variant``: ``"fused"``
+(default; quantize and gather in one kernel: K3 for 8-bit, K7/K8 for
+composed) or ``"pallas"`` (gathers on codes: K1 for 8-bit, K5/K6 for
+composed — every lane shares the recipes' one tree, ``loa4``, so K6
+takes each bank in one launch):
 
   1. the candidates: the case-study picks (``case_study_names(lib,
      n_mult)``) plus the composed ``WIDE_RECIPES``, power rebased onto
      ``mul8u_exact`` (``rel_power_map(..., ref="mul8u_exact")``);
-  2. the wide candidates sequentially (kernel K7) and as one bank (K8),
-     timed;
-  3. the mixed-width all-layers sweep as one bank (K8) against the
-     sequential rows (8-bit: K3; wide: step 2) — gate: equal accuracies;
+  2. the wide candidates sequentially (kernel K7 | K5) and as one bank
+     (K8 | K6), timed;
+  3. the mixed-width all-layers sweep as one bank (K8 | K6) against the
+     sequential rows (8-bit: K3 | K1; wide: step 2) — gate: equal
+     accuracies;
   4. the fidelity axis (mean |logit error| vs the f32 model, one more
      banked pass) and the Pareto fronts within the accuracy bound — gate:
      a 12/16-bit point beats every 8-bit point's fidelity.
 
-Run: ``PYTHONPATH=src python -m repro_torch.launch.wide_pareto`` (GPU;
-``--device cpu --eval-n 16 --batch 8`` runs a small version on the CPU
-through the kernels' plain versions).  Raises when a gate fails.
+Run: ``PYTHONPATH=src python -m repro_torch.launch.wide_pareto
+[--variant pallas]`` (GPU; ``--device cpu --eval-n 16 --batch 8`` runs a
+small version on the CPU through the kernels' plain versions).  Raises
+when a gate fails.
 """
 from __future__ import annotations
 
@@ -82,7 +88,8 @@ def _point_dict(p: DesignPoint, width: int) -> dict:
 
 def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
         n_mult: int = 6, quality_bound: float = 0.02,
-        log: Callable[[str], None] = print) -> dict:
+        log: Callable[[str], None] = print,
+        variant: str = "fused") -> dict:
     """Run the study; returns a JSON-able record.  Raises when the banked
     mixed-width accuracies differ from the sequential ones, or when no
     wide point beats every 8-bit point's fidelity within the bound."""
@@ -102,7 +109,7 @@ def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
 
     def sweep(workload, cands, batched):
         return all_layers_sweep(workload, counts, cands, lib, mode="lut",
-                                variant="fused", batch=batched,
+                                variant=variant, batch=batched,
                                 rel_power=rp)
 
     baseline = wl(ApproxPolicy(default=BackendSpec.golden()))
@@ -158,7 +165,7 @@ def run(device: DeviceLike = None, eval_n: int = 256, batch: int = 64,
     record = {
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
-        "variant": "fused", "eval_n": eval_n, "batch": batch,
+        "variant": variant, "eval_n": eval_n, "batch": batch,
         "quality_bound": quality_bound, "baseline_accuracy": baseline,
         "candidates": [{"multiplier": n, "bit_width": widths[n],
                         "rel_power_vs_mul8u_exact": rp[n]} for n in names],
@@ -194,10 +201,15 @@ def main() -> None:
                     help="8-bit case-study picks (wide recipes ride on "
                          "top)")
     ap.add_argument("--quality-bound", type=float, default=0.02)
+    ap.add_argument("--variant", default="fused",
+                    choices=("fused", "pallas"),
+                    help="CUDA datapath: single-kernel (K3/K7/K8) or "
+                         "gathers on codes (K1/K5/K6)")
     ap.add_argument("--out", default=None, help="write the record here")
     args = ap.parse_args()
     record = run(args.device, eval_n=args.eval_n, batch=args.batch,
-                 n_mult=args.n_mult, quality_bound=args.quality_bound)
+                 n_mult=args.n_mult, quality_bound=args.quality_bound,
+                 variant=args.variant)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=2)

@@ -3,8 +3,7 @@ LUT datapaths (ref and the CUDA-kernel variant, which runs its plain
 version on the CPU) bit for bit on ragged shapes; f32 within 1e-5
 relative (float sums in another order).  Also: banked evaluation lane
 by lane, the JSON form of specs and policies across the two packages,
-and the datapaths that are not ported yet (lowrank; composed widths
-under the two-step ``pallas`` kernels)."""
+and the datapath that is not ported yet (lowrank)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,9 +179,8 @@ def test_spec_and_policy_json_cross_packages():
 
 
 def test_unported_datapaths_raise_with_roadmap_item(libs):
-    """lowrank is not ported; composed widths are, except under the
-    two-step ``pallas`` kernels (K5/K6), which raise rather than compute
-    a narrow result."""
+    """lowrank is not ported; composed widths are, under every variant
+    (``pallas`` runs the two-step composed kernels K5/K6)."""
     _, port, names = libs
     for spec in (BackendSpec(mode="lowrank", multiplier=names[0]),
                  BackendSpec(mode="lowrank", multiplier=names[0],
@@ -191,17 +189,15 @@ def test_unported_datapaths_raise_with_roadmap_item(libs):
             spec.materialize(port)
     lib = port_build("tiny")
     wide = lib.add_composed(names[0], 12, samples=1 << 10)
-    for variant in ("ref", "fused"):
+    for variant in ("ref", "fused", "pallas"):
         assert BackendSpec(mode="lut", multiplier=wide.name,
                            variant=variant).materialize(lib).consts["bits"] \
             == 12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K5/K6"):
-        BackendSpec(mode="lut", multiplier=wide.name,
-                    variant="pallas").materialize(lib)
     bank = LutBank.from_library([names[0], wide.name], lib)
     assert bank.any_wide and bank.bit_widths == (8, 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K5/K6"):
-        bank_backend(bank, "lut", "pallas")
+    for variant in ("ref", "fused", "pallas"):
+        consts = bank_backend(bank, "lut", variant).consts
+        assert consts["composed"] and consts["masks"][0] == 0
 
 
 def test_materialize_cache_shares_backends(libs):

@@ -55,10 +55,15 @@ def test_case_study_names_match_benchmark_rule(libs):
 
 
 def test_population_engines_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_library.build_default_library("tiny", engine="numpy")
+    """The population engines are ported (``tests/test_torch_evolve_pop
+    .py`` holds their builds against the reference); an unknown engine
+    still raises, and the device engine runs on the GPU unless the
+    caller names the CPU."""
     with pytest.raises(ValueError, match="unknown engine"):
         port_library.build_default_library("tiny", engine="gpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        port_library.build_default_library("tiny", engine="gpu",
+                                           device="cpu")
 
 
 @pytest.mark.parametrize("split", ["train", "test"])

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,11 +37,15 @@ def test_port_has_the_main_path_modules():
                 "approx/workload.py", "approx/resilience.py",
                 "approx/dse.py", "kernels/ops.py", "kernels/ref.py",
                 "kernels/datapaths.py", "kernels/fused_matmul.py",
+                "kernels/composed_matmul.py", "kernels/bitsim.py",
+                "core/evolve_pop.py", "core/build_library.py",
                 "models/resnet.py", "models/weights.py",
                 "launch/case_study.py", "launch/wide_pareto.py"):
         assert mod in rel, mod
     from repro_torch.kernels.build import KERNELS
-    assert len(KERNELS) == 6
+    from repro_torch.kernels.ops import launch_counts
+    assert len(KERNELS) == 10
+    assert set(launch_counts()) == set(KERNELS)
     for name in KERNELS:
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists(), name
 
@@ -85,6 +90,20 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     from repro_torch.launch import wide_pareto
     with pytest.raises(RuntimeError, match="no CUDA device"):
         wide_pareto.run()
+    from repro_torch.core import build_library
+    from repro_torch.core.library import build_default_library
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_default_library("tiny", engine="device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_library.run("tiny", "device")
+    from repro_torch.core.evolve_pop import PopEvaluator
+    from repro_torch.core.cgp import CgpParams
+    from repro_torch.core.seeds import ripple_carry_adder
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PopEvaluator(ripple_carry_adder(4), CgpParams(), engine="device")
+    from repro_torch.kernels import ops
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.bitsim(ripple_carry_adder(4), np.zeros((8, 1), np.uint64))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
