@@ -37,7 +37,8 @@ Phases (any failure exits nonzero):
      built library;
   5. timings — each kernel and its plain version at the main-path
      shapes (CUDA events after warm-up) beside its bound, and a CGP
-     generation's wall split into host and device time.
+     generation's wall split into host time and the time from its
+     operands on the card to its scores on the host.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -529,7 +530,8 @@ def phase_library(device, log, launches_total: dict):
             f"{st['rungs']} x {st['lam']} candidates, evolved in "
             f"{st['evolve_s']:.2f} s; per generation "
             f"{split[fam]['generation_ms']:.2f} ms = host "
-            f"{split[fam]['host_ms']:.2f} + device (K11 + reduce) "
+            f"{split[fam]['host_ms']:.2f} + operands on the card to "
+            f"scores on the host (K11, reduction, copy back) "
             f"{split[fam]['device_ms']:.2f}")
     tiny = {}
     for engine in ("device", "numpy"):

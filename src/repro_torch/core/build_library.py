@@ -4,14 +4,15 @@
     PYTHONPATH=src python -m repro_torch.core.build_library \\
         --budget small --engine device
 
-``--engine device`` evolves the 8-bit multiplier and adder with the
-population-parallel generational ladder (DESIGN.md §2.9): each
+``--engine device`` (the default) evolves the 8-bit multiplier and adder
+with the population-parallel generational ladder (DESIGN.md §2.9): each
 generation's whole population is scored in one launch of the population
 simulator (kernel K11) on the GPU, every improved feasible parent is
 admitted, and composed 12/16-bit rows are registered over the evolved
 Pareto tiles.  ``--engine numpy`` runs the same search on the host,
-``legacy`` the sequential chained ladder.  ``--device cpu`` runs the
-device engine through the kernel's plain version.
+``legacy`` the sequential chained ladder; both ignore ``--device``.
+``--device cpu`` runs the device engine through the kernel's plain
+version.
 
 The library is written to ``--out`` (default
 ``library_data/library_<budget>_<engine>.json`` beside this module);
@@ -34,7 +35,7 @@ def default_out(budget: str, engine: str) -> str:
                         f"library_{budget}_{engine}.json")
 
 
-def run(budget: str = "small", engine: str = "legacy",
+def run(budget: str = "small", engine: str = "device",
         device: DeviceLike = None, out: Optional[str] = None,
         log: Callable[[str], None] = print) -> tuple:
     """Build the library and save it to ``out`` (when given); returns
@@ -66,7 +67,7 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--budget", choices=("tiny", "small", "full"),
                     default="small")
     ap.add_argument("--engine", choices=("legacy", "numpy", "device"),
-                    default="legacy",
+                    default="device",
                     help="evolutionary search backend: sequential "
                          "chained ladder ('legacy') or the "
                          "population-parallel generational ladder on "

@@ -46,17 +46,13 @@ from .netlist import Netlist, exhaustive_inputs, stack_netlists, \
 # metrics whose reduction runs on the device with EXACT integer
 # arithmetic (int64 sums finished in float64 on the host); the rest
 # simulate on the device and reduce on the host from the transferred
-# values.
+# values.  (The reference reduces on the device only up to 24 output
+# bits, the bound of its int32 chunked sums, and pads populations to a
+# multiple of 8 for its jit cache; int64 sums are exact up to the
+# 32-output cap and a CUDA launch has no shape cache, so the port needs
+# neither.)
 DEVICE_METRICS = ("er", "mae", "wce")
 
-# population counts are padded up to a multiple of this, so the kernel
-# sees one population shape per λ-bucket (the reference pads for its
-# jit cache; the port keeps the same populations).
-POP_PAD = 8
-
-# the device reduction runs for outputs of up to 24 bits (the
-# reference's bound for its exact int32 chunked sums)
-_REDUCE_MAX_N_O = 24
 # values travel as 32-bit words, so the device engine caps at 32 outputs
 _DEVICE_MAX_N_O = 32
 
@@ -101,9 +97,11 @@ class PopEvaluator:
                       values.
 
     Instrumented: ``n_scored`` candidates / ``n_calls`` evaluation
-    calls; ``host_s`` (stacking the netlists) and ``device_s`` (copies,
-    simulation and reduction, up to the scores on the host) of the
-    device engine's calls.
+    calls; of the device engine's calls, ``host_s`` (stacking the
+    netlists, checking them and copying them to the device) and
+    ``device_s`` (from there to the scores on the host: the K11 launch,
+    the reduction's PyTorch ops with their dispatch, and the copy back,
+    which waits for the device).
     """
 
     def __init__(self, exact: Netlist, params: CgpParams,
@@ -163,14 +161,12 @@ class PopEvaluator:
     def _device_errors(self, pop: list) -> np.ndarray:
         t0 = time.perf_counter()
         p = len(pop)
-        pp = -(-p // POP_PAD) * POP_PAD
-        arrs = stack_netlists(pop + [pop[0]] * (pp - p))
+        tens = ops.netlist_tensors(stack_netlists(pop), self.n_i,
+                                   self.device)
         t1 = time.perf_counter()
-        out = ops.bitsim_pop_planes(
-            *ops.netlist_tensors(arrs, self.n_i, self.device),
-            self.planes32)
-        vals = _pop_values(out, self.n_o)
-        if self.metric in DEVICE_METRICS and self.n_o <= _REDUCE_MAX_N_O:
+        vals = _pop_values(ops.bitsim_pop_planes(*tens, self.planes32),
+                           self.n_o)
+        if self.metric in DEVICE_METRICS:
             ne, wce, sums = _reduce(vals, self.exact_u32,
                                     self.num).cpu().numpy()
             if self.metric == "er":
@@ -179,11 +175,10 @@ class PopEvaluator:
                 res = wce.astype(np.float64)
             else:   # mae: exact integer total, float64 division
                 res = sums.astype(np.float64) / self.num
-            res = res[:p]
         else:
-            # host-reduced fallback (mse/mre/wcre, or n_o in 25..32):
-            # the simulation still runs as one launch
-            vals = vals[:p, :self.num].cpu().numpy()
+            # host-reduced fallback (mse/mre/wcre): the simulation still
+            # runs as one launch
+            vals = vals[:, :self.num].cpu().numpy()
             res = np.empty(p, dtype=np.float64)
             for k in range(p):
                 res[k] = error_report_from_values(

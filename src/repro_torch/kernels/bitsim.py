@@ -12,9 +12,9 @@ Hopper counterparts of the reference's TPU kernels in
 
 Words travel as int32 tensors holding the uint32 bit patterns (PyTorch's
 uint32 lacks the bitwise ops on the CPU); the kernels read them as
-uint32.  ``plan`` picks the word block from the netlist's signal count:
-the signal scratch sits in shared memory while it fits, in device memory
-past that (see ``csrc/bitsim.cuh``).
+uint32.  ``plan`` picks the word block from the netlist's signal count
+so that the signal scratch fits shared memory, and refuses a netlist too
+large for it (see ``csrc/bitsim.cuh``).
 
 Callers go through ``repro_torch.kernels.ops`` (``bitsim_planes``,
 ``bitsim_pop_planes``), which validates the operands and sends CPU
@@ -39,21 +39,26 @@ SMEM_MAX = 232448
 WORD_BLOCKS = (128, 64, 32)
 
 
-def plan(n_signals: int) -> tuple[int, bool]:
-    """``(wb, in_device_memory)`` for a netlist of ``n_signals`` (inputs
-    plus nodes): the widest word block whose uint32 scratch fits
-    ``SMEM_TARGET``; else 32 words in shared memory up to ``SMEM_MAX``;
-    else 32 words with the scratch in device memory."""
+def plan(n_signals: int) -> int:
+    """The word block for a netlist of ``n_signals`` (inputs plus
+    nodes): the widest whose uint32 scratch fits ``SMEM_TARGET``, else 32
+    words up to ``SMEM_MAX``.  Past that (more than 1816 signals, e.g.
+    ``array_multiplier(32)``) the kernels have no room: ValueError."""
     for wb in WORD_BLOCKS:
         if n_signals * wb * 4 <= SMEM_TARGET:
-            return wb, False
+            return wb
     wb = WORD_BLOCKS[-1]
-    return wb, n_signals * wb * 4 > SMEM_MAX
+    if n_signals * wb * 4 > SMEM_MAX:
+        raise ValueError(
+            f"netlist of {n_signals} signals (inputs + nodes) does not "
+            f"fit the bitsim kernels' shared memory: at most "
+            f"{SMEM_MAX // (4 * wb)} signals")
+    return wb
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {"bitsim": [_P] * 7 + [_I] * 5 + [_P],
-             "bitsim_pop": [_P] * 7 + [_I] * 6 + [_P]}
+_ARGTYPES = {"bitsim": [_P] * 6 + [_I] * 5 + [_P],
+             "bitsim_pop": [_P] * 6 + [_I] * 6 + [_P]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,20 +75,15 @@ def _launch(name: str, fn, funcs, in0, in1, outs, planes) -> torch.Tensor:
     n_nodes = funcs.shape[-1]
     n_o = outs.shape[-1]
     n_i, w = planes.shape
+    wb = plan(n_i + n_nodes)
     out = torch.empty((p, n_o, w), dtype=torch.int32, device=planes.device)
     if p == 0 or n_o == 0 or w == 0:
         return out
-    wb, in_memory = plan(n_i + n_nodes)
-    scratch = None
-    if in_memory:
-        blocks = -(-w // wb)
-        scratch = torch.empty(p * blocks * (n_i + n_nodes) * wb,
-                              dtype=torch.int32, device=planes.device)
     dims = (p, n_nodes, n_i, n_o, w, wb) if pop else (n_nodes, n_i, n_o, w,
                                                        wb)
     err = _launcher(name)(
         _ptr(funcs), _ptr(in0), _ptr(in1), _ptr(outs), _ptr(planes),
-        _ptr(out), None if scratch is None else _ptr(scratch), *dims,
+        _ptr(out), *dims,
         ctypes.c_void_p(torch.cuda.current_stream(planes.device).cuda_stream))
     build.check(name, err)
     fn.launches += 1

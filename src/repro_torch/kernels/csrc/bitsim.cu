@@ -12,10 +12,10 @@
 extern "C" int bitsim_launch(const int* funcs, const int* in0,
                              const int* in1, const int* outs,
                              const unsigned* planes, unsigned* out,
-                             unsigned* scratch, int n_nodes, int n_i,
-                             int n_o, int W, int wb, void* stream) {
-  return bitsim::launch(funcs, in0, in1, outs, planes, out, scratch, 1,
-                        n_nodes, n_i, n_o, W, wb,
+                             int n_nodes, int n_i, int n_o, int W, int wb,
+                             void* stream) {
+  return bitsim::launch(funcs, in0, in1, outs, planes, out, 1, n_nodes,
+                        n_i, n_o, W, wb,
                         static_cast<cudaStream_t>(stream));
 }
 

@@ -18,10 +18,10 @@
 // Every thread of a block walks the same gate at the same time, so the
 // reads of funcs/in0/in1 are uniform (one broadcast load for the warp)
 // and the branch on the gate's arity never diverges.
-// The scratch lives in dynamic shared memory when (n_i + n_nodes) * WB *
-// 4 bytes fit a block's 227 KB (the wrapper picks WB: 128, 64 or 32 words);
-// past about 1800 signals even WB = 32 does not fit, and the signals live
-// in a device-memory scratch laid out the same way (coalesced per warp).
+// The scratch lives in dynamic shared memory: (n_i + n_nodes) * WB * 4
+// bytes must fit a block's 227 KB (the wrapper picks WB: 128, 64 or 32
+// words, and refuses a netlist of more than 1816 signals, where even
+// WB = 32 does not fit).
 //
 // What bounds it on an H100: latency of the dependent shared-memory
 // loads of each gate, not bandwidth — a CGP generation (32 candidates x
@@ -57,18 +57,13 @@ __global__ void bitsim_kernel(const int* __restrict__ funcs,
                               const int* __restrict__ in1,
                               const int* __restrict__ outs,
                               const unsigned* __restrict__ planes,
-                              unsigned* __restrict__ out,
-                              unsigned* __restrict__ scratch, int n_nodes,
+                              unsigned* __restrict__ out, int n_nodes,
                               int n_i, int n_o, int W, int wb) {
-  extern __shared__ unsigned s_sig[];
+  extern __shared__ unsigned sig[];
   const int p = blockIdx.y;
   const int t = threadIdx.x;
   const int w = blockIdx.x * wb + t;
   if (w >= W) return;              // no barrier below: columns are private
-  const size_t n_sig = (size_t)n_i + n_nodes;
-  unsigned* sig = scratch == nullptr
-      ? s_sig
-      : scratch + ((size_t)p * gridDim.x + blockIdx.x) * n_sig * wb;
   const int* f_p = funcs + (size_t)p * n_nodes;
   const int* a_p = in0 + (size_t)p * n_nodes;
   const int* b_p = in1 + (size_t)p * n_nodes;
@@ -95,14 +90,13 @@ __global__ void bitsim_kernel(const int* __restrict__ funcs,
   for (int k = 0; k < n_o; ++k) o[(size_t)k * W] = sig[__ldg(o_p + k) * wb + t];
 }
 
-// Launch P candidates over W words with word blocks of wb threads; the
-// signals go to shared memory when scratch is null, else to scratch
-// (P * ceil(W / wb) * (n_i + n_nodes) * wb words).  Returns the launch's
-// cudaGetLastError().
+// Launch P candidates over W words with word blocks of wb threads, the
+// signals in (n_i + n_nodes) * wb words of shared memory.  Returns the
+// launch's cudaGetLastError().
 inline int launch(const int* funcs, const int* in0, const int* in1,
                   const int* outs, const unsigned* planes, unsigned* out,
-                  unsigned* scratch, int P, int n_nodes, int n_i, int n_o,
-                  int W, int wb, cudaStream_t stream) {
+                  int P, int n_nodes, int n_i, int n_o, int W, int wb,
+                  cudaStream_t stream) {
   static bool configured = false;    // once: the opt-in limit
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -111,14 +105,11 @@ inline int launch(const int* funcs, const int* in0, const int* in1,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const size_t smem =
-      scratch == nullptr ? ((size_t)n_i + n_nodes) * wb * sizeof(unsigned)
-                         : 0;
+  const size_t smem = ((size_t)n_i + n_nodes) * wb * sizeof(unsigned);
   if (smem > (size_t)kSmemOptin) return (int)cudaErrorInvalidValue;
   const dim3 grid((W + wb - 1) / wb, P);
   bitsim_kernel<<<grid, wb, smem, stream>>>(funcs, in0, in1, outs, planes,
-                                            out, scratch, n_nodes, n_i, n_o,
-                                            W, wb);
+                                            out, n_nodes, n_i, n_o, W, wb);
   return (int)cudaGetLastError();
 }
 

@@ -17,11 +17,10 @@
 extern "C" int bitsim_pop_launch(const int* funcs, const int* in0,
                                  const int* in1, const int* outs,
                                  const unsigned* planes, unsigned* out,
-                                 unsigned* scratch, int P, int n_nodes,
-                                 int n_i, int n_o, int W, int wb,
-                                 void* stream) {
-  return bitsim::launch(funcs, in0, in1, outs, planes, out, scratch, P,
-                        n_nodes, n_i, n_o, W, wb,
+                                 int P, int n_nodes, int n_i, int n_o,
+                                 int W, int wb, void* stream) {
+  return bitsim::launch(funcs, in0, in1, outs, planes, out, P, n_nodes,
+                        n_i, n_o, W, wb,
                         static_cast<cudaStream_t>(stream));
 }
 

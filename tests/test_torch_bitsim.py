@@ -7,8 +7,8 @@ in interpret mode and ``Netlist.eval_words``, bit for bit: random
 netlists with all 10 gate functions, one word and word counts that are
 no block multiple, mixed node counts through ``stack_netlists``,
 compacted netlists (stale indices in unused inputs), and the word-block
-plan of the CUDA kernels, which keeps the signals of a netlist too large
-for shared memory in device memory.
+plan of the CUDA kernels, whose wrappers refuse a netlist too large for
+shared memory rather than fall back to the plain version.
 
 The CUDA kernels are compared with their plain versions by the
 ``gpu``-marked test (and ``chip_smoke.py``) on the card."""
@@ -152,24 +152,34 @@ def test_const_only_and_compacted_netlists():
         ops.bitsim(bad, planes, "cpu")
 
 
-def test_word_block_plan_keeps_large_netlists_in_device_memory():
+def test_word_block_plan_raises_past_shared_memory():
     """The CUDA kernels' word block from the signal count: the 8-bit
     adder (53 signals) takes 128-word blocks, the 8-bit multiplier (336)
-    32 words in shared memory (43 KB a block), and past about 1800
-    signals — ``array_multiplier(32)``, 5952 — the signals move to device
-    memory.  The plain version runs every size."""
+    32 words (43 KB a block), and past 1816 signals —
+    ``array_multiplier(32)``, 5952 — the kernel wrappers raise, naming
+    the count, before they allocate or launch.  The plain version (CPU
+    tensors through ``ops``) runs every size."""
     add8, mul8, mul32 = (ripple_carry_adder(8), array_multiplier(8),
                          array_multiplier(32))
-    assert kbitsim.plan(add8.n_i + add8.n_nodes) == (128, False)
+    assert kbitsim.plan(add8.n_i + add8.n_nodes) == 128
     assert mul8.n_i + mul8.n_nodes == 336
-    assert kbitsim.plan(336) == (32, False)
+    assert kbitsim.plan(336) == 32
     assert 336 * 32 * 4 <= kbitsim.SMEM_TARGET
-    assert kbitsim.plan(1816) == (32, False)
-    assert kbitsim.plan(1817) == (32, True)
+    assert kbitsim.plan(1816) == 32
+    with pytest.raises(ValueError, match="1817 signals"):
+        kbitsim.plan(1817)
     assert mul32.n_i + mul32.n_nodes == 5952
-    assert kbitsim.plan(5952) == (32, True)
     rng = np.random.default_rng(2)
     planes = rng.integers(0, 2 ** 64, (mul32.n_i, 2), dtype=np.uint64)
+    words = ops.words_to_device(ops.split_planes64(planes), "cpu")
+    tens = ops.netlist_tensors((mul32.funcs, mul32.in0, mul32.in1,
+                                mul32.outputs), mul32.n_i, "cpu")
+    before = dict(ops.launch_counts())
+    with pytest.raises(ValueError, match="5952 signals"):
+        kbitsim.bitsim_words(*tens, words)
+    with pytest.raises(ValueError, match="5952 signals"):
+        kbitsim.bitsim_pop_words(*(t[None] for t in tens), words)
+    assert ops.launch_counts() == before
     np.testing.assert_array_equal(ops.bitsim(mul32, planes, "cpu"),
                                   mul32.eval_words(planes))
 
@@ -208,13 +218,12 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", ["add8", "mul8", "mul32"])
+@pytest.mark.parametrize("which", ["add8", "mul8"])
 def test_cuda_bitsim_kernels_match_plain(cuda, which):
-    """K10 and K11 against their plain versions on the card, in shared
-    memory (8-bit adder and multiplier) and in device memory (32-bit
-    multiplier)."""
-    seed = {"add8": ripple_carry_adder(8), "mul8": array_multiplier(8),
-            "mul32": array_multiplier(32)}[which]
+    """K10 and K11 against their plain versions on the card: the 8-bit
+    adder at 128-word blocks, the 8-bit multiplier at 32."""
+    seed = {"add8": ripple_carry_adder(8),
+            "mul8": array_multiplier(8)}[which]
     rng = np.random.default_rng(3)
     from repro_torch.core.cgp import mutate
     pop = [seed]

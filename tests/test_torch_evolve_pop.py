@@ -53,11 +53,11 @@ def _port_eval(exact, p, engine, **kw):
 def test_errors_of_equals_reference_every_metric(mult6, metric):
     """Device-reduced metrics (er/mae/wce) and the host-reduced fallback
     alike: the port's two engines give the reference's float64 values
-    exactly, on a population whose size is no multiple of POP_PAD."""
+    exactly, on a population of 11 (the reference pads it to 16)."""
     p = CgpParams(metric=metric, search_samples=2048, seed=3)
     rng = np.random.default_rng(7)
     pop = [random_netlist(rng, mult6.n_i, mult6.n_o, 80)
-           for _ in range(port_pop.POP_PAD + 3)]
+           for _ in range(ref_pop.POP_PAD + 3)]
     want = ref_pop.PopEvaluator(mult6, _ref_params(p),
                                 engine="device").errors_of(pop)
     assert want.dtype == np.float64
@@ -75,6 +75,26 @@ def test_adder_errors_of_equals_reference(metric):
     pop = [random_netlist(rng, add.n_i, add.n_o, 50) for _ in range(5)]
     want = ref_pop.PopEvaluator(add, _ref_params(p),
                                 engine="numpy").errors_of(pop)
+    for engine in ENGINES:
+        np.testing.assert_array_equal(
+            _port_eval(add, p, engine).errors_of(pop), want)
+
+
+@pytest.mark.parametrize("metric", port_pop.DEVICE_METRICS)
+@pytest.mark.parametrize("width", [24, 31])
+def test_wide_output_device_reduction_equals_reference(width, metric):
+    """25 and 32 output bits: the port reduces on the device in exact
+    int64 where the reference reduces on the host (its int32 chunked
+    sums stop at 24 bits); the floats are the same."""
+    add = ripple_carry_adder(width)
+    assert add.n_o == width + 1
+    p = CgpParams(metric=metric, search_samples=1024, seed=13)
+    rng = np.random.default_rng(width)
+    pop = [random_netlist(rng, add.n_i, add.n_o, 60) for _ in range(5)]
+    pop.append(add)
+    want = ref_pop.PopEvaluator(add, _ref_params(p),
+                                engine="device").errors_of(pop)
+    assert want[-1] == 0.0 and np.all(want[:-1] > 0)
     for engine in ENGINES:
         np.testing.assert_array_equal(
             _port_eval(add, p, engine).errors_of(pop), want)

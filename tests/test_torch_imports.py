@@ -96,6 +96,10 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         build_default_library("tiny", engine="device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_library.run("tiny", "device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_library.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_library.main([])
     from repro_torch.core.evolve_pop import PopEvaluator
     from repro_torch.core.cgp import CgpParams
     from repro_torch.core.seeds import ripple_carry_adder
