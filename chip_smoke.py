@@ -17,7 +17,13 @@ Phases (any failure exits nonzero):
      a bank mixing exact/trunc/loa trees, ragged shapes and a table with
      LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
      population (32 candidates, 8192 vectors) for the 8-bit multiplier
-     and adder;
+     and adder; the low-rank kernel (K9), whose f32 sums run in another
+     order than its plain version's, held with its plain version to the
+     bound |y - y64| <= 2 (K R + 1) 2^-24 S (y64 the sum in float64,
+     S = sum_r |U_r(qa)| @ |V_r(qw)|) at the serve path's shapes
+     (M = 128 prefill and 4 decode; (K, N) of every projection of
+     qwen1.5-0.5b) and ragged ones, with the served multiplier's factors
+     at rank 4 and at its auto rank;
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
@@ -29,14 +35,22 @@ Phases (any failure exits nonzero):
      budget ``small``, ``engine="device"``: K11 scores every generation,
      K10 re-verifies each search's final circuit), then the ``tiny``
      build under ``engine="device"`` on the card and ``"numpy"`` on the
-     host, which must be equal; fails unless every kernel ran, and
-     unless the CUDA datapaths' banked logits equal the plain
-     datapath's;
+     host, which must be equal; the serve path
+     (``repro_torch.launch.serve.run``: qwen1.5-0.5b at full width,
+     batch 4, prompt 32, 16 new tokens, ``mode="lowrank"``, rank 4, the
+     auto-picked multiplier, ``variant="pallas"``), which must launch K9
+     7 x 24 times per forward, keep every K9 call of one prefill and one
+     decode step within the bound of its plain version on the same
+     codes, and agree with the same model under ``variant="ref"``
+     within the CPU tests' logit tolerance (teacher-forced), with one
+     decode step profiled; fails unless every kernel ran, and unless
+     the CUDA datapaths' banked logits equal the plain datapath's;
   4. K10 against ``Netlist.eval_words`` and its plain version on
      exhaustive planes (65 536 vectors) for every evolved netlist of the
      built library;
   5. timings — each kernel and its plain version at the main-path
-     shapes (CUDA events after warm-up) beside its bound, and a CGP
+     shapes (CUDA events after warm-up) beside its bound (K9 also beside
+     ``torch.matmul`` of its pre-gathered tables), and a CGP
      generation's wall split into host time and the time from its
      operands on the card to its scores on the host.
 
@@ -82,7 +96,30 @@ SOURCES = {
                              "composed_matmul.py:158"),
     "bitsim": ("bitsim.cu", "bitsim.py:73"),
     "bitsim_pop": ("bitsim_pop.cu", "bitsim.py:149"),
+    "lowrank_matmul": ("lowrank_matmul.cu", "lowrank_matmul.py:48"),
 }
+
+# the serve path: qwen1.5-0.5b at full width, every projection on the
+# auto-picked multiplier through the rank-4 factored LUT (kernel K9)
+SERVE = {"arch": "qwen1.5-0.5b", "batch": 4, "prompt_len": 32,
+         "max_new": 16, "mode": "lowrank", "multiplier": "auto", "rank": 4}
+# K9 per forward: 7 projections (wq, wk, wv, wo, wi, wg, ffn.wo) a layer
+PROJECTIONS_PER_LAYER = 7
+# the logit tolerance tests/test_torch_lm.py states for the quantized
+# policies, relative to the largest |logit| (about twice the reference's
+# own lowrank vs lowrank_pallas spread)
+QUANT_RTOL = 0.025
+# K9 at the serve path's shapes: M = batch x prompt (prefill) or batch
+# (decode); (K, N) of each projection of qwen1.5-0.5b
+LOWRANK_SHAPES = {"prefill attn": (128, 1024, 1024),
+                  "prefill ffn.wi/wg": (128, 1024, 2816),
+                  "prefill ffn.wo": (128, 2816, 1024),
+                  "decode attn": (4, 1024, 1024),
+                  "decode ffn.wi/wg": (4, 1024, 2816),
+                  "decode ffn.wo": (4, 2816, 1024)}
+LOWRANK_RAGGED = ((129, 577, 65), (7, 130, 1), (1, 1, 1))
+# H100 SXM FP32 FMA lanes per SM (SIMT, no tensor cores)
+FP32_LANES_PER_SM = 128
 
 
 def _smi(fields: str) -> str:
@@ -325,14 +362,58 @@ def phase_compare(shapes: dict, device) -> dict:
                                                 ("loa", 4))],
                   [fm.limbs_to_f32(*want)], f"{what} f32")
         del qa, qw
+    mult, factors = _served_factors(device)
+    for label, (m, k, n) in list(LOWRANK_SHAPES.items()) + [
+            (f"ragged{s_}", s_) for s_ in LOWRANK_RAGGED]:
+        qa = _codes((m, k), gen, device)
+        qw = _codes((k, n), gen, device)
+        for rname, (u, v) in factors.items():
+            err = _check_lowrank(ops.lowrank_matmul(qa, qw, u, v),
+                                 ref.lowrank_matmul_ref(qa, qw, u, v),
+                                 qa, qw, u, v,
+                                 f"{label} {(m, k, n)} {mult} {rname}")
+            max_err["lowrank_matmul"] = max(max_err["lowrank_matmul"], err)
+            cases += 1
     for name, pop in _populations(device).items():
         check("bitsim_pop", [ops.bitsim_pop_planes(*pop["tensors"],
                                                    pop["words"])],
               [ref.bitsim_pop_ref(*pop["tensors"], pop["words"])],
               f"{name} generation (32 x {pop['words'].shape[1]} words)")
-    print(f"[compare] {cases} kernel-vs-plain cases bit-exact; max abs "
-          f"err {max_err}")
+    print(f"[compare] {cases} kernel-vs-plain cases: bit-exact, K9 within "
+          f"its bound; max abs err {max_err}")
     return {"cases": cases, "max_abs_err": max_err}
+
+
+def _served_factors(device):
+    """The served multiplier (``pick_case_multiplier``) and its factor
+    tables on the card at rank 4 and at its auto rank."""
+    from repro_torch.approx.specs import BackendSpec
+    from repro_torch.launch.steps import pick_case_multiplier
+    name = pick_case_multiplier()
+    out = {}
+    for rank in (4, None):
+        c = BackendSpec(mode="lowrank", multiplier=name,
+                        rank=rank).materialize().device_consts(device)
+        tag = f"R={c['u'].shape[0]}" + (" (auto)" if rank is None else "")
+        out[tag] = (c["u"], c["v"])
+    return name, out
+
+
+def _check_lowrank(got, plain, qa, qw, u, v, what: str) -> float:
+    """K9 and its plain version against the bound both are held to
+    (``kernels.ref.lowrank_bound``): |y - y64| <= 2 (K R + 1) 2^-24 S
+    elementwise, y64 the sum in float64, S = Σ_r |U_r(qa)| @ |V_r(qw)|.
+    Returns max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ref
+    torch.cuda.synchronize()
+    y64, tol = ref.lowrank_bound(qa, qw, u, v)
+    for name, y in (("kernel", got), ("plain", plain)):
+        if not (y.shape == y64.shape and bool(torch.isfinite(y).all())
+                and bool(((y.double() - y64).abs() <= tol).all())):
+            raise AssertionError(f"lowrank_matmul {name} outside its bound "
+                                 f"at {what}")
+    return float((got - plain).abs().max()) if got.numel() else 0.0
 
 
 def phase_compare_library(lib, device, max_err: dict) -> dict:
@@ -483,6 +564,7 @@ def phase_main(device) -> dict:
           "the fused ones, point for point")
     lib, record = phase_library(device, log, out["launches"])
     out["library"] = record
+    out["serve"] = phase_serve(device, log, out["launches"])
     if min(out["launches"].values()) <= 0:
         raise AssertionError(f"a kernel never ran on the main paths: "
                              f"{out['launches']}")
@@ -546,6 +628,184 @@ def phase_library(device, log, launches_total: dict):
     record.update(main_path_s=wall, launches=launches,
                   generation_split=split)
     return lib, record
+
+
+def _teacher_forced(cfg, params, prompts, tokens, policy, device):
+    """Prefill logits, then the decode logits with ``tokens`` fed back
+    (so two policies see the same stream): (max_new, B, V) f32."""
+    import torch
+    from repro_torch.models.registry import model_fns
+    fns = model_fns(cfg)
+    b, s = prompts.shape
+    with torch.inference_mode():
+        cache = fns.init_cache(cfg, b, s + tokens.shape[1], device)
+        logits, cache = fns.forward_prefill(
+            params, {"tokens": torch.as_tensor(prompts, device=device)},
+            cache, cfg, policy)
+        out = [logits]
+        for i in range(tokens.shape[1] - 1):
+            logits, cache = fns.forward_decode(
+                params, torch.as_tensor(tokens[:, i], device=device), cache,
+                cfg, policy)
+            out.append(logits)
+        return torch.stack(out).float()
+
+
+def _checked_generate(engine, prompts, device) -> dict:
+    """One prefill and one decode step through ``engine`` with every K9
+    call's output re-checked against the plain version on the same
+    codes, within the bound (``_check_lowrank``)."""
+    from repro_torch.kernels import datapaths, ref
+    from repro_torch.serve import ServeConfig
+    real = datapaths.lowrank_matmul
+    seen = []
+
+    def checked(qa, qw, u, v):
+        y = real(qa, qw, u, v)
+        seen.append((qa.shape[0], _check_lowrank(
+            y, ref.lowrank_matmul_ref(qa, qw, u, v), qa, qw, u, v,
+            f"serve call {len(seen)} {tuple(qa.shape)}x{tuple(qw.shape)}")))
+        return y
+
+    datapaths.lowrank_matmul = checked
+    try:
+        engine.generate(prompts, ServeConfig(max_new_tokens=2))
+    finally:
+        datapaths.lowrank_matmul = real
+    per_forward = PROJECTIONS_PER_LAYER * engine.cfg.n_layers
+    rows = sorted({m for m, _ in seen})
+    if len(seen) != 2 * per_forward or len(rows) != 2:
+        raise AssertionError(f"checked serve run made {len(seen)} K9 calls "
+                             f"at rows {rows}, expected {2 * per_forward} "
+                             "over one prefill and one decode step")
+    return {"calls": len(seen), "rows": rows,
+            "max_abs_err": max(e for _, e in seen)}
+
+
+def _profile_decode(engine, prompts, device) -> dict:
+    """One decode step under ``torch.profiler``: its wall, the device's
+    busy time (the kernels' own time) and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg, fns, policy = engine.cfg, engine.fns, engine.policy
+    b, s = prompts.shape
+    with torch.inference_mode():
+        cache = fns.init_cache(cfg, b, s + 3, device)
+        logits, cache = fns.forward_prefill(
+            engine.params, {"tokens": torch.as_tensor(prompts,
+                                                      device=device)},
+            cache, cfg, policy)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, cache = fns.forward_decode(engine.params, tok, cache, cfg,
+                                           policy)        # warm-up step
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fns.forward_decode(engine.params, tok, cache, cfg, policy)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # the kernels themselves (device-side entries): a host op's own
+    # device time repeats the kernels it launched
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    busy_ms = sum(dev_ms(e) for e in kernels)
+    top = sorted(kernels, key=dev_ms, reverse=True)[:8]
+    host = sorted(events, key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:8]
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if busy_ms > 0 else None,
+            "busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
+            "kernels": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": dev_ms(e)} for e in top],
+            "top_host": [{"name": e.key, "calls": e.count,
+                          "host_ms": e.self_cpu_time_total / 1e3}
+                         for e in host]}
+
+
+def phase_serve(device, log, launches_total: dict) -> dict:
+    """Path D: ``launch.serve.run`` at the full width of qwen1.5-0.5b
+    under ``lowrank``/``pallas`` (K9 in every projection of every layer,
+    prefill and decode), then its gates: K9 launched 7 x 24 times per
+    forward; every K9 call of one prefill and one decode step within the
+    bound of the plain version on the same codes; the same model under
+    ``variant="ref"`` (plain PyTorch) within the CPU tests' logit
+    tolerance, teacher-forced; one decode step profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine, ServeConfig
+    record, wall, launches = _drive(
+        "serve qwen1.5-0.5b (lowrank, pallas)",
+        lambda: serve.run(device, **SERVE, variant="pallas", log=log),
+        ("lowrank_matmul",))
+    for k, v in launches.items():
+        launches_total[k] += v
+    dev, cfg, params, prompts = serve.setup(
+        device, SERVE["arch"], batch=SERVE["batch"],
+        prompt_len=SERVE["prompt_len"])
+    per_forward = PROJECTIONS_PER_LAYER * cfg.n_layers
+    per_generate = per_forward * SERVE["max_new"]
+    # warm-up and timed runs: a full generate and a prefill-only one each
+    expected = 2 * (per_generate + per_forward)
+    tokens = np.asarray(record["tokens"])
+    if (launches["lowrank_matmul"] != expected
+            or tokens.shape != (SERVE["batch"], SERVE["max_new"])
+            or tokens.min() < 0 or tokens.max() >= cfg.vocab):
+        raise AssertionError(f"serve run malformed: K9 launches "
+                             f"{launches['lowrank_matmul']} (expected "
+                             f"{expected}), tokens {tokens.shape}")
+    log(f"serve: K9 launched {per_forward} times per forward, "
+        f"{per_generate} per generate ({expected} in the run); end-to-end "
+        f"{record['e2e_s']:.3f} s, prefill-only generate "
+        f"{record['prefill_s']:.3f} s, warm-up pair {record['warmup_s']:.2f} s")
+    pols = {v: serve.make_policy(SERVE["mode"], record["multiplier"],
+                                 SERVE["rank"], v)
+            for v in ("pallas", "ref")}
+    engines = {v: Engine(cfg, params, p) for v, p in pols.items()}
+    checked = _checked_generate(engines["pallas"], prompts, dev)
+    log(f"serve: {checked['calls']} K9 calls of a prefill and a decode "
+        f"step (rows {checked['rows']}) within the bound of the plain "
+        f"version on the same codes; max |K9 - plain| "
+        f"{checked['max_abs_err']:.3g}")
+    cfg_new = ServeConfig(max_new_tokens=SERVE["max_new"])
+    greedy = {v: e.generate(prompts, cfg_new) for v, e in engines.items()}
+    logits = {v: _teacher_forced(cfg, params, prompts, greedy["pallas"],
+                                 p, dev) for v, p in pols.items()}
+    d_pre = float((logits["pallas"][0] - logits["ref"][0]).abs().max())
+    d_dec = float((logits["pallas"][1:] - logits["ref"][1:]).abs().max())
+    agree = float((greedy["pallas"] == greedy["ref"]).mean())
+    if not np.array_equal(greedy["pallas"], tokens):
+        raise AssertionError("the checked engine's greedy tokens differ "
+                             "from the served run's")
+    atol = QUANT_RTOL * float(logits["ref"].abs().max())
+    log(f"serve: pallas vs ref on the card: max |d logits| prefill "
+        f"{d_pre:.4g}, teacher-forced decode {d_dec:.4g} (tolerance "
+        f"{atol:.4g} = {QUANT_RTOL} x the largest |logit|); greedy tokens "
+        f"agree {agree:.1%}")
+    if not (bool(torch.isfinite(logits["pallas"]).all())
+            and d_pre <= atol and d_dec <= atol):
+        raise AssertionError(f"pallas serve logits differ from ref beyond "
+                             f"{atol}: {d_pre}, {d_dec}")
+    prof = _profile_decode(engines["pallas"], prompts, dev)
+    log(f"serve: one decode step {prof['wall_ms']:.2f} ms under the "
+        f"profiler, device busy {prof['device_busy_ms']} ms "
+        f"(share {prof['busy_share']}, {prof['kernels']} kernels); top "
+        f"device {prof['top'][:5]}; top host {prof['top_host'][:5]}")
+    del engines, params, logits
+    torch.cuda.empty_cache()
+    return {**record, "main_path_s": wall, "launches": launches,
+            "k9_per_forward": per_forward, "k9_per_generate": per_generate,
+            "checked": checked, "pallas_vs_ref": {
+                "prefill_max_abs": d_pre, "decode_max_abs": d_dec,
+                "atol": atol, "token_agreement": agree},
+            "decode_profile": prof}
 
 
 def _time(fn, reps: int, warmup: int) -> float:
@@ -679,8 +939,56 @@ def phase_timing(shapes: dict, device) -> dict:
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%})")
     rows += _bitsim_timing(device, lookup_rate)
+    fp32_rate = sms * FP32_LANES_PER_SM * 2 * clock_hz
+    rows += _lowrank_timing(device, fp32_rate)
     return {"lookup_rate_per_s": lookup_rate, "wide_bank": t["wide_names"],
-            "rows": rows}
+            "fp32_flops_per_s": fp32_rate, "rows": rows}
+
+
+def _lowrank_timing(device, fp32_rate: float) -> list:
+    """K9 at each serve shape with the served multiplier's rank-4
+    factors, beside its plain version, its bound and a yardstick that is
+    not a port: ``torch.matmul`` in f32 (TF32 off) of the pre-gathered
+    tables concatenated over r, (M, R·K) @ (R·K, N), which computes the
+    same sum.  Bound: 2·M·K·N·R flops at the SIMT FP32 rate (132 SMs x
+    128 lanes x 2 x clock), or the codes, tables and output moved once
+    at 3.35 TB/s, whichever is larger."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    _, factors = _served_factors(device)
+    u, v = factors["R=4"]
+    r = u.shape[0]
+    rows = []
+    for label, (m, k, n) in LOWRANK_SHAPES.items():
+        qa = _codes((m, k), gen, device)
+        qw = _codes((k, n), gen, device)
+        ua = u[:, qa.long()].permute(1, 0, 2).reshape(m, r * k).contiguous()
+        vw = v[:, qw.long()].reshape(r * k, n).contiguous()
+        flops = 2 * m * k * n * r
+        nbytes = (m * k + k * n + 2 * r * 256 + m * n) * 4
+        ops_ms = flops / fp32_rate * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"kernel": "lowrank_matmul", "layer": label, "M": m, "K": k,
+               "N": n, "R": r, "flops": flops, "bytes": nbytes,
+               "ms": _time(lambda: ops.lowrank_matmul(qa, qw, u, v),
+                           reps=20, warmup=3),
+               "plain_ms": _time(lambda: ref.lowrank_matmul_ref(qa, qw, u,
+                                                                v),
+                                 reps=5, warmup=1),
+               "gathered_matmul_ms": _time(lambda: torch.matmul(ua, vw),
+                                           reps=20, warmup=3),
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        rows.append(row)
+        print(f"[timing] lowrank_matmul {label:18s} M={m:4d} K={k:4d} "
+              f"N={n:4d} R={r}: {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f} ms, gathered matmul "
+              f"{row['gathered_matmul_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}, "
+              f"{row['bound_ms'] / row['ms']:.1%})")
+    return rows
 
 
 def _bitsim_timing(device, lookup_rate: float) -> list:

@@ -16,10 +16,13 @@ Built-in datapaths registered here:
                (DESIGN.md §2.6) gather four digit products from their
                tile LUT, reduce them by the recipe's shift/add tree and
                accumulate two exact int32 limbs
+  * ``lowrank`` — rank-R factored LUT (DESIGN.md §4.2): R 256-entry
+               table gathers per operand and an f32 contraction
 
-The hand-written CUDA variants — ``lut_pallas`` and ``lut_fused``, named
-after the reference's Pallas datapaths they replace — are registered by
-``repro_torch.kernels.datapaths`` and resolved lazily on first lookup.
+The hand-written CUDA variants — ``lut_pallas``, ``lut_fused`` and
+``lowrank_pallas``, named after the reference's Pallas datapaths they
+replace — are registered by ``repro_torch.kernels.datapaths`` and
+resolved lazily on first lookup.
 
 ``forward_q`` takes codes as int32 tensors: ``qa`` is ``(M, K)`` or,
 inside a banked evaluation, ``(n, M, K)`` with one lane per bank entry;
@@ -42,19 +45,13 @@ import numpy as np
 import torch
 
 from ..core.families import parse_reduce
+from ..core.luts import decompose_lut, rank_for_tolerance
 
 MAX_LUT_K = 33030  # int32-safe accumulation bound: 2^31 / 255^2
 # Composed wide products accumulate as two 16-bit limbs (DESIGN.md
 # §2.6): each limb is < 2^16, so int32 limb sums stay exact for up to
 # 2^31 / (2^16 - 1) contraction terms.
 MAX_COMPOSED_K = (1 << 31) // ((1 << 16) - 1)  # = 32768
-
-#: The ROADMAP.md item that ports each datapath this package does not
-#: have yet.
-_NOT_PORTED = {
-    "lowrank": "ROADMAP.md Queue 2, lowrank (kernel K9, lowrank_matmul)",
-}
-
 
 class Datapath:
     """Base class for registered datapaths.
@@ -118,10 +115,6 @@ def get_datapath(name: str) -> Datapath:
         # the CUDA-kernel variants live in the kernel layer
         import repro_torch.kernels.datapaths  # noqa: F401  (registers)
     if name not in _REGISTRY:
-        for key, item in _NOT_PORTED.items():
-            if key in name:
-                raise NotImplementedError(
-                    f"datapath {name!r} is not ported yet ({item})")
         raise KeyError(
             f"unknown datapath {name!r}; available: "
             f"{sorted(_REGISTRY)}")
@@ -130,6 +123,16 @@ def get_datapath(name: str) -> Datapath:
 
 def available_datapaths() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def _resolve_rank(spec, library, lut: np.ndarray) -> int:
+    """spec.rank, or the smallest R whose decomposition error is
+    negligible next to the circuit's own error (floor 0.25 LSB^2)."""
+    if spec.rank:
+        return int(spec.rank)
+    mult_mae = max(library.entry(spec.multiplier).errors.mae, 0.0)
+    tol = max(0.25, 0.1 * mult_mae)
+    return int(rank_for_tolerance(lut, tol, max_rank=16))
 
 
 def _validate_reduce(spec, comp) -> tuple:
@@ -168,6 +171,14 @@ def pack_lut(spec, library) -> dict:
             f"for composed wide entries; {spec.multiplier!r} is "
             f"{entry.width}-bit and materializes directly")
     return consts
+
+
+def pack_lowrank(spec, library) -> dict:
+    """Numpy constants of the low-rank datapaths: the rank-R SVD
+    factors ``u``, ``v`` (R, 256) f32 of the multiplier's LUT."""
+    lut = np.asarray(library.lut(spec.multiplier), dtype=np.int32)
+    fac = decompose_lut(lut, _resolve_rank(spec, library, lut))
+    return {"u": np.asarray(fac.u), "v": np.asarray(fac.v)}
 
 
 # ----------------------------------------------------------------------
@@ -444,3 +455,27 @@ class LutDatapath(Datapath):
         return torch.stack([
             one(i, qa[i] if qa.ndim == 3 else qa,
                 qw[i] if qw.ndim == 3 else qw) for i in range(n)])
+
+
+def lowrank_gather(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Σ_r U_r(qa) @ V_r(qw) in f32: qa (M,K), qw (K,N) int32 codes,
+    u, v (R,256) f32 -> (M,N) f32 (the reference's gathers and
+    ``einsum("rmk,rkn->mn")``)."""
+    ua = u[:, qa.long()]                 # (R,M,K)
+    vw = v[:, qw.long()]                 # (R,K,N)
+    return torch.einsum("rmk,rkn->mn", ua, vw)
+
+
+@register_datapath("lowrank")
+class LowRankDatapath(Datapath):
+    """Σ_k Σ_r U[r,qa]V[r,qw]  ==  Σ_r tableU_r(qa) @ tableV_r(qw).
+    (M,K) x (K,N) -> (M,N) f32, in plain PyTorch."""
+
+    spec_fields = ("multiplier", "rank")
+
+    def pack(self, spec, library) -> dict:
+        return pack_lowrank(spec, library)
+
+    def forward_q(self, qa, qw, consts):
+        return lowrank_gather(qa, qw, consts["u"], consts["v"])

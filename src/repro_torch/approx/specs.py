@@ -7,11 +7,11 @@ defaults, validation and ``to_dict``/JSON form are the reference's, so
 a policy JSON moves between the two packages unchanged.
 
 ``variant`` names the implementation: ``"ref"`` is the plain PyTorch
-datapath; ``"pallas"`` names the hand-written-kernel datapath
-(``lut_pallas``), which in this package runs the CUDA LUT-gather
-kernels of ``repro_torch.kernels`` (the name is kept so policies stay
-interchangeable with the reference, whose ``pallas`` variant runs
-Pallas kernels); ``"fused"`` names the single-kernel datapath
+datapath; ``"pallas"`` names the hand-written-kernel datapaths
+(``lut_pallas``, ``lowrank_pallas``), which in this package run the
+CUDA kernels of ``repro_torch.kernels`` — LUT gathers, K9 for lowrank
+(the name is kept so policies stay interchangeable with the reference,
+whose ``pallas`` variant runs Pallas kernels); ``"fused"`` names the single-kernel datapath
 (``lut_fused``: quantize, gather, accumulate and code sums in one CUDA
 kernel, at 8 bits and at composed 12/16 bits).  Under ``"pallas"``
 composed widths run the two-step composed kernels (K5/K6).
@@ -47,7 +47,8 @@ class BackendSpec:
     ``mode`` selects the registered datapath ("f32"/"bf16" bypass
     quantization entirely); ``variant`` selects the implementation
     ("ref" = plain PyTorch, "pallas" = the CUDA-kernel datapath
-    ``lut_pallas``, "fused" = the fused CUDA datapath ``lut_fused``).
+    ``lut_pallas`` / ``lowrank_pallas``, "fused" = the fused CUDA
+    datapath ``lut_fused``).
     ``rank=None`` means auto.
     ``bit_width`` / ``reduce_adder`` describe composed wide datapaths
     and are validated as in the reference."""

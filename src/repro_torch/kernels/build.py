@@ -22,7 +22,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 KERNELS = ("lut_matmul", "lut_matmul_bank", "fused_matmul",
            "fused_matmul_bank", "fused_composed_matmul",
            "fused_composed_matmul_bank", "composed_matmul",
-           "composed_matmul_bank", "bitsim", "bitsim_pop")
+           "composed_matmul_bank", "bitsim", "bitsim_pop", "lowrank_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

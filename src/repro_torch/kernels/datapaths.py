@@ -11,6 +11,7 @@ here the datapaths run the hand-written CUDA kernels through
 ``lut_pallas`` runs the two-step kernels on codes at every width: K1/K2
 for 8-bit entries and banks, K5/K6 for composed 12/16-bit entries and
 banks with wide lanes.  ``lut_fused`` runs the single-kernel path.
+``lowrank_pallas`` runs the rank-R factored product on K9.
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ import numpy as np
 import torch
 
 from ..approx.quant import calibrate, scalar_params
-from ..approx.registry import (Datapath, encode_reduce, pack_lut,
-                               register_datapath)
+from ..approx.registry import (Datapath, encode_reduce, pack_lowrank,
+                               pack_lut, register_datapath)
 from .approx_matmul import lut_to_uint16
 from .ops import (approx_matmul_lut, approx_matmul_lut_bank,
                   composed_matmul_lut, composed_matmul_lut_bank,
                   fused_composed_matmul_lut, fused_composed_matmul_lut_bank,
-                  fused_matmul_lut, fused_matmul_lut_bank)
+                  fused_matmul_lut, fused_matmul_lut_bank, lowrank_matmul)
 
 
 @register_datapath("lut_pallas")
@@ -131,3 +132,17 @@ class LutFusedDatapath(Datapath):
         raise TypeError(
             "lut_fused is a fused datapath: the backend routes float "
             "operands through forward_fused, never quantized codes")
+
+
+@register_datapath("lowrank_pallas")
+class LowRankPallasDatapath(Datapath):
+    """Rank-R factored emulation through the CUDA kernel K9
+    (``ops.lowrank_matmul``): (M,K) x (K,N) codes -> (M,N) f32."""
+
+    spec_fields = ("multiplier", "rank")
+
+    def pack(self, spec, library) -> dict:
+        return pack_lowrank(spec, library)
+
+    def forward_q(self, qa, qw, consts):
+        return lowrank_matmul(qa, qw, consts["u"], consts["v"])

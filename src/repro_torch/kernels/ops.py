@@ -36,6 +36,7 @@ from .fused_matmul import (dequant, fused_composed_matmul,
                            fused_composed_matmul_bank, fused_matmul,
                            fused_matmul_bank, limbs_to_f32, pack_codes,
                            pack_scalars)
+from .lowrank_matmul import MAX_RANK, lowrank_matmul as lowrank_kernel
 from .lut_bank import lut_matmul_bank
 
 #: Every CUDA kernel's launcher (its ``.launches`` counts launches).
@@ -46,7 +47,8 @@ KERNELS = {"lut_matmul": lut_matmul, "lut_matmul_bank": lut_matmul_bank,
            "fused_composed_matmul_bank": fused_composed_matmul_bank,
            "composed_matmul": composed_matmul,
            "composed_matmul_bank": composed_matmul_bank,
-           "bitsim": bitsim_words, "bitsim_pop": bitsim_pop_words}
+           "bitsim": bitsim_words, "bitsim_pop": bitsim_pop_words,
+           "lowrank_matmul": lowrank_kernel}
 
 
 def _check_codes(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
@@ -255,6 +257,38 @@ def fused_composed_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
                     ref.fused_composed_matmul_bank_ref, x, w, luts, masks,
                     rcodes, fp, ip)
     return _finish(out, fp, ip, x.shape[-1], raw)
+
+
+def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Rank-R factored approximate matmul (kernel K9):
+    Σ_r U_r(qa) @ V_r(qw) in f32.  qa (M,K), qw (K,N) int32 codes in
+    [0,255]; u, v (R,256) f32 -> (M,N) f32.  The kernel takes
+    1 <= R <= ``lowrank_matmul.MAX_RANK`` (its tables live in shared
+    memory); a larger R raises on every device."""
+    if qa.ndim != 2 or qw.ndim != 2 or qa.shape[1] != qw.shape[0]:
+        raise ValueError(f"qa (M,K) and qw (K,N) expected, got "
+                         f"{tuple(qa.shape)} and {tuple(qw.shape)}")
+    if u.ndim != 2 or u.shape != v.shape or u.shape[1] != 256:
+        raise ValueError(f"u and v must both be (R, 256), got "
+                         f"{tuple(u.shape)} and {tuple(v.shape)}")
+    if not 1 <= u.shape[0] <= MAX_RANK:
+        raise ValueError(f"rank R={u.shape[0]} outside the 1..{MAX_RANK} "
+                         "the lowrank_matmul kernel takes (its factor "
+                         "tables live in shared memory)")
+    for name, t, dt in (("qa", qa, torch.int32), ("qw", qw, torch.int32),
+                        ("u", u, torch.float32), ("v", v, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != qa.device:
+            raise ValueError(f"{name} on {t.device}, qa on {qa.device}")
+    if qa.device.type == "cpu":
+        return ref.lowrank_matmul_ref(qa, qw, u, v)
+    if qa.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qa.device}")
+    return lowrank_kernel(qa, qw, u, v)
 
 
 def _check_netlist(funcs, in0, in1, outs, planes, pop: bool) -> None:

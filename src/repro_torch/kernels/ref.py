@@ -19,7 +19,7 @@ import torch
 from ..approx.quant import clip_codes
 from ..core.gates import GATE_ARITY
 from ..approx.registry import (composed_forward, composed_reduce_dyn,
-                               digit_products, lut_gather)
+                               digit_products, lowrank_gather, lut_gather)
 
 # gather block: keeps the (rows, K, N) int64 index tensor near 2^24
 # elements whatever the shape
@@ -210,3 +210,27 @@ def bitsim_pop_ref(funcs: torch.Tensor, in0: torch.Tensor,
     return torch.stack([bitsim_ref(funcs[p], in0[p], in1[p], outs[p],
                                    planes)
                         for p in range(funcs.shape[0])])
+
+
+def lowrank_matmul_ref(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Σ_r tableU_r(qa) @ tableV_r(qw) in f32: the ``lowrank``
+    datapath's gathers and contraction.  qa (M,K), qw (K,N) int32 codes
+    in [0,255]; u, v (R,256) f32 -> (M,N) f32."""
+    return lowrank_gather(qa, qw, u, v)
+
+
+def lowrank_bound(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The error bound every f32 evaluation of ``lowrank_matmul_ref``'s
+    sum is held to, whatever its order: ``(y64, tol)`` with ``y64`` the
+    same sum in float64 and ``tol = 2 (K R + 1) 2^-24 S``, ``S =
+    Σ_r |U_r(qa)| @ |V_r(qw)|`` in float64 — a recursive f32 sum of
+    K·R products errs by at most (K R) u S with u = 2^-24, so a result
+    ``y`` passes when ``|y - y64| <= tol`` elementwise."""
+    ua = u.to(torch.float64)[:, qa.long()]
+    vw = v.to(torch.float64)[:, qw.long()]
+    y64 = torch.einsum("rmk,rkn->mn", ua, vw)
+    s = torch.einsum("rmk,rkn->mn", ua.abs(), vw.abs())
+    k, r = qa.shape[1], u.shape[0]
+    return y64, 2.0 * (k * r + 1) * 2.0 ** -24 * s

@@ -1,1 +1,2 @@
-"""Models of the port (``repro.models`` counterpart): the CIFAR ResNet."""
+"""Models of the port (``repro.models`` counterpart): the CIFAR ResNet
+and the dense decoder LM."""

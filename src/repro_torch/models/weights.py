@@ -3,7 +3,8 @@
 ``params_from_numpy`` turns the reference's nested ResNet param dict
 (numpy arrays, HWIO conv kernels) into the port's ``ResNet`` module —
 the one conversion the tests use to make both packages compute the
-same network.  ``load_resnet8_checkpoint`` reads the committed trained
+same network; ``lm_params_from_numpy`` does the same for the
+reference's LM parameter tree.  ``load_resnet8_checkpoint`` reads the committed trained
 ResNet-8 checkpoint (``benchmarks/results/resnet8_ckpt_v2``, written by
 the reference's ``CheckpointManager``) with numpy alone, read-only.
 """
@@ -57,6 +58,16 @@ def params_from_numpy(tree: dict, cfg: Optional[ResNetConfig] = None
         state[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def lm_params_from_numpy(tree, device="cpu"):
+    """The reference's LM parameter tree — nested dicts of numpy arrays,
+    as ``jax.tree.map(np.asarray, params)`` gives them — as the same
+    nested dicts of tensors on ``device``: same keys, same stacked
+    layer-group axis, same dtypes (f32 parameters stay f32)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
 
 
 def load_resnet8_checkpoint(path: Union[str, Path] = RESNET8_CKPT) -> dict:

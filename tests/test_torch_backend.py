@@ -3,7 +3,7 @@ LUT datapaths (ref and the CUDA-kernel variant, which runs its plain
 version on the CPU) bit for bit on ragged shapes; f32 within 1e-5
 relative (float sums in another order).  Also: banked evaluation lane
 by lane, the JSON form of specs and policies across the two packages,
-and the datapath that is not ported yet (lowrank)."""
+and the lowrank datapaths' factors."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -179,14 +179,20 @@ def test_spec_and_policy_json_cross_packages():
 
 
 def test_unported_datapaths_raise_with_roadmap_item(libs):
-    """lowrank is not ported; composed widths are, under every variant
-    (``pallas`` runs the two-step composed kernels K5/K6)."""
-    _, port, names = libs
-    for spec in (BackendSpec(mode="lowrank", multiplier=names[0]),
-                 BackendSpec(mode="lowrank", multiplier=names[0],
-                             variant="pallas")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            spec.materialize(port)
+    """Every datapath is ported now: both lowrank variants (``pallas``
+    runs kernel K9) materialize to the reference's factors bit for bit,
+    and composed widths materialize under every variant (``pallas``
+    runs the two-step composed kernels K5/K6)."""
+    ref, port, names = libs
+    for variant in ("ref", "pallas"):
+        for rank in (None, 4):
+            want = RefSpec(mode="lowrank", multiplier=names[0], rank=rank,
+                           variant=variant).materialize(ref).consts
+            got = BackendSpec(mode="lowrank", multiplier=names[0],
+                              rank=rank, variant=variant).materialize(
+                                  port).consts
+            for key in ("u", "v"):
+                np.testing.assert_array_equal(got[key], want[key])
     lib = port_build("tiny")
     wide = lib.add_composed(names[0], 12, samples=1 << 10)
     for variant in ("ref", "fused", "pallas"):

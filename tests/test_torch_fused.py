@@ -225,7 +225,8 @@ def test_launch_counts_cover_six_kernels_untouched_on_cpu():
         "lut_matmul": 0, "lut_matmul_bank": 0, "fused_matmul": 0,
         "fused_matmul_bank": 0, "fused_composed_matmul": 0,
         "fused_composed_matmul_bank": 0, "composed_matmul": 0,
-        "composed_matmul_bank": 0, "bitsim": 0, "bitsim_pop": 0}
+        "composed_matmul_bank": 0, "bitsim": 0, "bitsim_pop": 0,
+        "lowrank_matmul": 0}
 
 
 def test_packed_scalars_and_codes_broadcast_per_lane():

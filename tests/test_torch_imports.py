@@ -40,11 +40,16 @@ def test_port_has_the_main_path_modules():
                 "kernels/composed_matmul.py", "kernels/bitsim.py",
                 "core/evolve_pop.py", "core/build_library.py",
                 "models/resnet.py", "models/weights.py",
-                "launch/case_study.py", "launch/wide_pareto.py"):
+                "launch/case_study.py", "launch/wide_pareto.py",
+                "kernels/lowrank_matmul.py", "models/common.py",
+                "models/decoder.py", "models/registry.py",
+                "configs/__init__.py", "configs/qwen1_5_0_5b.py",
+                "launch/steps.py", "serve/__init__.py", "serve/engine.py",
+                "launch/serve.py"):
         assert mod in rel, mod
     from repro_torch.kernels.build import KERNELS
     from repro_torch.kernels.ops import launch_counts
-    assert len(KERNELS) == 10
+    assert len(KERNELS) == 11
     assert set(launch_counts()) == set(KERNELS)
     for name in KERNELS:
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists(), name
@@ -108,6 +113,16 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     from repro_torch.kernels import ops
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.bitsim(ripple_carry_adder(4), np.zeros((8, 1), np.uint64))
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([])
+    qa = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.lowrank_matmul(qa.to("meta"), torch.zeros(
+            (3, 2), dtype=torch.int32, device="meta"),
+            *(torch.ones((4, 256), device="meta"),) * 2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
