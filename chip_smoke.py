@@ -21,9 +21,11 @@ Phases (any failure exits nonzero):
      order than its plain version's, held with its plain version to the
      bound |y - y64| <= 2 (K R + 1) 2^-24 S (y64 the sum in float64,
      S = sum_r |U_r(qa)| @ |V_r(qw)|) at the serve path's shapes
-     (M = 128 prefill and 4 decode; (K, N) of every projection of
+     (M = 128 prefill on its 3xTF32 tensor-core regime and 4 decode on
+     its streaming split-K regime; (K, N) of every projection of
      qwen1.5-0.5b) and ragged ones, with the served multiplier's factors
-     at rank 4 and at its auto rank;
+     at rank 4 and at its auto rank, and a second call on the same
+     inputs bit-equal to the first (its split K sums in a fixed order);
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
@@ -50,7 +52,8 @@ Phases (any failure exits nonzero):
      built library;
   5. timings — each kernel and its plain version at the main-path
      shapes (CUDA events after warm-up) beside its bound (K9 also beside
-     ``torch.matmul`` of its pre-gathered tables), and a CGP
+     ``torch.matmul`` of its pre-gathered tables, its ``library_ms``, with
+     its regime and grid), and a CGP
      generation's wall split into host time and the time from its
      operands on the card to its scores on the host.
 
@@ -120,6 +123,10 @@ LOWRANK_SHAPES = {"prefill attn": (128, 1024, 1024),
 LOWRANK_RAGGED = ((129, 577, 65), (7, 130, 1), (1, 1, 1))
 # H100 SXM FP32 FMA lanes per SM (SIMT, no tensor cores)
 FP32_LANES_PER_SM = 128
+# H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet, 700 W); K9's
+# f32-accurate 3xTF32 split takes three products per multiply-add
+TF32_FLOPS_PER_S = 495e12
+TF32_SPLIT_PRODUCTS = 3
 
 
 def _smi(fields: str) -> str:
@@ -272,6 +279,7 @@ def phase_compare(shapes: dict, device) -> dict:
     wide = t["wide"]
     max_err = {name: 0.0 for name in SOURCES}
     cases = 0
+    lowrank_ratio = 0.0
 
     def check(name, got, want, what):
         nonlocal cases
@@ -368,20 +376,26 @@ def phase_compare(shapes: dict, device) -> dict:
         qa = _codes((m, k), gen, device)
         qw = _codes((k, n), gen, device)
         for rname, (u, v) in factors.items():
-            err = _check_lowrank(ops.lowrank_matmul(qa, qw, u, v),
-                                 ref.lowrank_matmul_ref(qa, qw, u, v),
-                                 qa, qw, u, v,
-                                 f"{label} {(m, k, n)} {mult} {rname}")
+            got = ops.lowrank_matmul(qa, qw, u, v)
+            err, ratio = _check_lowrank(
+                got, ref.lowrank_matmul_ref(qa, qw, u, v), qa, qw, u, v,
+                f"{label} {(m, k, n)} {mult} {rname}")
             max_err["lowrank_matmul"] = max(max_err["lowrank_matmul"], err)
-            cases += 1
+            lowrank_ratio = max(lowrank_ratio, ratio)
+            # the split-K partials are summed in a fixed order: a second
+            # call gives the same bits
+            check("lowrank_matmul", [ops.lowrank_matmul(qa, qw, u, v)],
+                  [got], f"{label} {(m, k, n)} {rname} repeated")
     for name, pop in _populations(device).items():
         check("bitsim_pop", [ops.bitsim_pop_planes(*pop["tensors"],
                                                    pop["words"])],
               [ref.bitsim_pop_ref(*pop["tensors"], pop["words"])],
               f"{name} generation (32 x {pop['words'].shape[1]} words)")
     print(f"[compare] {cases} kernel-vs-plain cases: bit-exact, K9 within "
-          f"its bound; max abs err {max_err}")
-    return {"cases": cases, "max_abs_err": max_err}
+          f"its bound (max |K9 - y64| / bound {lowrank_ratio:.3g}); max abs "
+          f"err {max_err}")
+    return {"cases": cases, "max_abs_err": max_err,
+            "lowrank_err_over_bound": lowrank_ratio}
 
 
 def _served_factors(device):
@@ -399,11 +413,12 @@ def _served_factors(device):
     return name, out
 
 
-def _check_lowrank(got, plain, qa, qw, u, v, what: str) -> float:
+def _check_lowrank(got, plain, qa, qw, u, v,
+                   what: str) -> tuple[float, float]:
     """K9 and its plain version against the bound both are held to
     (``kernels.ref.lowrank_bound``): |y - y64| <= 2 (K R + 1) 2^-24 S
     elementwise, y64 the sum in float64, S = Σ_r |U_r(qa)| @ |V_r(qw)|.
-    Returns max |kernel - plain|."""
+    Returns max |kernel - plain| and the kernel's max |y - y64| / tol."""
     import torch
     from repro_torch.kernels import ref
     torch.cuda.synchronize()
@@ -413,7 +428,10 @@ def _check_lowrank(got, plain, qa, qw, u, v, what: str) -> float:
                 and bool(((y.double() - y64).abs() <= tol).all())):
             raise AssertionError(f"lowrank_matmul {name} outside its bound "
                                  f"at {what}")
-    return float((got - plain).abs().max()) if got.numel() else 0.0
+    if not got.numel():
+        return 0.0, 0.0
+    ratio = float(((got.double() - y64).abs() / tol.clamp_min(1e-300)).max())
+    return float((got - plain).abs().max()), ratio
 
 
 def phase_compare_library(lib, device, max_err: dict) -> dict:
@@ -662,7 +680,7 @@ def _checked_generate(engine, prompts, device) -> dict:
 
     def checked(qa, qw, u, v):
         y = real(qa, qw, u, v)
-        seen.append((qa.shape[0], _check_lowrank(
+        seen.append((qa.shape[0], *_check_lowrank(
             y, ref.lowrank_matmul_ref(qa, qw, u, v), qa, qw, u, v,
             f"serve call {len(seen)} {tuple(qa.shape)}x{tuple(qw.shape)}")))
         return y
@@ -673,13 +691,14 @@ def _checked_generate(engine, prompts, device) -> dict:
     finally:
         datapaths.lowrank_matmul = real
     per_forward = PROJECTIONS_PER_LAYER * engine.cfg.n_layers
-    rows = sorted({m for m, _ in seen})
+    rows = sorted({m for m, _, _ in seen})
     if len(seen) != 2 * per_forward or len(rows) != 2:
         raise AssertionError(f"checked serve run made {len(seen)} K9 calls "
                              f"at rows {rows}, expected {2 * per_forward} "
                              "over one prefill and one decode step")
     return {"calls": len(seen), "rows": rows,
-            "max_abs_err": max(e for _, e in seen)}
+            "max_abs_err": max(e for _, e, _ in seen),
+            "max_err_over_bound": max(q for _, _, q in seen)}
 
 
 def _profile_decode(engine, prompts, device) -> dict:
@@ -773,7 +792,8 @@ def phase_serve(device, log, launches_total: dict) -> dict:
     log(f"serve: {checked['calls']} K9 calls of a prefill and a decode "
         f"step (rows {checked['rows']}) within the bound of the plain "
         f"version on the same codes; max |K9 - plain| "
-        f"{checked['max_abs_err']:.3g}")
+        f"{checked['max_abs_err']:.3g}, max |K9 - y64| / bound "
+        f"{checked['max_err_over_bound']:.3g}")
     cfg_new = ServeConfig(max_new_tokens=SERVE["max_new"])
     greedy = {v: e.generate(prompts, cfg_new) for v, e in engines.items()}
     logits = {v: _teacher_forced(cfg, params, prompts, greedy["pallas"],
@@ -950,11 +970,15 @@ def _lowrank_timing(device, fp32_rate: float) -> list:
     factors, beside its plain version, its bound and a yardstick that is
     not a port: ``torch.matmul`` in f32 (TF32 off) of the pre-gathered
     tables concatenated over r, (M, R·K) @ (R·K, N), which computes the
-    same sum.  Bound: 2·M·K·N·R flops at the SIMT FP32 rate (132 SMs x
-    128 lanes x 2 x clock), or the codes, tables and output moved once
-    at 3.35 TB/s, whichever is larger."""
+    same sum.  Bound: the larger of the codes, tables and output moved
+    once at 3.35 TB/s and the flops at the faster of two f32-accurate
+    rates — 3 x 2·M·K·N·R at the dense TF32 tensor-core peak (the
+    3xTF32 split) or 2·M·K·N·R at the SIMT FP32 rate (132 SMs x 128
+    lanes x 2 x clock), kept as ``ops_ms_simt``.  Each row names the
+    regime and grid the kernel's plan gives the shape."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lowrank_matmul import plan
     gen = torch.Generator(device=device).manual_seed(2)
     _, factors = _served_factors(device)
     u, v = factors["R=4"]
@@ -967,10 +991,14 @@ def _lowrank_timing(device, fp32_rate: float) -> list:
         vw = v[:, qw.long()].reshape(r * k, n).contiguous()
         flops = 2 * m * k * n * r
         nbytes = (m * k + k * n + 2 * r * 256 + m * n) * 4
-        ops_ms = flops / fp32_rate * 1e3
+        ops_ms_simt = flops / fp32_rate * 1e3
+        ops_ms = min(ops_ms_simt, TF32_SPLIT_PRODUCTS * flops
+                     / TF32_FLOPS_PER_S * 1e3)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        p = plan(m, k, n, r)
         row = {"kernel": "lowrank_matmul", "layer": label, "M": m, "K": k,
                "N": n, "R": r, "flops": flops, "bytes": nbytes,
+               "regime": p.regime, "blocks": p.blocks, "splits": p.splits,
                "ms": _time(lambda: ops.lowrank_matmul(qa, qw, u, v),
                            reps=20, warmup=3),
                "plain_ms": _time(lambda: ref.lowrank_matmul_ref(qa, qw, u,
@@ -978,16 +1006,18 @@ def _lowrank_timing(device, fp32_rate: float) -> list:
                                  reps=5, warmup=1),
                "gathered_matmul_ms": _time(lambda: torch.matmul(ua, vw),
                                            reps=20, warmup=3),
-               "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-               "bound_ms": max(ops_ms, bytes_ms),
+               "ops_ms": ops_ms, "ops_ms_simt": ops_ms_simt,
+               "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
         rows.append(row)
         print(f"[timing] lowrank_matmul {label:18s} M={m:4d} K={k:4d} "
-              f"N={n:4d} R={r}: {row['ms']:.4f} ms (plain "
+              f"N={n:4d} R={r} ({p.regime}, {p.blocks} blocks, "
+              f"{p.splits} K slices): {row['ms']:.4f} ms (plain "
               f"{row['plain_ms']:.4f} ms, gathered matmul "
               f"{row['gathered_matmul_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.5f} ms by {row['bound_by']}, "
-              f"{row['bound_ms'] / row['ms']:.1%})")
+              f"{row['bound_ms'] / row['ms']:.1%}; SIMT bound "
+              f"{max(ops_ms_simt, bytes_ms):.5f} ms)")
     return rows
 
 
@@ -1063,7 +1093,10 @@ def summary(compare: dict, main: dict, timing: dict) -> dict:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None})
+            # one PyTorch call computes K9's function: torch.matmul of
+            # the pre-gathered tables; no single call computes the others
+            "library_ms": (sum(r["gathered_matmul_ms"] for r in rows)
+                           if name == "lowrank_matmul" else None)})
     return {"kernels": kernels}
 
 

@@ -276,19 +276,29 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
         raise ValueError(f"rank R={u.shape[0]} outside the 1..{MAX_RANK} "
                          "the lowrank_matmul kernel takes (its factor "
                          "tables live in shared memory)")
-    for name, t, dt in (("qa", qa, torch.int32), ("qw", qw, torch.int32),
-                        ("u", u, torch.float32), ("v", v, torch.float32)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != qa.device:
-            raise ValueError(f"{name} on {t.device}, qa on {qa.device}")
+    # one cheap pass on the hot path (K9 is launched per projection per
+    # token); the loop below names the culprit
+    cuda = qa.is_cuda
+    if not (qa.dtype == qw.dtype == torch.int32
+            and u.dtype == v.dtype == torch.float32
+            and qa.is_contiguous() and qw.is_contiguous()
+            and u.is_contiguous() and v.is_contiguous()
+            and (qw.get_device() == u.get_device() == v.get_device()
+                 == qa.get_device() if cuda else
+                 qa.device == qw.device == u.device == v.device)):
+        for name, t, dt in (("qa", qa, torch.int32), ("qw", qw, torch.int32),
+                            ("u", u, torch.float32), ("v", v, torch.float32)):
+            if t.dtype != dt:
+                raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if t.device != qa.device:
+                raise ValueError(f"{name} on {t.device}, qa on {qa.device}")
+    if cuda:
+        return lowrank_kernel(qa, qw, u, v)
     if qa.device.type == "cpu":
         return ref.lowrank_matmul_ref(qa, qw, u, v)
-    if qa.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qa.device}")
-    return lowrank_kernel(qa, qw, u, v)
+    raise ValueError(f"no kernel for device {qa.device}")
 
 
 def _check_netlist(funcs, in0, in1, outs, planes, pop: bool) -> None:

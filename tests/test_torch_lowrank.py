@@ -36,7 +36,10 @@ from repro_torch.approx import registry as port_reg
 from repro_torch.approx.quant import calibrate, quantize
 from repro_torch.approx.specs import BackendSpec
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.lowrank_matmul import MAX_RANK
+from repro_torch.kernels.lowrank_matmul import (MAX_RANK, MIN_MMA_TERMS,
+                                                MMA_TILE, STREAM_ROWS,
+                                                STREAM_TILE, mma_chunk)
+from repro_torch.kernels.lowrank_matmul import plan as lowrank_plan
 
 RNG = np.random.default_rng(21)
 _DEQUANT_ULPS = 8
@@ -254,23 +257,143 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(128, 1024, 1024), (4, 1024, 2816),
-                                   (128, 2816, 1024), (129, 577, 65)])
-def test_cuda_lowrank_kernel_matches_plain(cuda, m, k, n):
-    gen = torch.Generator(device=cuda).manual_seed(0)
+def _cuda_case(cuda, m, k, n, r, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     qa = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32,
                        device=cuda)
     qw = torch.randint(0, 256, (k, n), generator=gen, dtype=torch.int32,
                        device=cuda)
-    for r in (1, 4, MAX_RANK):
-        u = torch.randn((r, 256), generator=gen, device=cuda) * 16
-        v = torch.randn((r, 256), generator=gen, device=cuda) * 16
-        ops.reset_launch_counts()
-        got = ops.lowrank_matmul(qa, qw, u, v)
-        plain = ref.lowrank_matmul_ref(qa, qw, u, v)
-        torch.cuda.synchronize()
-        assert ops.launch_counts()["lowrank_matmul"] == 1
-        y64, tol = ref.lowrank_bound(qa, qw, u, v)
-        for y in (got, plain):
-            assert bool(((y.double() - y64).abs() <= tol).all())
+    u = torch.randn((r, 256), generator=gen, device=cuda) * 16
+    v = torch.randn((r, 256), generator=gen, device=cuda) * 16
+    return qa, qw, u, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 4, MAX_RANK])
+@pytest.mark.parametrize("n", [1, 65, 1024])
+@pytest.mark.parametrize("k", [577, 2816])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 128, 129])
+def test_cuda_lowrank_kernel_matches_plain(cuda, m, k, n, r):
+    """Both regimes (stream up to ``STREAM_ROWS`` rows, 3xTF32 tensor
+    cores above) and their K splits, at ragged K and N: one launch, and
+    the kernel and its plain version within the f32 bound."""
+    qa, qw, u, v = _cuda_case(cuda, m, k, n, r)
+    ops.reset_launch_counts()
+    got = ops.lowrank_matmul(qa, qw, u, v)
+    plain = ref.lowrank_matmul_ref(qa, qw, u, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_matmul"] == 1
+    y64, tol = ref.lowrank_bound(qa, qw, u, v)
+    for y in (got, plain):
+        assert y.shape == (m, n)
+        assert bool(((y.double() - y64).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 2816, 1024), (128, 1024, 1024),
+                                   (129, 577, 65)])
+def test_cuda_lowrank_kernel_is_deterministic(cuda, m, k, n):
+    """The split-K partials are summed in a fixed order inside the
+    launch: two calls on the same inputs give the same bits."""
+    assert lowrank_plan(m, k, n, 4).splits > 1
+    qa, qw, u, v = _cuda_case(cuda, m, k, n, 4, seed=1)
+    first = ops.lowrank_matmul(qa, qw, u, v)
+    second = ops.lowrank_matmul(qa, qw, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+_SERVE_SHAPES = [(128, 1024, 1024), (128, 1024, 2816), (128, 2816, 1024),
+                 (4, 1024, 1024), (4, 1024, 2816), (4, 2816, 1024)]
+
+
+@pytest.mark.parametrize("r", [1, 4, 16])
+@pytest.mark.parametrize("shape", _SERVE_SHAPES + [
+    (129, 577, 65), (7, 130, 1), (1, 1, 1), (17, 577, 1), (128, 10, 64),
+    (40, 0, 3)], ids=str)
+def test_lowrank_plan(shape, r):
+    """The wrapper's regime and K split: stream up to ``STREAM_ROWS``
+    rows or below ``MIN_MMA_TERMS`` terms, tensor cores otherwise; the
+    slices cover K exactly, each within its regime's step and limits;
+    the serve shapes fill the card."""
+    m, k, n = shape
+    p = lowrank_plan(m, k, n, r)
+    mma = m > STREAM_ROWS and k * r >= MIN_MMA_TERMS
+    assert p.regime == ("mma" if mma else "stream")
+    bm, bn = MMA_TILE if mma else STREAM_TILE
+    rows = m if not mma and m <= STREAM_ROWS else bm
+    assert p.tiles == -(-m // rows) * -(-n // bn)
+    assert p.splits >= 1 and p.k_per_split >= 1
+    assert p.splits * p.k_per_split >= k
+    assert p.splits == 1 or (p.splits - 1) * p.k_per_split < k
+    if p.splits > 1:
+        step = mma_chunk(r) if mma else 8
+        assert p.k_per_split % step == 0
+        assert (p.k_per_split >= 128) if mma else (p.k_per_split <= 128)
+    if shape in _SERVE_SHAPES:
+        assert p.blocks >= 2 * 132 - 8
+        assert p.regime == ("stream" if m == 4 else "mma")
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 bits: round to 10 mantissa bits, ties
+    away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _three_tf32(qa, qw, u, v, splits):
+    """The tensor-core regime's arithmetic on the CPU: each gathered
+    operand split into hi = tf32(x) and lo = tf32(x - hi), every product
+    taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (each exact in f32) and
+    summed in f32, slice by slice, the slices summed in order."""
+    r = u.shape[0]
+    m, k = qa.shape
+    a = u[:, qa.long()].permute(1, 0, 2)            # (M, R, K)
+    b = v[:, qw.long()]                             # (R, K, N)
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    kps = -(-k // splits)
+    out = None
+    for k0 in range(0, k, kps):
+        sl = slice(k0, k0 + kps)
+        lhs = torch.cat([t[:, :, sl].reshape(m, -1)
+                         for t in (a_lo, a_hi, a_hi)], 1)
+        rhs = torch.cat([t[:, sl].reshape(-1, t.shape[-1])
+                         for t in (b_hi, b_lo, b_hi)], 0)
+        part = lhs @ rhs
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.fixture(scope="module")
+def served():
+    """The multiplier the serve path picks from the default library
+    (non-integer factors, unlike the tiny library's truncations)."""
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch.steps import pick_case_multiplier
+    return get_default_library(), pick_case_multiplier()
+
+
+@pytest.mark.parametrize("k", [1024, 2816])
+def test_three_tf32_split_holds_the_bound(libs, served, k):
+    """The numeric argument for the tensor-core regime, before any card:
+    the 3xTF32 split of the gathered factor tables (rank 4 and the auto
+    rank of the served multiplier and of each of the fixture's) holds
+    ``ref.lowrank_bound`` at the serve path's K, with the K split the
+    plan gives M = 128, at under 5% of the bound (a single TF32 product
+    reaches about half of it on the served factors)."""
+    qa, qw = _t(_codes(24, k)), _t(_codes(k, 40))
+    splits = lowrank_plan(128, k, 1024, 4).splits
+    cases = [(served[0], served[1])] + [(libs[0], n) for n in libs[1]]
+    for lib, name in cases:
+        for rank in (4, None):
+            c = port_reg.pack_lowrank(
+                BackendSpec(mode="lowrank", multiplier=name, rank=rank), lib)
+            u, v = _t(c["u"]), _t(c["v"])
+            assert float(u.abs().max()) > 100         # values reach ~255
+            y = _three_tf32(qa, qw, u, v, splits)
+            y64, tol = ref.lowrank_bound(qa, qw, u, v)
+            err = (y.double() - y64).abs()
+            assert bool((err <= tol).all()), (name, rank)
+            assert bool((err <= 0.05 * tol).all()), (name, rank)
