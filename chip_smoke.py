@@ -13,9 +13,11 @@ Phases (any failure exits nonzero):
      the f32 results of the fused kernels after the eager epilogue), at
      every shape the main paths give it: shared and banked activations,
      the 17-table case-study bank, the mixed-width wide-study bank
-     (8/12/16-bit lanes; K6 with per-lane codes as the study gives it),
-     a bank mixing exact/trunc/loa trees, ragged shapes and a table with
-     LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
+     (8/12/16-bit lanes; K6 with per-lane codes as the study gives it)
+     in its own lane order, with the wide lanes first and with narrow
+     and wide lanes interleaved, a bank mixing exact/trunc/loa trees
+     (K8, and K6 with a reduce code per lane), ragged shapes and a table
+     with LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
      population (32 candidates, 8192 vectors) for the 8-bit multiplier
      and adder; the low-rank kernel (K9), whose f32 sums run in another
      order than its plain version's, held with its plain version to the
@@ -26,6 +28,8 @@ Phases (any failure exits nonzero):
      qwen1.5-0.5b) and ragged ones, with the served multiplier's factors
      at rank 4 and at its auto rank, and a second call on the same
      inputs bit-equal to the first (its split K sums in a fixed order);
+     K9's max |K9 - y64| / bound is recorded per case, with the shape,
+     regime, rank and the y64 and S of the worst element;
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
@@ -51,7 +55,8 @@ Phases (any failure exits nonzero):
      exhaustive planes (65 536 vectors) for every evolved netlist of the
      built library;
   5. timings — each kernel and its plain version at the main-path
-     shapes (CUDA events after warm-up) beside its bound (K9 also beside
+     shapes (CUDA events after warm-up) beside its bound, the largest of
+     its table lookups, its integer ops and its bytes (K9 also beside
      ``torch.matmul`` of its pre-gathered tables, its ``library_ms``, with
      its regime and grid), and a CGP
      generation's wall split into host time and the time from its
@@ -77,9 +82,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 EVAL_N, BATCH, N_LANES = 256, 64, 17
 LIBRARY_BUDGET = "small"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; shared-memory table
-# lookups per SM per clock (one 32-lane LDS a clock, no bank conflicts)
+# lookups per SM per clock (one 32-lane LDS a clock, no bank conflicts);
+# INT32 ops per SM per clock on the ALU pipe (logic, adds, shifts), and
+# as many again on the FMA pipe (IMAD: adds, shift-adds) beside it
 HBM_BYTES_PER_S = 3.35e12
 LOOKUPS_PER_SM_CLOCK = 32
+INT32_OPS_PER_SM_CLOCK = 64
 RAGGED = ((1000, 37, 10), (777, 100, 50), (129, 577, 65), (1, 1, 1))
 # composed entries of a bank that mixes reduction trees (K8 compare)
 MIXED_REDUCE = (("mul8u_exact", 16, "trunc3"), ("mul8u_trunc6", 12, "exact"),
@@ -178,6 +186,46 @@ def _floats(shape, gen, device, scale=1.0):
     return torch.randn(shape, generator=gen, device=device) * scale
 
 
+def int_ops_per_product(mask: int, kind: int, k: int) -> tuple:
+    """(logic, arith): the integer ops a gather kernel cannot avoid per
+    product, by the pipes that can issue them.  Logic ops (AND, OR; a
+    LOP3 takes three inputs) issue on the ALU pipe only; adds and
+    shift-adds (IADD3 takes three inputs, IMAD a power-of-two factor) on
+    the ALU or the FMA pipe.  A narrow product: its table address (one
+    add) and the accumulate, (0, 2).  A wide product: four addresses, the
+    reduce tree of ``registry.reduce_apply`` at the lane's constant
+    code, the 2W-bit mask (none when it is all ones) and the two limb
+    sums (acc += p; hi += p >> 16, one LEA.HI or IMAD.HI).  The tree:
+    exact (0, 3); trunc (a & h) + (b & h), one mask more when k > 16 puts
+    h below p11 << 16, none when k = 0, and 0 when k >= 32; a loa node
+    at 1 <= k <= 31 with c = a & b is a + b + (c & cbit) - (c & (cbit -
+    1)), (2, 2), an add (0, 1) where the second operand's low k bits are
+    clear (node 2 for k <= 8, node 3 for k <= 16), else (2, 3) with its
+    shift; at k >= 32 a node is a | b, at k = 0 a + b + (a & b & 1)."""
+    if not mask:
+        return 0, 2
+    if kind == 0:
+        tree = (0, 3)
+    elif kind == 1:
+        tree = ((0, 3) if k == 0 else (0, 0) if k >= 32
+                else (3 + (k > 16), 3))
+    elif k >= 32:
+        tree = (3, 2)
+    elif k == 0:
+        tree = (3, 5)
+    else:
+        node2 = (0, 1) if k <= 8 else (2, 3)
+        node3 = (0, 1) if k <= 16 else (2, 3)
+        tree = (2 + node2[0] + node3[0], 2 + node2[1] + node3[1])
+    return tree[0] + (mask != 0xFFFFFFFF), 4 + tree[1] + 2
+
+
+def int_seconds(logic: int, arith: int, alu_rate: float) -> float:
+    """The least time for these integer ops: logic ops on the ALU pipe
+    alone, all of them spread over the ALU and FMA pipes."""
+    return max(logic / alu_rate, (logic + arith) / (2 * alu_rate))
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -223,6 +271,16 @@ def _tables(device) -> dict:
     out = {"case": u16(np.stack([lib.lut(n) for n in case])),
            "rand": u16(rand), "wide": lanes(wide), "mixed": lanes(mixed),
            "wide_names": wide.names}
+    # the wide bank's lanes reordered: its wide lanes first, and narrow
+    # and wide lanes alternating
+    narrow = [i for i, m in enumerate(wide.lane_masks) if not m]
+    wide_i = [i for i in range(len(wide.names)) if i not in narrow]
+    alternate = [i for pair in zip(narrow, wide_i) for i in pair]
+    alternate += narrow[len(wide_i):] + wide_i[len(narrow):]
+    for key, order in (("wide_first", wide_i + narrow),
+                       ("interleaved", alternate)):
+        out[key] = {k: torch.stack([v[i] for i in order])
+                    for k, v in out["wide"].items()}
     # the mixed-reduce bank's first (narrow) lane gets the random table
     out["mixed"]["luts"][0] = out["rand"]
     if out["case"].shape[0] != N_LANES:
@@ -260,7 +318,10 @@ def _fused_cases(t: dict, x, xb17, xbw, w):
         ("fused_composed_matmul_bank", ops.fused_composed_matmul_lut_bank,
          ref.fused_composed_matmul_bank_ref, (x, w, mixed["luts"]),
          (mixed["masks"], mixed["codes"]), mixed["bits"]),
-    ]
+    ] + [("fused_composed_matmul_bank", ops.fused_composed_matmul_lut_bank,
+          ref.fused_composed_matmul_bank_ref, (xbw, w, t[key]["luts"]),
+          (t[key]["masks"], t[key]["codes"]), t[key]["bits"])
+         for key in ("wide_first", "interleaved")]
 
 
 def _scalars(x, w, bits):
@@ -272,14 +333,16 @@ def _scalars(x, w, bits):
 def phase_compare(shapes: dict, device) -> dict:
     import torch
     from repro_torch.approx.registry import encode_reduce
+    from repro_torch.kernels import composed_matmul as cm
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lowrank_matmul import plan
     gen = torch.Generator(device=device).manual_seed(0)
     t = _tables(device)
     wide = t["wide"]
     max_err = {name: 0.0 for name in SOURCES}
     cases = 0
-    lowrank_ratio = 0.0
+    lowrank_cases = []
 
     def check(name, got, want, what):
         nonlocal cases
@@ -353,23 +416,35 @@ def phase_compare(shapes: dict, device) -> dict:
                   [fm.limbs_to_f32(*want)], f"{what} f32")
         luts_r = wide["luts"].clone()
         luts_r[-1] = t["rand"]                      # LUT00 != 0 wide lane
-        codes_w = wide["codes"]
-        for a_, w_, tab in ((qa, qw, wide["luts"]),
-                            (_wcodes((n_wide, m, k), gen, device),
-                             _wcodes((n_wide, k, n), gen, device),
-                             wide["luts"]),
-                            (qa, qw, luts_r)):
+        qab = _wcodes((n_wide, m, k), gen, device)
+        qwb = _wcodes((n_wide, k, n), gen, device)
+        for a_, w_, bank_ in ((qa, qw, wide), (qab, qwb, wide),
+                              (qa, qw, {**wide, "luts": luts_r}),
+                              (qa, qw, t["wide_first"]),
+                              (qab, qwb, t["wide_first"]),
+                              (qa, qw, t["interleaved"]),
+                              (qab, qwb, t["interleaved"])):
+            tab, masks_ = bank_["luts"], bank_["masks"]
             want = ref.composed_matmul_bank_ref(
-                a_, w_, tab.to(torch.int32), wide["masks"], codes_w)
+                a_, w_, tab.to(torch.int32), masks_, bank_["codes"])
             check("composed_matmul_bank",
-                  ops.composed_matmul_lut_bank(a_, w_, tab, wide["masks"],
+                  ops.composed_matmul_lut_bank(a_, w_, tab, masks_,
                                                ("loa", 4), raw=True),
                   want, f"{what} qa{tuple(a_.shape)} qw{tuple(w_.shape)}")
             check("composed_matmul_bank",
-                  [ops.composed_matmul_lut_bank(a_, w_, tab, wide["masks"],
+                  [ops.composed_matmul_lut_bank(a_, w_, tab, masks_,
                                                 ("loa", 4))],
                   [fm.limbs_to_f32(*want)], f"{what} f32")
-        del qa, qw
+        # a bank mixing reduce trees, one code per lane (the kernel's own
+        # interface: the op takes one tree for the bank)
+        mixed = t["mixed"]
+        check("composed_matmul_bank",
+              cm.composed_matmul_bank(qa, qw, mixed["luts"],
+                                      mixed["masks"], mixed["codes"]),
+              ref.composed_matmul_bank_ref(
+                  qa, qw, mixed["luts"].to(torch.int32), mixed["masks"],
+                  mixed["codes"]), f"{what} mixed reduce")
+        del qa, qw, qab, qwb
     mult, factors = _served_factors(device)
     for label, (m, k, n) in list(LOWRANK_SHAPES.items()) + [
             (f"ragged{s_}", s_) for s_ in LOWRANK_RAGGED]:
@@ -377,11 +452,14 @@ def phase_compare(shapes: dict, device) -> dict:
         qw = _codes((k, n), gen, device)
         for rname, (u, v) in factors.items():
             got = ops.lowrank_matmul(qa, qw, u, v)
-            err, ratio = _check_lowrank(
+            err, ratio, worst = _check_lowrank(
                 got, ref.lowrank_matmul_ref(qa, qw, u, v), qa, qw, u, v,
                 f"{label} {(m, k, n)} {mult} {rname}")
             max_err["lowrank_matmul"] = max(max_err["lowrank_matmul"], err)
-            lowrank_ratio = max(lowrank_ratio, ratio)
+            lowrank_cases.append({
+                "case": label, "M": m, "K": k, "N": n, "rank": rname,
+                "regime": plan(m, k, n, u.shape[0]).regime,
+                "max_abs_err": err, "err_over_bound": ratio, **worst})
             # the split-K partials are summed in a fixed order: a second
             # call gives the same bits
             check("lowrank_matmul", [ops.lowrank_matmul(qa, qw, u, v)],
@@ -391,11 +469,14 @@ def phase_compare(shapes: dict, device) -> dict:
                                                    pop["words"])],
               [ref.bitsim_pop_ref(*pop["tensors"], pop["words"])],
               f"{name} generation (32 x {pop['words'].shape[1]} words)")
+    lowrank_ratio = max(c["err_over_bound"] for c in lowrank_cases)
     print(f"[compare] {cases} kernel-vs-plain cases: bit-exact, K9 within "
           f"its bound (max |K9 - y64| / bound {lowrank_ratio:.3g}); max abs "
           f"err {max_err}")
+    print("[compare] K9 per case: " + json.dumps(lowrank_cases))
     return {"cases": cases, "max_abs_err": max_err,
-            "lowrank_err_over_bound": lowrank_ratio}
+            "lowrank_err_over_bound": lowrank_ratio,
+            "lowrank_cases": lowrank_cases}
 
 
 def _served_factors(device):
@@ -413,12 +494,12 @@ def _served_factors(device):
     return name, out
 
 
-def _check_lowrank(got, plain, qa, qw, u, v,
-                   what: str) -> tuple[float, float]:
+def _check_lowrank(got, plain, qa, qw, u, v, what: str) -> tuple:
     """K9 and its plain version against the bound both are held to
     (``kernels.ref.lowrank_bound``): |y - y64| <= 2 (K R + 1) 2^-24 S
     elementwise, y64 the sum in float64, S = Σ_r |U_r(qa)| @ |V_r(qw)|.
-    Returns max |kernel - plain| and the kernel's max |y - y64| / tol."""
+    Returns max |kernel - plain|, the kernel's max |y - y64| / tol and
+    that element's y64, S, |y - y64| and tol."""
     import torch
     from repro_torch.kernels import ref
     torch.cuda.synchronize()
@@ -429,9 +510,16 @@ def _check_lowrank(got, plain, qa, qw, u, v,
             raise AssertionError(f"lowrank_matmul {name} outside its bound "
                                  f"at {what}")
     if not got.numel():
-        return 0.0, 0.0
-    ratio = float(((got.double() - y64).abs() / tol.clamp_min(1e-300)).max())
-    return float((got - plain).abs().max()), ratio
+        return 0.0, 0.0, {}
+    diff = (got.double() - y64).abs()
+    ratios = diff / tol.clamp_min(1e-300)
+    i = int(ratios.argmax())
+    k, r = qa.shape[1], u.shape[0]
+    worst = {"y64": float(y64.flatten()[i]),
+             "S": float(tol.flatten()[i]) / (2.0 * (k * r + 1) * 2.0 ** -24),
+             "abs_err": float(diff.flatten()[i]),
+             "tol": float(tol.flatten()[i])}
+    return float((got - plain).abs().max()), float(ratios.flatten()[i]), worst
 
 
 def phase_compare_library(lib, device, max_err: dict) -> dict:
@@ -682,7 +770,8 @@ def _checked_generate(engine, prompts, device) -> dict:
         y = real(qa, qw, u, v)
         seen.append((qa.shape[0], *_check_lowrank(
             y, ref.lowrank_matmul_ref(qa, qw, u, v), qa, qw, u, v,
-            f"serve call {len(seen)} {tuple(qa.shape)}x{tuple(qw.shape)}")))
+            f"serve call {len(seen)} {tuple(qa.shape)}x{tuple(qw.shape)}"
+        )[:2]))
         return y
 
     datapaths.lowrank_matmul = checked
@@ -843,7 +932,11 @@ def _time(fn, reps: int, warmup: int) -> float:
 
 
 def phase_timing(shapes: dict, device) -> dict:
-    """Per main-path shape: kernel and plain times (ms) and the bound.
+    """Per main-path shape: kernel and plain times (ms) and the bound,
+    the largest of the table lookups at 32 a clock per SM, the integer
+    ops (``int_ops_per_product``: logic ops at 64 a clock per SM, all of
+    them at 128 over the ALU and FMA pipes; ``int_seconds``) and the
+    bytes.
     The banked kernels run the activations the all-layers sweeps give
     them: shared at conv_init, banked after; K4 the 17-lane case-study
     bank, K7 and K5 one 16-bit composed multiplier, K8 and K6 the wide
@@ -861,20 +954,26 @@ def phase_timing(shapes: dict, device) -> dict:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     lookup_rate = sms * LOOKUPS_PER_SM_CLOCK * clock_hz
+    int_rate = sms * INT32_OPS_PER_SM_CLOCK * clock_hz
     rows = []
+    # (logic, arith) integer ops per product of each bank lane, from its
+    # mask and code, and of all the bank's lanes
+    wide_int = [int_ops_per_product(mk, kd, kk) for mk, (kd, kk) in zip(
+        wide["masks"].tolist(), wide["codes"].tolist())]
+    bank_int = tuple(map(sum, zip(*wide_int)))
 
-    def row(kernel, label, mkn, lanes, lookups, nbytes, call, plain):
-        ops_ms = lookups / lookup_rate * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    def row(kernel, label, mkn, lanes, lookups, int_ops, nbytes, call,
+            plain):
         reps, plain_reps = (20, 2) if kernel.startswith("lut") else (10, 1)
         rows.append({
             "kernel": kernel, "layer": label, "M": mkn[0], "K": mkn[1],
             "N": mkn[2], "lanes": lanes, "lookups": lookups,
-            "bytes": nbytes, "ms": _time(call, reps=reps, warmup=3),
+            "int_ops": int_ops, "bytes": nbytes,
+            "ms": _time(call, reps=reps, warmup=3),
             "plain_ms": _time(plain, reps=plain_reps, warmup=1),
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+            **_bounds(lookups / lookup_rate,
+                      int_seconds(*int_ops, int_rate),
+                      nbytes / HBM_BYTES_PER_S)})
 
     for label, (m, k, n) in shapes.items():
         mkn = (m, k, n)
@@ -884,12 +983,12 @@ def phase_timing(shapes: dict, device) -> dict:
         qab = qa if shared else _codes((N_LANES, m, k), gen, device)
         out_b = m * n * 4
         lut_b = 65536 * 2
-        row("lut_matmul", label, mkn, 1, m * k * n,
+        row("lut_matmul", label, mkn, 1, m * k * n, (0, 2 * m * k * n),
             qa.numel() * 4 + qw.numel() * 4 + lut_b + out_b,
             lambda: ops.approx_matmul_lut(qa, qw, luts[0]),
             lambda: ref.approx_matmul_lut_ref(qa, qw, luts32[0]))
         row("lut_matmul_bank", label, mkn, N_LANES, N_LANES * m * k * n,
-            qab.numel() * 4 + qw.numel() * 4 + N_LANES * (lut_b + out_b),
+            (0, 2 * N_LANES * m * k * n), qab.numel() * 4 + qw.numel() * 4 + N_LANES * (lut_b + out_b),
             lambda: ops.approx_matmul_lut_bank(qab, qw, luts),
             lambda: ref.approx_matmul_lut_bank_ref(qab, qw, luts32))
         del qa, qw, qab
@@ -897,17 +996,21 @@ def phase_timing(shapes: dict, device) -> dict:
         x = _floats((m, k), gen, device)
         w = _floats((k, n), gen, device, 0.2)
         sums_b = (m + n) * 4
-        fused = [("fused_matmul", 1, x, luts[0], (), 8, 1),
+        # (name, lanes, x, tables, codes, bits, lookups and (logic,
+        # arith) integer ops per product of all lanes)
+        fused = [("fused_matmul", 1, x, luts[0], (), 8, 1, (0, 2)),
                  ("fused_matmul_bank", N_LANES,
                   x if shared else _floats((N_LANES, m, k), gen, device),
-                  luts, (), 8, N_LANES),
+                  luts, (), 8, N_LANES, (0, 2 * N_LANES)),
                  ("fused_composed_matmul", 1, x, wide["luts"][-5],
-                  (wide["masks"][-5:-4], wide["codes"][-5:-4]), 16, 4),
+                  (wide["masks"][-5:-4], wide["codes"][-5:-4]), 16, 4,
+                  wide_int[-5]),
                  ("fused_composed_matmul_bank", n_wide,
                   x if shared else _floats((n_wide, m, k), gen, device),
                   wide["luts"], (wide["masks"], wide["codes"]),
-                  wide["bits"], 4 * (n_wide - n_narrow) + n_narrow)]
-        for name, lanes, xin, tab, codes, bits, per_product in fused:
+                  wide["bits"], 4 * (n_wide - n_narrow) + n_narrow,
+                  bank_int)]
+        for name, lanes, xin, tab, codes, bits, per_product, ints in fused:
             op = getattr(ops, {"fused_matmul": "fused_matmul_lut",
                                "fused_matmul_bank": "fused_matmul_lut_bank",
                                "fused_composed_matmul":
@@ -922,7 +1025,8 @@ def phase_timing(shapes: dict, device) -> dict:
             limbs = 2 if codes else 1
             nbytes = (xin.numel() * 4 + w.numel() * 4
                       + lanes * (lut_b + limbs * out_b + sums_b))
-            row(name, label, mkn, lanes, per_product * m * k * n, nbytes,
+            row(name, label, mkn, lanes, per_product * m * k * n,
+                (ints[0] * m * k * n, ints[1] * m * k * n), nbytes,
                 lambda: op(xin, w, tab, *codes, *sp, raw=True),
                 lambda: plain(xin, w, tab32, *packed, fp, ip))
         # two-step composed on codes: K5 one 16-bit loa4 multiplier, K6
@@ -937,6 +1041,7 @@ def phase_timing(shapes: dict, device) -> dict:
         lut16 = wide["luts"][-5]
         mask1, code1 = wide["masks"][-5:-4], wide["codes"][-5:-4]
         row("composed_matmul", label, mkn, 1, 4 * m * k * n,
+            (wide_int[-5][0] * m * k * n, wide_int[-5][1] * m * k * n),
             (m * k + k * n) * 4 + lut_b + 2 * out_b,
             lambda: ops.composed_matmul_lut(qa, qw, lut16, mask1,
                                             ("loa", 4), raw=True),
@@ -945,6 +1050,7 @@ def phase_timing(shapes: dict, device) -> dict:
         wide32 = wide["luts"].to(torch.int32)
         row("composed_matmul_bank", label, mkn, n_wide,
             (4 * (n_wide - n_narrow) + n_narrow) * m * k * n,
+            (bank_int[0] * m * k * n, bank_int[1] * m * k * n),
             (qab.numel() + qwb.numel()) * 4 + n_wide * (lut_b + 2 * out_b),
             lambda: ops.composed_matmul_lut_bank(qab, qwb, wide["luts"],
                                                  wide["masks"], ("loa", 4),
@@ -957,12 +1063,29 @@ def phase_timing(shapes: dict, device) -> dict:
         print(f"[timing] {r['kernel']:26s} {r['layer']:12s} "
               f"M={r['M']:6d} K={r['K']:4d} N={r['N']:3d} x{r['lanes']:2d}: "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%})")
-    rows += _bitsim_timing(device, lookup_rate)
+              f"{r['bound_ms']:.4f} ms by {r['limit']}, "
+              f"{r['bound_ms'] / r['ms']:.1%})")
+    rows += _bitsim_timing(device, lookup_rate, int_rate)
     fp32_rate = sms * FP32_LANES_PER_SM * 2 * clock_hz
     rows += _lowrank_timing(device, fp32_rate)
-    return {"lookup_rate_per_s": lookup_rate, "wide_bank": t["wide_names"],
+    return {"lookup_rate_per_s": lookup_rate,
+            "alu_int_ops_per_s": int_rate,
+            "wide_bank": t["wide_names"],
+            "wide_bank_int_ops_per_product": wide_int,
             "fp32_flops_per_s": fp32_rate, "rows": rows}
+
+
+def _bounds(lookup_s: float, int_s: float, bytes_s: float) -> dict:
+    """A timing row's floors in ms and its bound, the largest of them;
+    ``bound_by`` is "operations" (lookups or integer ops) or "bytes",
+    ``limit`` names the floor."""
+    floors = {"lookups": lookup_s * 1e3, "integer ops": int_s * 1e3,
+              "bytes": bytes_s * 1e3}
+    limit = max(floors, key=floors.get)
+    return {"ops_ms": floors["lookups"], "int_ms": floors["integer ops"],
+            "bytes_ms": floors["bytes"], "bound_ms": floors[limit],
+            "limit": limit,
+            "bound_by": "bytes" if limit == "bytes" else "operations"}
 
 
 def _lowrank_timing(device, fp32_rate: float) -> list:
@@ -1021,14 +1144,14 @@ def _lowrank_timing(device, fp32_rate: float) -> list:
     return rows
 
 
-def _bitsim_timing(device, lookup_rate: float) -> list:
+def _bitsim_timing(device, lookup_rate: float, int_rate: float) -> list:
     """K11 on one CGP generation of the ``small`` ladder (32 candidates,
     8192 vectors) and K10 on the exact 8-bit circuits over exhaustive
     planes (65 536 vectors), beside their bounds.  A gate-word step is
     shared-memory traffic: one access per input its gate reads plus the
     store, counted over the active gates only (the inactive ones do not
-    change the outputs); bytes: planes, netlist arrays and outputs, each
-    once."""
+    change the outputs), and one logic op (the gate); bytes: planes,
+    netlist arrays and outputs, each once."""
     from repro_torch.core.gates import GATE_ARITY
     from repro_torch.core.netlist import exhaustive_inputs
     from repro_torch.core.seeds import array_multiplier, ripple_carry_adder
@@ -1037,6 +1160,9 @@ def _bitsim_timing(device, lookup_rate: float) -> list:
     def accesses(nls, words):
         return sum(int((GATE_ARITY[nl.funcs][nl.active_mask()] + 1).sum())
                    for nl in nls) * words
+
+    def gates(nls, words):
+        return sum(int(nl.active_mask().sum()) for nl in nls) * words
 
     cases = []
     for name, pop in _populations(device).items():
@@ -1056,23 +1182,21 @@ def _bitsim_timing(device, lookup_rate: float) -> list:
     for kernel, label, nls, tens, words, op, plain in cases:
         n_i, w = words.shape
         n_o = nls[0].n_o
-        steps = accesses(nls, w)
+        steps, n_ops = accesses(nls, w), gates(nls, w)
         nbytes = (n_i * w + sum(t.numel() for t in tens)
                   + len(nls) * n_o * w) * 4
-        ops_ms = steps / lookup_rate * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         r = {"kernel": kernel, "layer": label, "candidates": len(nls),
-             "words": w, "accesses": steps, "bytes": nbytes,
+             "words": w, "accesses": steps, "int_ops": (n_ops, 0),
+             "bytes": nbytes,
              "ms": _time(lambda: op(*tens, words), reps=20, warmup=3),
              "plain_ms": _time(lambda: plain(*tens, words), reps=1,
                                warmup=1),
-             "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-             "bound_ms": max(ops_ms, bytes_ms),
-             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+             **_bounds(steps / lookup_rate, int_seconds(n_ops, 0, int_rate),
+                       nbytes / HBM_BYTES_PER_S)}
         rows.append(r)
         print(f"[timing] {kernel:26s} {label:18s} x{len(nls):2d} "
               f"{w:5d} words: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} "
-              f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}, "
+              f"ms, bound {r['bound_ms']:.6f} ms by {r['limit']}, "
               f"{r['bound_ms'] / r['ms']:.1%})")
     return rows
 
@@ -1081,7 +1205,7 @@ def summary(compare: dict, main: dict, timing: dict) -> dict:
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         rows = [r for r in timing["rows"] if r["kernel"] == name]
-        ops_ms = sum(r["ops_ms"] for r in rows)
+        ops_ms = sum(max(r["ops_ms"], r.get("int_ms", 0.0)) for r in rows)
         bytes_ms = sum(r["bytes_ms"] for r in rows)
         kernels.append({
             "name": name, "route": "cuda",

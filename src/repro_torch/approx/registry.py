@@ -327,6 +327,105 @@ def digit_products(qa, qw, flat_lut):
     return pp(a0, w0), pp(a0, w1), pp(a1, w0), pp(a1, w1)
 
 
+def _as_i32(v: int) -> int:
+    """The int32 with the bits of the uint32 ``v``."""
+    v &= _M32
+    return v - (1 << 32) if v >> 31 else v
+
+
+def _loa_(a: torch.Tensor, b: torch.Tensor, cbit: int) -> torch.Tensor:
+    """``reduce_apply(a, b, ("loa", k))`` on int32 bit patterns, in place
+    in ``a``, for 1 <= k <= 31 (``cbit = 1 << (k - 1)``): with ``t = a &
+    b``, the LOA sum is ``a + b + (t & cbit) - (t & (cbit - 1))`` mod
+    2^32 (the low part's OR is ``a + b`` less the low AND; the carry
+    into bit k is bit k-1 of ``t``), so no right shift is needed."""
+    t = a & b
+    a += b
+    a += t & cbit
+    return a.sub_(t.bitwise_and_(cbit - 1))
+
+
+def _limbs_block(qa_blk: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                 flat_lut: torch.Tensor, mask: int, kind: int,
+                 k: int) -> tuple:
+    """``composed_limbs`` for one row block on int32 bit patterns (int32
+    adds and left shifts wrap modulo 2^32 as uint32's do): four
+    ``index_select`` gathers, the tree of the host code ``(kind, k)``
+    with its constants folded, the mask, the two limb sums."""
+    shape = (qa_blk.shape[0], *w0.shape)
+    a0 = ((qa_blk & 255) << 8)[:, :, None]
+    a1 = ((qa_blk >> 8) << 8)[:, :, None]
+    p00, p01, p10, p11 = (
+        flat_lut.index_select(0, (a + w).view(-1)).view(shape)
+        for a, w in ((a0, w0), (a0, w1), (a1, w0), (a1, w1)))
+    if kind in (0, 1):
+        # trunc: ((a >> k) + (b >> k)) << k == (a & h) + (b & h) with h
+        # the bits from k up (0 from k = 32 on); exact is h = all ones.
+        # Node sums of masked terms keep their low k bits clear, so the
+        # inner nodes need no second mask
+        h = -1 if kind == 0 else _as_i32(_M32 << k) if k < 32 else 0
+        if h != -1:
+            p00 &= h
+            p01 &= h
+            p10 &= h
+        s = p01.add_(p10).bitwise_left_shift_(8).add_(p00)
+        p11.bitwise_left_shift_(16)
+        if h != -1:
+            p11 &= h
+        s += p11
+    else:
+        # loa, 1 <= k <= 31; a node whose second operand has its low k
+        # bits clear (s1 << 8 for k <= 8, pp11 << 16 for k <= 16) adds
+        cbit = 1 << (k - 1)
+        s = _loa_(p01, p10, cbit).bitwise_left_shift_(8)
+        s = s.add_(p00) if k <= 8 else _loa_(p00, s, cbit)
+        p11.bitwise_left_shift_(16)
+        s = s.add_(p11) if k <= 16 else _loa_(s, p11, cbit)
+    if _as_i32(mask) != -1:
+        s &= _as_i32(mask)
+    lo = torch.sum(s & 0xFFFF, dim=1, dtype=torch.int32)
+    s.bitwise_right_shift_(16).bitwise_and_(0xFFFF)
+    return lo, torch.sum(s, dim=1, dtype=torch.int32)
+
+
+def _limbs_block_dyn(qa_blk, qw, flat_lut, mask: int, kind: int,
+                     k: int) -> tuple:
+    """``composed_limbs`` for one row block through ``reduce_apply_dyn``
+    on int64 (the codes the int32 tree does not take: loa with k = 0 or
+    k >= 32)."""
+    p = composed_reduce_dyn(*digit_products(qa_blk, qw, flat_lut), kind,
+                            k) & mask
+    return (torch.sum(p & 0xFFFF, dim=1, dtype=torch.int32),
+            torch.sum(p >> 16, dim=1, dtype=torch.int32))
+
+
+def composed_limbs(qa: torch.Tensor, qw: torch.Tensor,
+                   flat_lut: torch.Tensor, mask: int, kind: int, k: int,
+                   block_m: int) -> tuple:
+    """Composed matmul on W-bit codes as its two exact int32 limb sums:
+    qa (M,K) x qw (K,N) -> ``lo = Σ_k (p & 0xFFFF)``, ``hi = Σ_k (p >>
+    16)``, ``p`` the digit products' shift/add tree under the host code
+    ``(kind, k)`` (``encode_reduce``; ``reduce_apply_dyn``'s values)
+    masked to the host uint32 ``mask``.  A narrow lane (mask 0) takes
+    the plain tile sum of the low digits, hi 0.  ``block_m`` rows at a
+    time; ``flat_lut`` is the (65536,) int32 tile LUT."""
+    m, n = qa.shape[0], qw.shape[1]
+    lo = torch.empty((m, n), dtype=torch.int32, device=qa.device)
+    hi = torch.zeros_like(lo)
+    if not mask:
+        lo[:] = lut_gather(qa & 255, qw & 255, flat_lut, block_m)
+        return lo, hi
+    k &= _M32
+    fast = kind in (0, 1) or 1 <= k <= 31
+    w0, w1 = qw & 255, qw >> 8
+    for start in range(0, m, max(1, block_m)):
+        blk = qa[start:start + block_m]
+        lo[start:start + block_m], hi[start:start + block_m] = (
+            _limbs_block(blk, w0, w1, flat_lut, mask, kind, k) if fast
+            else _limbs_block_dyn(blk, qw, flat_lut, mask, kind, k))
+    return lo, hi
+
+
 def composed_product(qa: torch.Tensor, qw: torch.Tensor,
                      flat_lut: torch.Tensor, reduce: tuple,
                      bits: int = 16) -> torch.Tensor:
@@ -341,44 +440,24 @@ def composed_product(qa: torch.Tensor, qw: torch.Tensor,
                            pp(a1, w1), reduce) & product_mask(bits)
 
 
-def _composed_gather_block(qa_blk: torch.Tensor, qw: torch.Tensor,
-                           flat_lut: torch.Tensor, mask, reduce: tuple
-                           ) -> torch.Tensor:
-    """Composed-product row block: (mb,K) x (K,N) -> (mb,N) f32.
+def composed_forward(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
+                     mask, reduce: tuple, block_m: int) -> torch.Tensor:
+    """Blocked composed matmul on codes (the ``lut`` datapath's core):
+    (M,K) x (K,N) -> (M,N) f32.
 
     Wide products are truncated to the lane's ``mask`` (the netlist's
     2W output bits), split into two 16-bit limbs accumulated exactly in
     int32 (``K <= MAX_COMPOSED_K``), then recombined in f32.
     ``mask == 0`` marks a narrow lane, which takes the plain 8-bit tile
     sum (``pp00`` alone)."""
-    pp00, pp01, pp10, pp11 = digit_products(qa_blk, qw, flat_lut)
-    p = composed_reduce(pp00, pp01, pp10, pp11, reduce) & mask
-    s_lo = torch.sum(p & 0xFFFF, dim=1, dtype=torch.int32)
-    s_hi = torch.sum(p >> 16, dim=1, dtype=torch.int32)
-    s00 = torch.sum(pp00, dim=1, dtype=torch.int32).to(torch.float32)
-    wide = s_lo.to(torch.float32) + 65536.0 * s_hi.to(torch.float32)
-    if isinstance(mask, int):
-        return wide if mask else s00
-    return torch.where(mask != 0, wide, s00)
-
-
-def composed_forward(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
-                     mask, reduce: tuple, block_m: int) -> torch.Tensor:
-    """Blocked composed matmul on codes (the ``lut`` datapath's core):
-    (M,K) x (K,N) -> (M,N) f32."""
-    m, k = qa.shape
-    if k > MAX_COMPOSED_K:
+    if qa.shape[1] > MAX_COMPOSED_K:
         raise ValueError(
-            f"K={k} exceeds int32-safe composed limb accumulation "
-            f"bound {MAX_COMPOSED_K}")
-    flat = lut.reshape(-1).to(torch.int32)
-    mb = max(1, min(block_m, m))
-    out = torch.empty((m, qw.shape[1]), dtype=torch.float32,
-                      device=qa.device)
-    for start in range(0, m, mb):
-        out[start:start + mb] = _composed_gather_block(
-            qa[start:start + mb], qw, flat, mask, reduce)
-    return out
+            f"K={qa.shape[1]} exceeds int32-safe composed limb "
+            f"accumulation bound {MAX_COMPOSED_K}")
+    lo, hi = composed_limbs(qa, qw, lut.reshape(-1).to(torch.int32),
+                            int(mask), *encode_reduce(reduce),
+                            max(1, min(block_m, qa.shape[0])))
+    return lo.to(torch.float32) + 65536.0 * hi.to(torch.float32)
 
 
 # ----------------------------------------------------------------------
@@ -401,9 +480,11 @@ class Int8Datapath(Datapath):
 
 def _lut_gather_block(qa_blk: torch.Tensor, qw: torch.Tensor,
                       flat_lut: torch.Tensor) -> torch.Tensor:
-    """Σ_k LUT[qa, qw] for one row block. (mb,K) x (K,N) -> (mb,N) i32."""
-    idx = qa_blk[:, :, None].long() * 256 + qw[None, :, :].long()
-    return torch.sum(flat_lut[idx], dim=1, dtype=torch.int32)
+    """Σ_k LUT[qa, qw] for one row block. (mb,K) x (K,N) -> (mb,N) i32
+    (one ``index_select`` on int32 indices)."""
+    idx = (qa_blk.to(torch.int32) << 8)[:, :, None] + qw.to(torch.int32)
+    prods = flat_lut.index_select(0, idx.view(-1))
+    return torch.sum(prods.view(idx.shape), dim=1, dtype=torch.int32)
 
 
 def lut_gather(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,

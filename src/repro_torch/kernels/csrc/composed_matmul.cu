@@ -16,9 +16,9 @@
 // K chunk in VMEM and subtracts the K pad's limbs afterwards
 // (_pad_limbs).
 //
-// Bound on an H100: shared-memory gather throughput, four lookups per
-// product, plus the integer adder tree; the int32 codes are as wide as
-// the f32 operands K7 reads.  The body is K7's (fused_gather.cuh,
+// Bound on an H100: integer ops (four table addresses, the tree, the mask
+// and two limb sums: 14 a loa4 product) ahead of its four shared-memory
+// lookups; the int32 codes are as wide as the f32 operands K7 reads.  The body is K7's (fused_gather.cuh,
 // instantiated on int codes: staged as they are, no code sums); the
 // masked ragged K edge needs no pad-limb correction, and every shift of
 // the tree is kept below 32 bits.

@@ -11,11 +11,11 @@
 // grid walks the multiplier axis with one VMEM-pinned tile LUT per
 // program and one static tree for every lane.
 //
-// Bound on an H100: shared-memory gather throughput (four lookups per
-// product on wide lanes, one on narrow lanes) plus the adder tree.  The
-// persistent blocks of fused_gather.cuh stage each lane's table once; the
-// lane's mask is uniform across a block, so the narrow/wide branch never
-// diverges within a warp.
+// Bound on an H100: integer ops on wide lanes (14 a loa4 product against
+// four lookups), lookups on narrow ones.  The persistent blocks of
+// fused_gather.cuh split the lanes' items by cost and stage each lane's
+// table once; the lane's mask and tree are uniform across a block, so
+// its inner loop never diverges within a warp.
 #include "fused_gather.cuh"
 
 extern "C" int composed_matmul_bank_launch(

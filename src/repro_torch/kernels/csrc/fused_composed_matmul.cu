@@ -16,8 +16,8 @@
 // runs 4-wide K chunks of digit cubes and subtracts the K pad's limb
 // contribution (_pad_limbs_dyn) on the last step.
 //
-// Bound on an H100: shared-memory gather throughput, four lookups per
-// product, plus the integer adder tree.  Design in fused_gather.cuh;
+// Bound on an H100: integer ops (14 a loa4 product) ahead of its four
+// shared-memory lookups.  Design in fused_gather.cuh;
 // the masked ragged K edge needs no pad-limb correction, and every
 // shift of the tree is kept below 32 bits.
 #include "fused_gather.cuh"

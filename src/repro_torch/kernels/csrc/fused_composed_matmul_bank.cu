@@ -11,11 +11,11 @@
 // carries the per-lane masks and codes in SMEM beside the scalars and
 // double-buffers the next lane's table by DMA.
 //
-// Bound on an H100: shared-memory gather throughput (four lookups per
-// product on wide lanes, one on narrow lanes) plus the adder tree.  The
-// persistent blocks of fused_gather.cuh stage each lane's table once;
-// the lane's mask and code are uniform across a block, so the
-// narrow/wide and tree-kind branches never diverge within a warp.
+// Bound on an H100: integer ops on wide lanes (14 a loa4 product against
+// four lookups), lookups on narrow ones.  The persistent blocks of
+// fused_gather.cuh split the lanes' items by cost and stage each lane's
+// table once; the lane's mask and code are uniform across a block, so
+// the narrow/wide and tree-kind branches never diverge within a warp.
 #include "fused_gather.cuh"
 
 extern "C" int fused_composed_matmul_bank_launch(

@@ -32,19 +32,35 @@
 // — the reference's _quant_tile order.  No fast-math flags.
 //
 // What bounds it on an H100: shared-memory table lookups (one per
-// product at 8 bits, four per product for composed lanes), no tensor
-// cores, so the least time is lookups / (132 SMs x 32 lookups a clock);
-// the f32 operands are read once per (row tile, column tile).
+// product at 8 bits, four per product on a wide lane) and, on a wide
+// lane, the integer work of the reduce tree; no tensor cores.
 //
 // Design (as lut_gather.cuh): the uint16 table (128 KiB) sits in shared
 // memory; one persistent block per SM walks a contiguous range of (lane,
 // row tile, column tile) items, so a block stages a lane's table and
 // reads its scalars once per lane it meets; the column tile is sized to
-// the real N; K is walked in chunks of kKC, quantized while staged;
-// ragged M, N and K edges are masked, so no padded term reaches a sum
-// and no pad correction is needed.  Row sums are kept by the threads of
-// column group 0 and written by the column-tile-0 item, column sums by
-// the threads of row 0 and written by the row-tile-0 item.
+// the real N; K is walked in chunks of kKC, quantized while staged
+// (loads issued kBatch at a time); ragged M, N and K edges are masked, so
+// no padded term reaches a sum and no pad correction is needed.  Row sums
+// are kept by the threads of column group 0 and written by the
+// column-tile-0 item, column sums by the threads of row 0 and written by
+// the row-tile-0 item.
+//
+// The table is swizzled: the threads of a warp share the column digit and
+// differ in the row digit, and in a row-major uint16 table the bank of an
+// entry is a function of the column digit alone, so every row of the warp
+// would hit one bank (a 32/tn-way conflict); entry (a, w) sits at
+// (a << 8) | (w ^ ((a & kSwizzle) << 1)) instead, which spreads the rows
+// over the banks.  The composed kernels (K5-K8) add:
+//  * a split balanced by cost: a wide lane's item weighs kWideCost, a
+//    narrow one's kNarrowCost, and each block finds its range from the
+//    lanes' masks on the device (range_start; with equal lanes, the even
+//    split);
+//  * one inner loop per reduce kind, chosen per lane (uniform across the
+//    block, so no warp diverges), with the lane's constants hoisted and the
+//    tree in closed forms that need no right shift (see tree()); codes the
+//    closed forms do not take (loa with k = 0 or k >= 32) keep the guarded
+//    runtime tree of registry.reduce_apply_dyn.
 #pragma once
 
 #include <cstdint>
@@ -60,7 +76,16 @@ namespace {
 constexpr int kThreads = 512;   // threads per block
 constexpr int kNT = 8;          // outputs per thread along N
 constexpr int kKC = 32;         // K chunk staged per step
+constexpr int kBatch = 8;       // staged loads in flight per thread
 constexpr int kLutEntries = 65536;
+// split weights of a wide and a narrow lane's item
+constexpr int kWideCost = 5;
+constexpr int kNarrowCost = 2;
+// row bits of the table swizzle (0: row-major table)
+constexpr unsigned kSwizzle = 31u;
+
+// the inner loops, one per lane (the 8-bit kernels' lanes are narrow)
+enum Path { kNarrow, kExact, kTrunc, kLoa8, kLoa, kDyn };
 
 inline int threads_across_n(int n) {
   if (n <= 8) return 1;
@@ -69,11 +94,12 @@ inline int threads_across_n(int n) {
   return 8;
 }
 
+// table, row tile and two column-digit tiles (the 8-bit kernels use one)
 inline size_t smem_bytes(int tn) {
   const int tm = kThreads / tn;
   return kLutEntries * sizeof(uint16_t)
        + (size_t)tm * (kKC + 1) * sizeof(int)
-       + (size_t)kKC * tn * kNT * sizeof(int);
+       + 2 * (size_t)kKC * tn * kNT * sizeof(int);
 }
 
 __device__ __forceinline__ int quantize(float v, float scale, float zp,
@@ -125,6 +151,183 @@ __device__ __forceinline__ unsigned composed_tree(unsigned p00,
   return reduce_dyn(s2, p11 << 16, kind, k);
 }
 
+// A lane's reduce tree: its inner loop and the constants hoisted out of it.
+struct Tree {
+  int path;
+  unsigned mask;    // 2W-bit product mask (0: narrow lane)
+  unsigned h;       // trunc: the bits from k up (0 from k = 32 on)
+  unsigned cbit;    // loa: 1 << (k - 1)
+  unsigned lowm1;   // loa: cbit - 1
+  int kind;         // the runtime code, for kDyn
+  unsigned k;
+};
+
+__device__ __forceinline__ Tree lane_tree(unsigned mask, int kind,
+                                          unsigned k) {
+  Tree t;
+  t.mask = mask;
+  t.kind = kind;
+  t.k = k;
+  t.h = k < 32u ? ~0u << k : 0u;
+  t.cbit = k - 1u < 31u ? 1u << (k - 1u) : 0u;
+  t.lowm1 = t.cbit - 1u;
+  const int wide = kind == 0 ? kExact
+                 : kind == 1 ? kTrunc
+                 : k - 1u < 8u ? kLoa8
+                 : k - 1u < 31u ? kLoa : kDyn;
+  t.path = mask == 0u ? kNarrow : wide;
+  return t;
+}
+
+// loa node for 1 <= k <= 31: with c = a & b, the lower-part-OR sum is
+// a + b + (c & cbit) - (c & lowm1) mod 2^32 (the low part's OR is the
+// low sum less the low AND; the carry into bit k is bit k-1 of c).
+__device__ __forceinline__ unsigned loa_node(unsigned a, unsigned b,
+                                             const Tree& t) {
+  const unsigned c = a & b;
+  return a + b + (c & t.cbit) - (c & t.lowm1);
+}
+
+// The tree of registry.reduce_apply_dyn in closed form, mod 2^32:
+//  exact  p00 + (p01 + p10) << 8 + p11 << 16;
+//  trunc  ((a >> k) + (b >> k)) << k == (a & h) + (b & h), and a sum of
+//         such terms keeps its low k bits clear, so the inner nodes need
+//         no second mask;
+//  loa    loa_node at every node; a node whose second operand has its low
+//         k bits clear adds (s1 << 8 for k <= 8, p11 << 16 for k <= 16),
+//         which kLoa8 uses.
+template <int kPath>
+__device__ __forceinline__ unsigned tree(unsigned p00, unsigned p01,
+                                         unsigned p10, unsigned p11,
+                                         const Tree& t) {
+  if (kPath == kExact) return p00 + ((p01 + p10) << 8) + (p11 << 16);
+  if (kPath == kTrunc)
+    return (p00 & t.h) + (((p01 & t.h) + (p10 & t.h)) << 8)
+         + ((p11 << 16) & t.h);
+  if (kPath == kLoa8) return p00 + (loa_node(p01, p10, t) << 8) + (p11 << 16);
+  if (kPath == kLoa)
+    return loa_node(loa_node(p00, loa_node(p01, p10, t) << 8, t), p11 << 16,
+                    t);
+  return composed_tree(p00, p01, p10, p11, t.kind, t.k);
+}
+
+// Byte offset of row a of the staged table with its swizzle key: entry
+// (a, w) is at row_addr(a) ^ (w << 1).
+__device__ __forceinline__ unsigned row_addr(unsigned a) {
+  return (a << 9) | ((a & kSwizzle) << 2);
+}
+
+__device__ __forceinline__ unsigned lookup(const unsigned char* lut,
+                                           unsigned addr) {
+  return *reinterpret_cast<const uint16_t*>(lut + addr);
+}
+
+// Stage a lane's table with row a's 16-byte chunks permuted by
+// (a & kSwizzle) >> 2 and the words in a chunk by a & 3, which puts entry
+// (a, w) at (a << 8) | (w ^ ((a & kSwizzle) << 1)) (row-major when
+// kSwizzle is 0).
+__device__ __forceinline__ void stage_table(const uint16_t* lut,
+                                            uint16_t* s_lut) {
+  const uint4* src = reinterpret_cast<const uint4*>(lut);
+  uint4* dst = reinterpret_cast<uint4*>(s_lut);
+  for (int i = threadIdx.x; i < kLutEntries * 2 / 16; i += kThreads) {
+    uint4 v = src[i];
+    const unsigned a = (unsigned)i >> 5, key = a & kSwizzle;
+    if (key & 1u) v = make_uint4(v.y, v.x, v.w, v.z);
+    if (key & 2u) v = make_uint4(v.z, v.w, v.x, v.y);
+    dst[(a << 5) | ((i & 31) ^ (key >> 2))] = v;
+  }
+}
+
+// Cost of lane l's items when splitting: kWideCost on a wide lane
+// (mask != 0), else kNarrowCost; every lane weighs 1 without masks.
+__device__ __forceinline__ long long lane_cost(const unsigned* masks,
+                                               int l) {
+  if (masks == nullptr) return 1;
+  return masks[l] != 0u ? kWideCost : kNarrowCost;
+}
+
+// First item of block b's range out of G: the number of items whose
+// cost, summed from item 0 through the item itself, is at most b / G of
+// the total.  The ranges are contiguous and lane-major and cover every
+// item once; a block's cost exceeds total / G by at most one item's;
+// with equal lanes the start is total * b / G, the even split.
+// (Mirrored by kernels.fused_matmul.split_starts.)
+__device__ long long range_start(const unsigned* masks, int n_lanes,
+                                 long long per_lane, long long b,
+                                 long long G) {
+  long long total_cost = 0;
+  for (int l = 0; l < n_lanes; ++l) total_cost += lane_cost(masks, l);
+  const long long target = b * total_cost * per_lane;
+  long long start = 0, before = 0;          // before: cost of lanes < l
+  for (int l = 0; l < n_lanes; ++l) {
+    const long long c = lane_cost(masks, l);
+    long long n = (target - G * before) / (G * c);
+    n = n < 0 ? 0 : n > per_lane ? per_lane : n;
+    start += n;
+    if (n < per_lane) break;
+    before += per_lane * c;
+  }
+  return start;
+}
+
+// One K chunk of a narrow lane (8-bit codes, or a composed kernel's
+// narrow lane): the plain tile sum of the low digits (w0s: the column
+// digits, doubled).
+__device__ __forceinline__ void narrow_chunk(const int* a_row,
+                                             const int* w0s, int tile_n,
+                                             int kc,
+                                             const unsigned char* lut,
+                                             unsigned (&acc)[kNT]) {
+#pragma unroll 4
+  for (int kk = 0; kk < kc; ++kk) {
+    const unsigned r0 = row_addr((unsigned)a_row[kk] & 255u);
+    const int4 x0 = *reinterpret_cast<const int4*>(w0s + kk * tile_n);
+    const int4 x1 = *reinterpret_cast<const int4*>(w0s + kk * tile_n + 4);
+    const unsigned w0[kNT] = {(unsigned)x0.x, (unsigned)x0.y, (unsigned)x0.z,
+                              (unsigned)x0.w, (unsigned)x1.x, (unsigned)x1.y,
+                              (unsigned)x1.z, (unsigned)x1.w};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) acc[j] += lookup(lut, r0 ^ w0[j]);
+  }
+}
+
+// One K chunk of a wide lane: four lookups per product, the lane's tree
+// and mask, then acc += p and hi += p >> 16 (lo is acc - (hi << 16) at
+// the end: exact, since the lo sum stays below 2^31).
+template <int kPath>
+__device__ __forceinline__ void wide_chunk(const int* a_row, const int* w0s,
+                                           const int* w1s, int tile_n,
+                                           int kc, const unsigned char* lut,
+                                           const Tree& t,
+                                           unsigned (&acc)[kNT],
+                                           unsigned (&hi)[kNT]) {
+#pragma unroll 2
+  for (int kk = 0; kk < kc; ++kk) {
+    const unsigned qa = (unsigned)a_row[kk];
+    const unsigned r0 = row_addr(qa & 255u), r1 = row_addr(qa >> 8);
+    const int4 x0 = *reinterpret_cast<const int4*>(w0s + kk * tile_n);
+    const int4 x1 = *reinterpret_cast<const int4*>(w0s + kk * tile_n + 4);
+    const int4 y0 = *reinterpret_cast<const int4*>(w1s + kk * tile_n);
+    const int4 y1 = *reinterpret_cast<const int4*>(w1s + kk * tile_n + 4);
+    const unsigned w0[kNT] = {(unsigned)x0.x, (unsigned)x0.y, (unsigned)x0.z,
+                              (unsigned)x0.w, (unsigned)x1.x, (unsigned)x1.y,
+                              (unsigned)x1.z, (unsigned)x1.w};
+    const unsigned w1[kNT] = {(unsigned)y0.x, (unsigned)y0.y, (unsigned)y0.z,
+                              (unsigned)y0.w, (unsigned)y1.x, (unsigned)y1.y,
+                              (unsigned)y1.z, (unsigned)y1.w};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const unsigned p = tree<kPath>(lookup(lut, r0 ^ w0[j]),
+                                     lookup(lut, r0 ^ w1[j]),
+                                     lookup(lut, r1 ^ w0[j]),
+                                     lookup(lut, r1 ^ w1[j]), t) & t.mask;
+      acc[j] += p;
+      hi[j] += p >> 16;
+    }
+  }
+}
+
 template <bool kComposed, typename In>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_kernel(const In* __restrict__ x, long long x_lane_stride,
@@ -144,22 +347,27 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   const int tm = kThreads / tn;            // rows per tile
   const int tile_n = tn * kNT;             // columns per tile
   int* s_a = reinterpret_cast<int*>(smem + kLutEntries * sizeof(uint16_t));
+  // low and high column digits, doubled (a uint16 entry's byte offset);
+  // the 8-bit kernels stage the low ones only
   int* s_w = s_a + tm * (kKC + 1);
+  int* s_w1 = s_w + kKC * tile_n;
 
+  const unsigned char* lut = smem;
   const int tid = threadIdx.x;
   const int r = tid / tn;                  // this thread's row in a tile
   const int g = tid % tn;                  // its column group
   const int tiles_m = (M + tm - 1) / tm;
   const int tiles_n = (N + tile_n - 1) / tile_n;
   const long long per_lane = (long long)tiles_m * tiles_n;
-  const long long total = per_lane * n_lanes;
-  const long long begin = total * blockIdx.x / gridDim.x;
-  const long long end = total * (blockIdx.x + 1) / gridDim.x;
+  const unsigned* cost_masks = kComposed ? masks : nullptr;
+  const long long begin =
+      range_start(cost_masks, n_lanes, per_lane, blockIdx.x, gridDim.x);
+  const long long end =
+      range_start(cost_masks, n_lanes, per_lane, blockIdx.x + 1, gridDim.x);
 
   int staged_lane = -1;
   float sa = 0.f, sw = 0.f, qmax = 0.f, za = 0.f, zw = 0.f;
-  unsigned mask = 0u, kd = 0u;
-  int kind = 0;
+  Tree tr = lane_tree(0u, 0, 0u);
   for (long long item = begin; item < end; ++item) {
     const int lane = (int)(item / per_lane);
     const long long rem = item % per_lane;
@@ -168,11 +376,7 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
 
     if (lane != staged_lane) {
       __syncthreads();                     // previous table no longer read
-      const uint4* src = reinterpret_cast<const uint4*>(
-          luts + (size_t)lane * kLutEntries);
-      uint4* dst = reinterpret_cast<uint4*>(s_lut);
-      for (int i = tid; i < kLutEntries * 2 / 16; i += kThreads)
-        dst[i] = src[i];
+      stage_table(luts + (size_t)lane * kLutEntries, s_lut);
       if (kQuant) {
         sa = fp[lane * 3];
         sw = fp[lane * 3 + 1];
@@ -180,88 +384,101 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
         za = (float)ip[lane * 2];
         zw = (float)ip[lane * 2 + 1];
       }
-      if (kComposed) {
-        mask = masks[lane];
-        kind = rcodes[lane * 2];
-        kd = (unsigned)rcodes[lane * 2 + 1];
-      }
+      if (kComposed)
+        tr = lane_tree(masks[lane], rcodes[lane * 2],
+                       (unsigned)rcodes[lane * 2 + 1]);
       staged_lane = lane;
     }
     const In* x_lane = x + (size_t)lane * x_lane_stride;
     const In* w_lane = w + (size_t)lane * w_lane_stride;
 
     // unsigned: int32 sums wrap modulo 2^32 like the reference's
-    unsigned lo[kNT], hi[kNT], col_sum[kNT];
+    unsigned acc[kNT], hi[kNT], col_sum[kNT];
     unsigned row_sum = 0u;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) lo[j] = hi[j] = col_sum[j] = 0u;
+    for (int j = 0; j < kNT; ++j) acc[j] = hi[j] = col_sum[j] = 0u;
 
     for (int k0 = 0; k0 < K; k0 += kKC) {
       const int kc = min(kKC, K - k0);
       __syncthreads();                     // previous chunk consumed
-      for (int e = tid; e < tm * kKC; e += kThreads) {
-        const int rr = e / kKC, kk = e % kKC;
-        const int m = m0 + rr;
-        int q = 0;
-        if (m < M && kk < kc)
-          q = stage_code(x_lane[(size_t)m * K + k0 + kk], sa, za, qmax);
-        s_a[rr * (kKC + 1) + kk] = q;
+      for (int e0 = tid; e0 < tm * kKC; e0 += kBatch * kThreads) {
+        In v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * kThreads;
+          const int m = m0 + e / kKC, kk = e % kKC;
+          v[u] = e < tm * kKC && m < M && kk < kc
+                     ? x_lane[(size_t)m * K + k0 + kk] : In(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * kThreads;
+          const int rr = e / kKC, kk = e % kKC;
+          if (e < tm * kKC)
+            s_a[rr * (kKC + 1) + kk] =
+                m0 + rr < M && kk < kc ? stage_code(v[u], sa, za, qmax) : 0;
+        }
       }
-      for (int e = tid; e < kKC * tile_n; e += kThreads) {
-        const int kk = e / tile_n, nn = e % tile_n;
-        const int n = n0 + nn;
-        int q = 0;
-        if (n < N && kk < kc)
-          q = stage_code(w_lane[(size_t)(k0 + kk) * N + n], sw, zw, qmax);
-        s_w[kk * tile_n + nn] = q;
+      for (int e0 = tid; e0 < kKC * tile_n; e0 += kBatch * kThreads) {
+        In v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * kThreads;
+          const int kk = e / tile_n, n = n0 + e % tile_n;
+          v[u] = e < kKC * tile_n && n < N && kk < kc
+                     ? w_lane[(size_t)(k0 + kk) * N + n] : In(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * kThreads;
+          const int kk = e / tile_n, n = n0 + e % tile_n;
+          if (e < kKC * tile_n) {
+            const int q =
+                n < N && kk < kc ? stage_code(v[u], sw, zw, qmax) : 0;
+            s_w[e] = (q & 255) << 1;
+            if (kComposed) s_w1[e] = (q >> 8) << 1;
+          }
+        }
       }
       __syncthreads();                     // chunk (and table) staged
 
       const int* a_row = s_a + r * (kKC + 1);
       const int* w_grp = s_w + g * kNT;
+      const int* w1_grp = s_w1 + g * kNT;
       if (kQuant && g == 0)
         for (int kk = 0; kk < kc; ++kk) row_sum += (unsigned)a_row[kk];
       if (kQuant && r == 0)
         for (int kk = 0; kk < kc; ++kk)
 #pragma unroll
-          for (int j = 0; j < kNT; ++j)
-            col_sum[j] += (unsigned)w_grp[kk * tile_n + j];
-
-      if (!kComposed || mask == 0u) {
-        // 8-bit codes, or a narrow lane of a composed bank: the plain
-        // tile sum over the low digits
-#pragma unroll 4
-        for (int kk = 0; kk < kc; ++kk) {
-          const int base = (a_row[kk] & 255) << 8;
-          const int4 w0 = *reinterpret_cast<const int4*>(w_grp + kk * tile_n);
-          const int4 w1 =
-              *reinterpret_cast<const int4*>(w_grp + kk * tile_n + 4);
-          lo[0] += s_lut[base | (w0.x & 255)];
-          lo[1] += s_lut[base | (w0.y & 255)];
-          lo[2] += s_lut[base | (w0.z & 255)];
-          lo[3] += s_lut[base | (w0.w & 255)];
-          lo[4] += s_lut[base | (w1.x & 255)];
-          lo[5] += s_lut[base | (w1.y & 255)];
-          lo[6] += s_lut[base | (w1.z & 255)];
-          lo[7] += s_lut[base | (w1.w & 255)];
-        }
-      } else {
-#pragma unroll 2
-        for (int kk = 0; kk < kc; ++kk) {
-          const int qa = a_row[kk];
-          const int a0 = (qa & 255) << 8, a1 = (qa >> 8) << 8;
-          const int* wk = w_grp + kk * tile_n;
-#pragma unroll
           for (int j = 0; j < kNT; ++j) {
-            const int qw = wk[j];
-            const int w0 = qw & 255, w1 = qw >> 8;
-            const unsigned p = composed_tree(
-                s_lut[a0 | w0], s_lut[a0 | w1], s_lut[a1 | w0],
-                s_lut[a1 | w1], kind, kd) & mask;
-            lo[j] += p & 0xFFFFu;
-            hi[j] += p >> 16;
+            const int i = kk * tile_n + j;
+            col_sum[j] += ((unsigned)w_grp[i]
+                           + (kComposed ? (unsigned)w1_grp[i] << 8 : 0u)) >> 1;
           }
-        }
+
+      switch (kComposed ? tr.path : kNarrow) {
+        case kNarrow:
+          narrow_chunk(a_row, w_grp, tile_n, kc, lut, acc);
+          break;
+        case kExact:
+          wide_chunk<kExact>(a_row, w_grp, w1_grp, tile_n, kc, lut, tr,
+                             acc, hi);
+          break;
+        case kTrunc:
+          wide_chunk<kTrunc>(a_row, w_grp, w1_grp, tile_n, kc, lut, tr,
+                             acc, hi);
+          break;
+        case kLoa8:
+          wide_chunk<kLoa8>(a_row, w_grp, w1_grp, tile_n, kc, lut, tr,
+                            acc, hi);
+          break;
+        case kLoa:
+          wide_chunk<kLoa>(a_row, w_grp, w1_grp, tile_n, kc, lut, tr,
+                           acc, hi);
+          break;
+        default:
+          wide_chunk<kDyn>(a_row, w_grp, w1_grp, tile_n, kc, lut, tr,
+                           acc, hi);
       }
     }
 
@@ -272,7 +489,7 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + g * kNT + j;
         if (n < N) {
-          out_lo[o + n] = (int)lo[j];
+          out_lo[o + n] = (int)(kComposed ? acc[j] - (hi[j] << 16) : acc[j]);
           if (kComposed) out_hi[o + n] = (int)hi[j];
         }
       }

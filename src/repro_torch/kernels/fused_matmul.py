@@ -19,7 +19,10 @@ Hopper counterparts of the reference's TPU kernels in
     reduce trees.
 
 Per-lane values travel as device tensors (``pack_scalars``,
-``pack_codes``), so no launch waits on the host.  The kernels return
+``pack_codes``), so no launch waits on the host.  The composed kernels
+split their (lane, row tile, column tile) items over the persistent
+blocks by cost, a wide lane's item weighing ``WIDE_COST`` and a narrow
+one's ``NARROW_COST`` (``split_starts`` mirrors the device's formula).  The kernels return
 integers only; the f32 limb recombination and the zero-point correction
 and dequant (``dequant``, the reference's ``_dequant`` and
 ``_bank_dequant`` at once) run as eager PyTorch ops in the caller, each
@@ -47,6 +50,33 @@ _ARGTYPES = {
     "fused_composed_matmul": [_P] * 11 + [_I] * 4 + [_P],
     "fused_composed_matmul_bank": [_P, _L] + [_P] * 10 + [_I] * 5 + [_P],
 }
+
+
+#: Split weights of a wide and a narrow lane's item in the composed
+#: kernels: ``kWideCost`` and ``kNarrowCost`` of ``csrc/fused_gather.cuh``.
+WIDE_COST, NARROW_COST = 5, 2
+
+
+def split_starts(costs, per_lane: int, grid: int) -> list[int]:
+    """The composed kernels' split of ``len(costs) * per_lane`` items,
+    lane-major, over ``grid`` persistent blocks, as
+    ``fused_gather.cuh::range_start`` computes it on the device: block
+    ``b`` walks items ``[starts[b], starts[b + 1])``, the items whose
+    cost summed from item 0 through themselves lies in ``(b / grid, (b +
+    1) / grid]`` of the total.  ``costs``: each lane's item cost."""
+    total = sum(costs) * per_lane
+    starts = []
+    for b in range(grid + 1):
+        start = before = 0
+        for c in costs:
+            n = min(max((b * total - grid * before) // (grid * c), 0),
+                    per_lane)
+            start += n
+            if n < per_lane:
+                break
+            before += per_lane * c
+        starts.append(start)
+    return starts
 
 
 @functools.lru_cache(maxsize=None)

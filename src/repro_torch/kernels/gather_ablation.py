@@ -1,0 +1,313 @@
+"""Where the composed gather body (K5-K8, ``csrc/fused_gather.cuh``)
+spends its time, on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.gather_ablation
+
+Builds copies of ``fused_gather.cuh`` with one part changed at a time
+(into ``_build/ablation/gather/<copy>/``, one ``nvcc`` per kernel, all
+started together) and times each copy's K8 and K6 at the ten layer
+shapes of a 64-image ResNet-8 forward on the wide study's 12-lane bank
+(7 narrow lanes first, then 5 wide ``loa4`` lanes), and K8 on the 5-lane
+all-wide bank; ``base``, ``no_swizzle`` and ``parent_design`` also time
+K3, K4, K5 and K7 (the operands ``chip_smoke.py``'s timing phase gives
+them).  Times are ten-shape sums of CUDA-event means.  The copies that
+remove a part compute wrong results: the point is the time the part
+cost.
+
+  base             the body as it is
+  even_split       every block takes an equal count of items (wide cost 1)
+  dyn_tree         every wide lane on the runtime-kind guarded tree
+  no_swizzle       the row-major table
+  parent_design    even_split + dyn_tree + no_swizzle: the body before
+                   its redesign (even split, runtime-kind tree, row-major
+                   table)
+  no_tree          the tree replaced by one add of the digit products
+  no_lookup        the table addresses used in place of the table reads
+  broadcast_index  every lane of a warp reads one table address (no bank
+                   conflicts; one shift more per lookup)
+  no_loads         the staged operands hashed from their indices in place
+                   of device-memory loads (the quantize and stores kept)
+  batch32          32 staged loads in flight per thread in place of 8
+  cost2, cost3     a wide lane's item weighs 2 or 3 narrow ones' in place
+                   of 5 / 2
+
+Prints one line per copy, then the instruction mix of each inner loop
+of ``base``'s K6 (``cuobjdump -sass``: the loops with table lookups,
+opcodes counted per loop body); writes ``chiprun_out/
+gather_ablation.json`` and the SASS (``gather_ablation_sass.txt``).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+
+import torch
+
+from . import build
+from . import composed_matmul as cm
+from . import fused_matmul as fm
+
+HEADER = "fused_gather.cuh"
+COMPOSED = ("fused_composed_matmul_bank", "composed_matmul_bank")
+ALL = ("fused_matmul", "fused_matmul_bank", "fused_composed_matmul",
+       "composed_matmul") + COMPOSED
+BATCH = 64
+OUT_DIR = "chiprun_out"
+
+
+def _edits() -> dict[str, list[tuple[str, str]]]:
+    cost = "constexpr int kWideCost = 5;\nconstexpr int kNarrowCost = 2;"
+    even = (cost, "constexpr int kWideCost = 1;\nconstexpr int kNarrowCost = 1;")
+    dyn = ("t.path = mask == 0u ? kNarrow : wide;",
+           "t.path = mask == 0u ? kNarrow : kDyn;")
+    rowmajor = ("constexpr unsigned kSwizzle = 31u;",
+                "constexpr unsigned kSwizzle = 0u;")
+    lookup = "  return *reinterpret_cast<const uint16_t*>(lut + addr);"
+
+    def fake(i, j):
+        # an operand hashed from its indices (random digits, so the
+        # lookups keep their bank conflicts): 16-bit codes, or floats in
+        # [-2, 2) that quantize over the whole code range
+        h = (f"((((unsigned)({i}) * 0x9E3779B1u) ^ ((unsigned)({j}) "
+             f"* 0x85EBCA77u)) >> 16)")
+        return (f"(std::is_same<In, float>::value ? In({h} * (1.0f / 16384)"
+                f" - 2.0f) : In({h}))")
+    return {
+        "base": [],
+        "even_split": [even],
+        "dyn_tree": [dyn],
+        "no_swizzle": [rowmajor],
+        "parent_design": [even, dyn, rowmajor],
+        "no_tree": [("                                         const Tree& t) {\n"
+                     "  if (kPath == kExact)",
+                     "                                         const Tree& t) {\n"
+                     "  return p00 + p01 + p10 + p11;\n"
+                     "  if (kPath == kExact)")],
+        "no_lookup": [(lookup, "  return addr;")],
+        "broadcast_index": [(lookup, "  return *reinterpret_cast<const "
+                                     "uint16_t*>(lut + (addr >> 17));")],
+        "no_loads": [("? x_lane[(size_t)m * K + k0 + kk] : In(0);",
+                      f"? {fake('m', 'kk')} : In(0);"),
+                     ("? w_lane[(size_t)(k0 + kk) * N + n] : In(0);",
+                      f"? {fake('k0 + kk', 'n')} : In(0);")],
+        "batch32": [("constexpr int kBatch = 8;",
+                     "constexpr int kBatch = 32;")],
+        "cost2": [(cost, "constexpr int kWideCost = 2;\n"
+                         "constexpr int kNarrowCost = 1;")],
+        "cost3": [(cost, "constexpr int kWideCost = 3;\n"
+                         "constexpr int kNarrowCost = 1;")],
+    }
+
+
+def _kernels(copy: str) -> tuple:
+    return ALL if copy in ("base", "no_swizzle", "parent_design") \
+        else COMPOSED
+
+
+def _build() -> dict[tuple[str, str], ctypes._CFuncPtr]:
+    """Every copy's kernels, built in parallel; (copy, kernel) -> the
+    launch function, typed as the wrappers type it."""
+    src = (build.CSRC / HEADER).read_text()
+    root = build.BUILD_DIR / "ablation" / "gather"
+    procs = {}
+    for copy, edits in _edits().items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{copy}: edit target not found once")
+            text = text.replace(old, new)
+        out = root / copy
+        out.mkdir(parents=True, exist_ok=True)
+        (out / HEADER).write_text(text)
+        for name in _kernels(copy):
+            shutil.copy(build.CSRC / f"{name}.cu", out / f"{name}.cu")
+            procs[copy, name] = subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                 str(out / f"{name}.so"), str(out / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for (copy, name), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {copy}/{name}:\n{log}")
+        lib = ctypes.CDLL(str(root / copy / f"{name}.so"))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = (cm._ARGTYPES if name.startswith("composed")
+                       else fm._ARGTYPES)[name]
+        fn.restype = ctypes.c_int
+        fns[copy, name] = fn
+    return fns
+
+
+def _sass(path, out_path) -> list[dict]:
+    """Write ``cuobjdump -sass`` of a kernel library; returns each loop
+    body that reads shared memory (a branch back to an earlier address)
+    with its opcode counts."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True).stdout
+    with open(out_path, "w") as f:
+        f.write(text)
+    ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
+        text)]
+    loops = []
+    for end, op, rest in ins:
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < end:
+            start = int(target.group(1), 16)
+            ops = collections.Counter(o.split(".")[0] for a, o, _ in ins
+                                      if start <= a <= end)
+            if ops["LDS"] >= 8 and sum(ops.values()) < 1000:
+                loops.append({"start": hex(start), "end": hex(end),
+                              "instructions": sum(ops.values()),
+                              "opcodes": dict(ops.most_common())})
+    return loops
+
+
+class _Uncounted:
+    """Stands in for a wrapper's launch counter: these launches are not
+    the main path's."""
+    launches = 0
+
+
+def _operands(device) -> dict:
+    """Per layer shape: the operands each timed kernel takes (as
+    ``chip_smoke.py``'s timing phase builds them: K4/K8 banked
+    activations after conv_init; K5/K6 the codes the two-step datapath
+    makes of K7's/K8's operands)."""
+    import numpy as np
+    from ..approx.quant import calibrate, quantize, scalar_params
+    from ..approx.specs import bank_for
+    from ..core.library import get_default_library
+    from ..launch.case_study import case_study_names, main_path_shapes
+    from ..launch.wide_pareto import wide_names
+    from ..models import resnet
+    lib = get_default_library()
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def tables(names):
+        bank = bank_for(names, lib)
+        return {"luts": torch.from_numpy(bank.luts.astype(np.uint16)).to(
+                    device),
+                "bits": torch.from_numpy(bank.lane_bits).to(device),
+                "masks": torch.from_numpy(bank.lane_masks.astype(
+                    np.int64)).to(device),
+                "codes": torch.from_numpy(bank.lane_reduce_codes).to(device)}
+
+    case = case_study_names(lib)
+    luts8 = torch.from_numpy(np.stack([lib.lut(n) for n in case]).astype(
+        np.uint16)).to(device)
+    banks = {"wide12": tables(case_study_names(lib, 6) + wide_names(lib)),
+             "wide5": tables(wide_names(lib))}
+    shapes = main_path_shapes(resnet.resnet_config(8), BATCH)
+    out = {}
+    for label, (m, k, n) in shapes.items():
+        shared = label == "conv_init"
+        w = torch.randn((k, n), generator=gen, device=device) * 0.2
+
+        def xs(lanes):
+            shape = (m, k) if shared or lanes == 1 else (lanes, m, k)
+            return torch.randn(shape, generator=gen, device=device)
+
+        def fused(x, bits, lanes):
+            sp = scalar_params(calibrate(x, bits, lanes=x.ndim == 3),
+                               calibrate(w, bits))
+            return fm.pack_scalars(lanes, device, *sp)
+
+        cases = {}
+        x1 = xs(1)
+        cases["fused_matmul"] = (x1, w, luts8[0], *fused(x1, 8, 1), ())
+        x17 = xs(luts8.shape[0])
+        cases["fused_matmul_bank"] = (x17, w, luts8,
+                                      *fused(x17, 8, luts8.shape[0]), ())
+        wb = banks["wide12"]
+        one = (wb["masks"][-5:-4], wb["codes"][-5:-4])
+        cases["fused_composed_matmul"] = (x1, w, wb["luts"][-5],
+                                          *fused(x1, 16, 1), one)
+        qa, qw = (quantize(v, calibrate(v, 16)) for v in (x1, w))
+        cases["composed_matmul"] = (qa, qw, wb["luts"][-5:-4], *one)
+        for bank_name, b in banks.items():
+            lanes = b["luts"].shape[0]
+            xb = xs(lanes)
+            cases[f"fused_composed_matmul_bank {bank_name}"] = (
+                xb, w, b["luts"], *fused(xb, b["bits"], lanes),
+                (b["masks"], b["codes"]))
+            if bank_name == "wide12":
+                qab = quantize(xb, calibrate(xb, b["bits"],
+                                             lanes=xb.ndim == 3))
+                qwb = quantize(w, calibrate(w, b["bits"]))
+                cases["composed_matmul_bank wide12"] = (
+                    qab, qwb, b["luts"], b["masks"], b["codes"])
+        out[label] = cases
+    return out
+
+
+def _call(name: str, fn, args):
+    """One launch of a copy's kernel ``fn`` through its wrapper's
+    ``_launch`` (the same checks and arguments), the wrapper's launch
+    function swapped for ``fn`` during the call."""
+    mod = cm if name.startswith("composed") else fm
+    own = mod._launcher
+    mod._launcher = lambda _name: fn
+    try:
+        return mod._launch(name, _Uncounted, *args)
+    finally:
+        mod._launcher = own
+
+
+def _ms(fn, reps: int = 5, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> None:
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    fns = _build()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    loops = _sass(build.BUILD_DIR / "ablation" / "gather" / "base"
+                  / "composed_matmul_bank.so",
+                  os.path.join(OUT_DIR, "gather_ablation_sass.txt"))
+    ops = _operands(dev)
+    print(f"[ablation] {card}; ten-shape sums of ms per call "
+          f"(ResNet-8, batch {BATCH})")
+    result = {"card": card, "ms": {}, "k6_loops": loops}
+    for copy in _edits():
+        row = {}
+        for key in ops["conv_init"]:
+            name = key.split()[0]
+            if name not in _kernels(copy):
+                continue
+            fn = fns[copy, name]
+            row[key] = sum(_ms(lambda: _call(name, fn, ops[s][key]))
+                           for s in ops)
+        result["ms"][copy] = row
+        print(f"[ablation] {copy:16s} "
+              + ", ".join(f"{k} {v:.3f}" for k, v in row.items()),
+              flush=True)
+    for loop in loops:
+        print(f"[ablation] K6 loop {loop['start']}-{loop['end']}: "
+              f"{loop['instructions']} instructions {loop['opcodes']}")
+    with open(os.path.join(OUT_DIR, "gather_ablation.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

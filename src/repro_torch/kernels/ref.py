@@ -18,17 +18,16 @@ import torch
 
 from ..approx.quant import clip_codes
 from ..core.gates import GATE_ARITY
-from ..approx.registry import (composed_forward, composed_reduce_dyn,
-                               digit_products, lowrank_gather, lut_gather)
-
-# gather block: keeps the (rows, K, N) int64 index tensor near 2^24
-# elements whatever the shape
-_BLOCK_ELEMS = 1 << 24
+from ..approx.registry import (composed_forward, composed_limbs,
+                               lowrank_gather, lut_gather)
 
 
 def _rows(qw: torch.Tensor) -> int:
-    k, n = qw.shape
-    return max(1, _BLOCK_ELEMS // max(1, k * n))
+    """Rows per gather block: each (rows, K, N) temporary near 2^17
+    elements on the CPU, so it stays in a core's cache, and 2^24 on the
+    card, where a block is a round of kernel launches."""
+    k, n = qw.shape[-2:]
+    return max(1, (1 << (24 if qw.is_cuda else 17)) // max(1, k * n))
 
 
 def approx_matmul_lut_ref(qa: torch.Tensor, qw: torch.Tensor,
@@ -106,23 +105,8 @@ def _composed_limbs(qa, qw, lut, mask: int, kind: int, k: int) -> tuple:
     """(lo, hi) int32 limb sums of the composed product under the reduce
     code (kind, k); a narrow lane (mask 0) sums the low-digit products
     and its hi limb is 0."""
-    if not mask:
-        return (approx_matmul_lut_ref(qa & 255, qw & 255, lut),
-                torch.zeros((qa.shape[0], qw.shape[1]), dtype=torch.int32,
-                            device=qa.device))
-    flat = lut.reshape(-1).to(torch.int32)
-    rows = _rows(qw)
-    lo = torch.empty((qa.shape[0], qw.shape[1]), dtype=torch.int32,
-                     device=qa.device)
-    hi = torch.empty_like(lo)
-    for start in range(0, qa.shape[0], rows):
-        pp = digit_products(qa[start:start + rows], qw, flat)
-        p = composed_reduce_dyn(*pp, kind, k) & mask
-        lo[start:start + rows] = torch.sum(p & 0xFFFF, dim=1,
-                                           dtype=torch.int32)
-        hi[start:start + rows] = torch.sum(p >> 16, dim=1,
-                                           dtype=torch.int32)
-    return lo, hi
+    return composed_limbs(qa, qw, lut.reshape(-1).to(torch.int32), mask,
+                          kind, k, _rows(qw))
 
 
 def fused_composed_matmul_bank_ref(x: torch.Tensor, w: torch.Tensor,

@@ -32,6 +32,10 @@ from repro_torch.approx import registry as port_reg
 from repro_torch.approx.layers import bank_backend
 from repro_torch.approx.specs import BackendSpec, LutBank
 from repro_torch.kernels import ops, ref
+from _torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 RNG = np.random.default_rng(13)
 REDUCES = [("exact", 0), ("trunc", 3), ("loa", 4)]

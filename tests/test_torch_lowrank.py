@@ -40,6 +40,10 @@ from repro_torch.kernels.lowrank_matmul import (MAX_RANK, MIN_MMA_TERMS,
                                                 MMA_TILE, STREAM_ROWS,
                                                 STREAM_TILE, mma_chunk)
 from repro_torch.kernels.lowrank_matmul import plan as lowrank_plan
+from _torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 RNG = np.random.default_rng(21)
 _DEQUANT_ULPS = 8

@@ -24,6 +24,10 @@ from repro_torch.approx.layers import spec_of as port_spec_of
 from repro_torch.approx.workload import classification
 from repro_torch.core.library import build_default_library as port_build
 from repro_torch.models import resnet, weights
+from _torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 EVAL_N, BATCH = 16, 8
 MULTS = ["mul8u_bam_h0_v4", "mul8u_bam_h3_v7", "mul8u_bam_h0_v8"]

@@ -31,6 +31,10 @@ from repro_torch.approx import layers as port_layers
 from repro_torch.approx.layers import ApproxPolicy, bank_eval
 from repro_torch.approx.specs import BackendSpec, bank_for
 from repro_torch.models import resnet, weights
+from _torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 F32_ATOL = 1e-4
 QUANT_ATOL = 0.05

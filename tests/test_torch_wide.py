@@ -31,6 +31,10 @@ from repro_torch.approx.layers import ApproxPolicy, bank_eval
 from repro_torch.approx.specs import BackendSpec, LutBank, bank_for
 from repro_torch.approx.workload import logit_fidelity
 from repro_torch.models import resnet, weights
+from _torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 QUANT_ATOL = 0.05
 GOOD = ("mul8u_bam_h0_v4", "mul8u_bam_h1_v0")

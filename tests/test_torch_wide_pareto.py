@@ -5,7 +5,12 @@ recipes (exact 16- and 12-bit tiles), the fused datapath's plain
 versions.  Both of the study's gates must hold (banked mixed-width
 accuracies equal the sequential ones; a wide point beats every 8-bit
 point's logit fidelity within the bound)."""
+import pytest
+
 from repro_torch.launch import wide_pareto
+from _torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_wide_pareto_small_run(monkeypatch):
