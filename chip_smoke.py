@@ -16,7 +16,9 @@ Phases (any failure exits nonzero):
      (8/12/16-bit lanes; K6 with per-lane codes as the study gives it)
      in its own lane order, with the wide lanes first and with narrow
      and wide lanes interleaved, a bank mixing exact/trunc/loa trees
-     (K8, and K6 with a reduce code per lane), ragged shapes and a table
+     (K8, and K6 with a reduce code per lane), ragged shapes, shapes at
+     which one lane's K is split into ranges (``SPLIT``: the deep layers,
+     a ragged K with a short last range) and a table
      with LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
      population (32 candidates, 8192 vectors) for the 8-bit multiplier
      and adder; the low-rank kernel (K9), whose f32 sums run in another
@@ -58,7 +60,8 @@ Phases (any failure exits nonzero):
      shapes (CUDA events after warm-up) beside its bound, the largest of
      its table lookups, its integer ops and its bytes (K9 also beside
      ``torch.matmul`` of its pre-gathered tables, its ``library_ms``, with
-     its regime and grid), and a CGP
+     its regime and grid; K1-K8 with their items and K ranges,
+     ``fused_matmul.k_split``), and a CGP
      generation's wall split into host time and the time from its
      operands on the card to its scores on the host.
 
@@ -89,6 +92,10 @@ HBM_BYTES_PER_S = 3.35e12
 LOOKUPS_PER_SM_CLOCK = 32
 INT32_OPS_PER_SM_CLOCK = 64
 RAGGED = ((1000, 37, 10), (777, 100, 50), (129, 577, 65), (1, 1, 1))
+# shapes at which a single lane's K is split into ranges (the gather
+# body's k_splits): the two deep layers, a ragged K whose last range is
+# short, and many ranges with a one-code last chunk
+SPLIT = ((4096, 576, 64), (4096, 288, 64), (4096, 100, 64), (512, 577, 64))
 # composed entries of a bank that mixes reduction trees (K8 compare)
 MIXED_REDUCE = (("mul8u_exact", 16, "trunc3"), ("mul8u_trunc6", 12, "exact"),
                 ("mul8u_exact", 16, "loa4"))
@@ -336,6 +343,7 @@ def phase_compare(shapes: dict, device) -> dict:
     from repro_torch.kernels import composed_matmul as cm
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.approx_matmul import sm_count
     from repro_torch.kernels.lowrank_matmul import plan
     gen = torch.Generator(device=device).manual_seed(0)
     t = _tables(device)
@@ -360,7 +368,13 @@ def phase_compare(shapes: dict, device) -> dict:
     bank = torch.cat([t["case"][1:], t["rand"][None]])  # LUT00 != 0 lane
     luts32 = bank.to(torch.int32)
     n_wide = t["wide"]["luts"].shape[0]
-    all_shapes = list(shapes.items()) + [(f"ragged{s}", s) for s in RAGGED]
+    unsplit = [s_ for s_ in SPLIT if fm.k_split(
+        1, *s_, sm_count(device.index or 0)).splits == 1]
+    if unsplit:
+        raise AssertionError(f"split cases not split at one lane: {unsplit}")
+    all_shapes = (list(shapes.items())
+                  + [(f"ragged{s}", s) for s in RAGGED]
+                  + [(f"split{s}", s) for s in SPLIT])
     for label, (m, k, n) in all_shapes:
         what = f"{label} {(m, k, n)}"
         qa = _codes((m, k), gen, device)
@@ -965,9 +979,11 @@ def phase_timing(shapes: dict, device) -> dict:
     def row(kernel, label, mkn, lanes, lookups, int_ops, nbytes, call,
             plain):
         reps, plain_reps = (20, 2) if kernel.startswith("lut") else (10, 1)
+        split = fm.k_split(lanes, *mkn, sms)
         rows.append({
             "kernel": kernel, "layer": label, "M": mkn[0], "K": mkn[1],
-            "N": mkn[2], "lanes": lanes, "lookups": lookups,
+            "N": mkn[2], "lanes": lanes, "items": split.items,
+            "splits": split.splits, "lookups": lookups,
             "int_ops": int_ops, "bytes": nbytes,
             "ms": _time(call, reps=reps, warmup=3),
             "plain_ms": _time(plain, reps=plain_reps, warmup=1),
@@ -1061,7 +1077,8 @@ def phase_timing(shapes: dict, device) -> dict:
         del qa, qw, qab, qwb
     for r in rows:
         print(f"[timing] {r['kernel']:26s} {r['layer']:12s} "
-              f"M={r['M']:6d} K={r['K']:4d} N={r['N']:3d} x{r['lanes']:2d}: "
+              f"M={r['M']:6d} K={r['K']:4d} N={r['N']:3d} x{r['lanes']:2d} "
+              f"({r['items']} items x {r['splits']} K ranges): "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['limit']}, "
               f"{r['bound_ms'] / r['ms']:.1%})")

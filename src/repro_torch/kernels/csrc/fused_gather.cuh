@@ -1,7 +1,9 @@
-// Shared body of the fused quantize -> LUT-gather -> accumulate kernels
-// (fused_matmul.cu, fused_matmul_bank.cu, fused_composed_matmul.cu,
-// fused_composed_matmul_bank.cu) and of the two-step composed kernels on
-// codes (composed_matmul.cu, composed_matmul_bank.cu).  For each lane l:
+// Shared body of every LUT-gather kernel: the 8-bit LUT matmul on codes
+// (lut_matmul.cu, lut_matmul_bank.cu), the fused quantize -> LUT-gather
+// -> accumulate kernels (fused_matmul.cu, fused_matmul_bank.cu,
+// fused_composed_matmul.cu, fused_composed_matmul_bank.cu) and the
+// two-step composed kernels on codes (composed_matmul.cu,
+// composed_matmul_bank.cu).  For each lane l:
 //
 //   qa = clip(rint(x_l / sa_l) + za_l, 0, qmax_l)     (M, K) codes
 //   qw = clip(rint(w   / sw_l) + zw_l, 0, qmax_l)     (K, N) codes
@@ -22,29 +24,49 @@
 // launch waits on the host.  The f32 correction and dequant stay with
 // the caller (eager PyTorch), as the TPU kernels leave them to theirs.
 //
-// Instantiated on int operands (In = int: composed_matmul*.cu), the
-// kernel reads x and w as int32 W-bit codes, stages them as they are
-// (no quantize, no per-lane scalars: fp and ip are not read) and keeps
-// no code sums (row_out and col_out are not written).
+// Instantiated on int operands (In = int), the kernel reads x and w as
+// int32 codes, stages them as they are (no quantize, no per-lane scalars:
+// fp and ip are not read) and keeps no code sums (row_out and col_out
+// are not written): composed_matmul*.cu take <true, int> (W-bit codes),
+// lut_matmul*.cu <false, int> (8-bit codes; masks, rcodes and out_hi are
+// not touched either, and every lane weighs 1 in the split).
 //
 // Bit-exact quantization: IEEE division (__fdiv_rn), rint (half to
 // even, like jnp.round), + zero point in f32, clip, then the int cast
 // — the reference's _quant_tile order.  No fast-math flags.
 //
 // What bounds it on an H100: shared-memory table lookups (one per
-// product at 8 bits, four per product on a wide lane) and, on a wide
-// lane, the integer work of the reduce tree; no tensor cores.
+// product at 8 bits, four per product on a wide lane, at most 32 a clock
+// per SM) and, on a wide lane, the integer work of the reduce tree; no
+// tensor cores can do a data-dependent gather.
 //
-// Design (as lut_gather.cuh): the uint16 table (128 KiB) sits in shared
-// memory; one persistent block per SM walks a contiguous range of (lane,
-// row tile, column tile) items, so a block stages a lane's table and
-// reads its scalars once per lane it meets; the column tile is sized to
-// the real N; K is walked in chunks of kKC, quantized while staged
-// (loads issued kBatch at a time); ragged M, N and K edges are masked, so
-// no padded term reaches a sum and no pad correction is needed.  Row sums
-// are kept by the threads of column group 0 and written by the
-// column-tile-0 item, column sums by the threads of row 0 and written by
-// the row-tile-0 item.
+// Design:
+//  * The product table sits in shared memory as uint16 (128 KiB): the
+//    library's 8-bit multipliers and composed tiles are 16-output-bit
+//    netlists, so every entry fits (the wrappers reject a table that
+//    does not); the int32 table (256 KiB) would not fit a block.
+//  * One persistent block per SM walks a contiguous range of (lane, row
+//    tile, column tile, K range) work units, so a block stages a lane's
+//    table and reads its scalars once per lane it meets, not per tile.
+//  * The column tile is sized to the real N (kNT outputs a thread, 1..8
+//    threads across N) instead of the TPU kernels' 128-wide pad, since
+//    the case study's N is 10..64.
+//  * K is walked in chunks of kKC, quantized while staged (loads issued
+//    kBatch at a time); ragged M, N and K edges are masked, so no padded
+//    term reaches a sum and no pad correction is needed.  Row sums are
+//    kept by the threads of column group 0 and written by the
+//    column-tile-0 unit, column sums by the threads of row 0 and written
+//    by the row-tile-0 unit.
+//  * K split: where the (lane, tile) items leave blocks idle (fewer items
+//    than blocks: one lane at the deep layers has 64 items for 132 SMs;
+//    a bank's thousands of items never split), each item's K is cut into
+//    `splits` ranges of whole kKC chunks (k_splits picks the count that
+//    shortens the busiest block most).  Each unit then adds its partial
+//    sums into outputs zeroed first on the same stream (red.global.add
+//    on uint32): bit-exact in any order, since every output is an
+//    integer sum mod 2^32, and lo = acc - (hi << 16) is linear, so the
+//    limbs' partials sum to the whole.  With one range the stores stay
+//    plain stores.
 //
 // The table is swizzled: the threads of a warp share the column digit and
 // differ in the row digit, and in a row-major uint16 table the bank of an
@@ -92,6 +114,37 @@ inline int threads_across_n(int n) {
   if (n <= 16) return 2;
   if (n <= 32) return 4;
   return 8;
+}
+
+// Work items (lane, row tile, column tile) of a launch.
+inline long long gather_items(int n_lanes, int M, int N) {
+  const int tn = threads_across_n(N);
+  const int tm = kThreads / tn, tile_n = tn * kNT;
+  return (long long)n_lanes * ((M + tm - 1) / tm)
+       * ((N + tile_n - 1) / tile_n);
+}
+
+// K ranges per item.  With at least one item a block, 1: a split could
+// shorten the busiest block by one item's share at most, and would
+// multiply the output's adds.  With fewer items than blocks (idle SMs),
+// the count s in [1, chunks] whose busiest block has the fewest kKC
+// chunks to sum, ceil(items s / grid) units of at most ceil(chunks / s)
+// chunks each; ties go to the smaller s, so s = 1 wherever a split would
+// not shorten the busiest block.  (Mirrored by
+// kernels.fused_matmul.k_split.)
+inline int k_splits(long long items, int chunks, int grid) {
+  if (items >= grid) return 1;
+  int best = 1;
+  long long best_work = -1;
+  for (int s = 1; s <= chunks; ++s) {
+    const long long work =
+        (items * s + grid - 1) / grid * ((chunks + s - 1) / s);
+    if (best_work < 0 || work < best_work) {
+      best = s;
+      best_work = work;
+    }
+  }
+  return best;
 }
 
 // table, row tile and two column-digit tiles (the 8-bit kernels use one)
@@ -271,6 +324,15 @@ __device__ long long range_start(const unsigned* masks, int n_lanes,
   return start;
 }
 
+// A unit's partial sum into its output: a plain store when K is not
+// split, else an add mod 2^32 into the zeroed output (red.global.add.u32).
+__device__ __forceinline__ void put(int* p, unsigned v, bool add) {
+  if (add)
+    atomicAdd(reinterpret_cast<unsigned*>(p), v);
+  else
+    *p = (int)v;
+}
+
 // One K chunk of a narrow lane (8-bit codes, or a composed kernel's
 // narrow lane): the plain tile sum of the low digits (w0s: the column
 // digits, doubled).
@@ -338,7 +400,7 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
              const int* __restrict__ rcodes,
              int* __restrict__ out_lo, int* __restrict__ out_hi,
              int* __restrict__ row_out, int* __restrict__ col_out,
-             int n_lanes, int M, int K, int N, int tn) {
+             int n_lanes, int M, int K, int N, int tn, int splits) {
   // f32 operands are quantized per lane and their code sums kept; int32
   // codes are staged as they are
   constexpr bool kQuant = std::is_same<In, float>::value;
@@ -358,7 +420,10 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   const int g = tid % tn;                  // its column group
   const int tiles_m = (M + tm - 1) / tm;
   const int tiles_n = (N + tile_n - 1) / tile_n;
-  const long long per_lane = (long long)tiles_m * tiles_n;
+  const int chunks = (K + kKC - 1) / kKC;
+  const bool add = splits > 1;             // partial sums: add, not store
+  // work units per lane: (row tile, column tile) items x K ranges
+  const long long per_lane = (long long)tiles_m * tiles_n * splits;
   const unsigned* cost_masks = kComposed ? masks : nullptr;
   const long long begin =
       range_start(cost_masks, n_lanes, per_lane, blockIdx.x, gridDim.x);
@@ -371,8 +436,13 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   for (long long item = begin; item < end; ++item) {
     const int lane = (int)(item / per_lane);
     const long long rem = item % per_lane;
-    const int m0 = (int)(rem / tiles_n) * tm;
-    const int n0 = (int)(rem % tiles_n) * tile_n;
+    const long long tile = rem / splits;
+    const int part = (int)(rem % splits);  // K range: whole kKC chunks
+    const int m0 = (int)(tile / tiles_n) * tm;
+    const int n0 = (int)(tile % tiles_n) * tile_n;
+    const int k_begin = (int)((long long)part * chunks / splits) * kKC;
+    const int k_end =
+        min(K, (int)((long long)(part + 1) * chunks / splits) * kKC);
 
     if (lane != staged_lane) {
       __syncthreads();                     // previous table no longer read
@@ -398,7 +468,7 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
 #pragma unroll
     for (int j = 0; j < kNT; ++j) acc[j] = hi[j] = col_sum[j] = 0u;
 
-    for (int k0 = 0; k0 < K; k0 += kKC) {
+    for (int k0 = k_begin; k0 < k_end; k0 += kKC) {
       const int kc = min(kKC, K - k0);
       __syncthreads();                     // previous chunk consumed
       for (int e0 = tid; e0 < tm * kKC; e0 += kBatch * kThreads) {
@@ -489,25 +559,27 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + g * kNT + j;
         if (n < N) {
-          out_lo[o + n] = (int)(kComposed ? acc[j] - (hi[j] << 16) : acc[j]);
-          if (kComposed) out_hi[o + n] = (int)hi[j];
+          put(out_lo + o + n, kComposed ? acc[j] - (hi[j] << 16) : acc[j],
+              add);
+          if (kComposed) put(out_hi + o + n, hi[j], add);
         }
       }
       if (kQuant && n0 == 0 && g == 0)
-        row_out[(size_t)lane * M + m] = (int)row_sum;
+        put(row_out + (size_t)lane * M + m, row_sum, add);
     }
     if (kQuant && m0 == 0 && r == 0) {
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + g * kNT + j;
-        if (n < N) col_out[(size_t)lane * N + n] = (int)col_sum[j];
+        if (n < N) put(col_out + (size_t)lane * N + n, col_sum[j], add);
       }
     }
   }
 }
 
-// Launch on `stream` with `grid` persistent blocks; returns the launch's
-// cudaGetLastError().
+// Launch on `stream` with `grid` persistent blocks; returns the first
+// CUDA error of the launch (the outputs' zeroing when K is split, then
+// cudaGetLastError()).
 template <bool kComposed, typename In>
 inline int launch(const In* x, long long x_lane_stride, const In* w,
                   long long w_lane_stride,
@@ -515,7 +587,22 @@ inline int launch(const In* x, long long x_lane_stride, const In* w,
                   const unsigned* masks, const int* rcodes, int* out_lo,
                   int* out_hi, int* row_out, int* col_out, int n_lanes,
                   int M, int K, int N, int grid, cudaStream_t stream) {
+  constexpr bool kQuant = std::is_same<In, float>::value;
   const int tn = threads_across_n(N);
+  const int splits =
+      k_splits(gather_items(n_lanes, M, N), (K + kKC - 1) / kKC, grid);
+  if (splits > 1) {                        // the units add into zeros
+    const size_t mn = (size_t)n_lanes * M * N * sizeof(int);
+    int* zero[4] = {out_lo, kComposed ? out_hi : nullptr,
+                    kQuant ? row_out : nullptr, kQuant ? col_out : nullptr};
+    const size_t bytes[4] = {mn, mn, (size_t)n_lanes * M * sizeof(int),
+                             (size_t)n_lanes * N * sizeof(int)};
+    for (int i = 0; i < 4; ++i) {
+      if (zero[i] == nullptr) continue;
+      const cudaError_t err = cudaMemsetAsync(zero[i], 0, bytes[i], stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
   static bool configured = false;          // once: the largest tile's need
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -527,7 +614,7 @@ inline int launch(const In* x, long long x_lane_stride, const In* w,
   }
   fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn), stream>>>(
       x, x_lane_stride, w, w_lane_stride, luts, fp, ip, masks, rcodes,
-      out_lo, out_hi, row_out, col_out, n_lanes, M, K, N, tn);
+      out_lo, out_hi, row_out, col_out, n_lanes, M, K, N, tn, splits);
   return (int)cudaGetLastError();
 }
 

@@ -8,16 +8,21 @@
 // K-pad's pk * LUT[0,0] afterwards.
 //
 // Bound on an H100: shared-memory gather throughput, one table lookup
-// per multiply (no tensor cores); see lut_gather.cuh for the design
-// (uint16 table in shared memory, persistent blocks, N tile sized to
-// the real N, masked ragged edges instead of padding).
-#include "lut_gather.cuh"
+// per multiply (no tensor cores).  The body is K3's (fused_gather.cuh,
+// instantiated on int codes: staged as they are, no quantize, no code
+// sums): the swizzled uint16 table in shared memory, persistent blocks,
+// the N tile sized to the real N, masked ragged edges instead of padding,
+// and K split into ranges where one lane's tiles leave SMs idle (the
+// deep layers: 64 tiles for 132 SMs).
+#include "fused_gather.cuh"
 
 extern "C" int lut_matmul_launch(const int* qa, const int* qw,
                                  const uint16_t* lut, int* out, int M,
                                  int K, int N, int grid, void* stream) {
-  return lutmm::launch(qa, 0, qw, lut, out, 1, M, K, N, grid,
-                       static_cast<cudaStream_t>(stream));
+  return fusedmm::launch<false, int>(qa, 0, qw, 0, lut, nullptr, nullptr,
+                                nullptr, nullptr, out, nullptr, nullptr,
+                                nullptr, 1, M, K, N, grid,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

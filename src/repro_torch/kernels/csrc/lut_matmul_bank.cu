@@ -12,18 +12,21 @@
 // program and subtracts a per-lane K-pad correction.
 //
 // Bound on an H100: shared-memory gather throughput, one table lookup
-// per multiply (no tensor cores).  The persistent blocks of
-// lut_gather.cuh walk contiguous (lane, tile) ranges, so each block
-// stages the uint16 table of the lane it works on once, not per tile.
-#include "lut_gather.cuh"
+// per multiply (no tensor cores).  The body is K4's (fused_gather.cuh on
+// int codes): its persistent blocks walk contiguous (lane, tile) ranges,
+// so each block stages the swizzled uint16 table of the lane it works on
+// once, not per tile.
+#include "fused_gather.cuh"
 
 extern "C" int lut_matmul_bank_launch(const int* qa,
                                       long long qa_lane_stride,
                                       const int* qw, const uint16_t* luts,
                                       int* out, int n_lanes, int M, int K,
                                       int N, int grid, void* stream) {
-  return lutmm::launch(qa, qa_lane_stride, qw, luts, out, n_lanes, M, K, N,
-                       grid, static_cast<cudaStream_t>(stream));
+  return fusedmm::launch<false, int>(qa, qa_lane_stride, qw, 0, luts, nullptr,
+                                nullptr, nullptr, nullptr, out, nullptr,
+                                nullptr, nullptr, n_lanes, M, K, N, grid,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

@@ -22,11 +22,14 @@ Per-lane values travel as device tensors (``pack_scalars``,
 ``pack_codes``), so no launch waits on the host.  The composed kernels
 split their (lane, row tile, column tile) items over the persistent
 blocks by cost, a wide lane's item weighing ``WIDE_COST`` and a narrow
-one's ``NARROW_COST`` (``split_starts`` mirrors the device's formula).  The kernels return
-integers only; the f32 limb recombination and the zero-point correction
-and dequant (``dequant``, the reference's ``_dequant`` and
-``_bank_dequant`` at once) run as eager PyTorch ops in the caller, each
-rounded on its own, as the reference leaves them to its jitted caller.
+one's ``NARROW_COST`` (``split_starts`` mirrors the device's formula).
+Every kernel of the shared body (K1-K8) cuts K into ranges where its
+items are fewer than the blocks (``k_split`` mirrors the plan).  The
+kernels return integers only; the f32 limb recombination and the
+zero-point correction and dequant (``dequant``, the reference's
+``_dequant`` and ``_bank_dequant`` at once) run as eager PyTorch ops in
+the caller, each rounded on its own, as the reference leaves them to its
+jitted caller.
 
 Callers go through ``repro_torch.kernels.ops``, which validates the
 operands and sends CPU tensors to the plain versions (``kernels.ref``).
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -77,6 +81,57 @@ def split_starts(costs, per_lane: int, grid: int) -> list[int]:
             before += per_lane * c
         starts.append(start)
     return starts
+
+
+#: Threads a block, outputs a thread along N and the K chunk of
+#: ``csrc/fused_gather.cuh`` (``kThreads``, ``kNT``, ``kKC``).
+THREADS, NT, KC = 512, 8, 32
+
+
+def threads_across_n(n: int) -> int:
+    """Threads across N of the shared body's tile
+    (``fused_gather.cuh::threads_across_n``): the column tile is that
+    many times ``NT`` wide."""
+    return 1 if n <= 8 else 2 if n <= 16 else 4 if n <= 32 else 8
+
+
+class KSplit(NamedTuple):
+    """A launch's work units as the shared body walks them: ``lanes`` x
+    ``tiles`` (row tile, column tile) items, each item's ``chunks`` KC
+    chunks of K cut into ``splits`` ranges."""
+    lanes: int
+    tiles: int
+    chunks: int
+    splits: int
+
+    @property
+    def items(self) -> int:
+        return self.lanes * self.tiles
+
+    def unit(self, u: int) -> tuple[int, int, range]:
+        """Unit ``u``'s lane, tile and KC chunks, decoded as the kernel
+        decodes it (lane-major, then tile, then K range)."""
+        lane, rem = divmod(u, self.tiles * self.splits)
+        tile, part = divmod(rem, self.splits)
+        return lane, tile, range(part * self.chunks // self.splits,
+                                 (part + 1) * self.chunks // self.splits)
+
+
+def k_split(n_lanes: int, m: int, k: int, n: int, grid: int) -> KSplit:
+    """The K split of one launch of the shared body
+    (``fused_gather.cuh::k_splits``): 1 when there are at least as many
+    items as blocks; else the range count s in [1, chunks] whose busiest
+    block sums the fewest chunks, ceil(items s / grid) units of at most
+    ceil(chunks / s) chunks each, the smallest s on a tie (so 1 wherever
+    a split would not shorten the busiest block)."""
+    tn = threads_across_n(n)
+    tiles = -(-m // (THREADS // tn)) * -(-n // (tn * NT))
+    chunks = -(-k // KC)
+    items = n_lanes * tiles
+    splits = min(range(1, chunks + 1),
+                 key=lambda s: -(-items * s // grid) * -(-chunks // s),
+                 default=1) if items < grid else 1
+    return KSplit(n_lanes, tiles, chunks, splits)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,17 +1,24 @@
-"""Where the composed gather body (K5-K8, ``csrc/fused_gather.cuh``)
-spends its time, on the card.
+"""Where the gather body of K1-K8 (``csrc/fused_gather.cuh``) spends its
+time, on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.gather_ablation
+    PYTHONPATH=src python -m repro_torch.kernels.gather_ablation \
+        [--parent DIR]
 
 Builds copies of ``fused_gather.cuh`` with one part changed at a time
 (into ``_build/ablation/gather/<copy>/``, one ``nvcc`` per kernel, all
 started together) and times each copy's K8 and K6 at the ten layer
 shapes of a 64-image ResNet-8 forward on the wide study's 12-lane bank
 (7 narrow lanes first, then 5 wide ``loa4`` lanes), and K8 on the 5-lane
-all-wide bank; ``base``, ``no_swizzle`` and ``parent_design`` also time
-K3, K4, K5 and K7 (the operands ``chip_smoke.py``'s timing phase gives
-them).  Times are ten-shape sums of CUDA-event means.  The copies that
-remove a part compute wrong results: the point is the time the part
+all-wide bank; ``base``, ``no_swizzle``, ``parent_design``,
+``no_ksplit`` and ``threads1024`` also time K3, K4, K5 and K7, and
+``base``, ``no_swizzle``, ``no_lookup``, ``broadcast_index``,
+``no_loads``, ``no_ksplit`` and ``threads1024`` K1 and K2 (the operands
+``chip_smoke.py``'s timing phase gives them: K2 and K4 the 17-lane
+case-study bank, activations shared at conv_init and banked after).
+``--parent DIR`` adds the copy ``parent``: the eight kernels built from
+the sources in DIR (another tree's ``csrc/``, with the same launch
+functions).  Times are ten-shape sums of CUDA-event means.  The copies
+that remove a part compute wrong results: the point is the time the part
 cost.
 
   base             the body as it is
@@ -30,6 +37,13 @@ cost.
   batch32          32 staged loads in flight per thread in place of 8
   cost2, cost3     a wide lane's item weighs 2 or 3 narrow ones' in place
                    of 5 / 2
+  no_ksplit        K never split into ranges (one unit per item)
+  threads1024      1024-thread blocks (64 registers a thread) with a K
+                   chunk of 16 (the row tile's staging fits beside the
+                   table)
+
+``no_swizzle`` + ``no_ksplit`` on K1/K2 stands for the earlier K1/K2
+body's table and grid.
 
 Prints one line per copy, then the instruction mix of each inner loop
 of ``base``'s K6 (``cuobjdump -sass``: the loops with table lookups,
@@ -38,6 +52,7 @@ gather_ablation.json`` and the SASS (``gather_ablation_sass.txt``).
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import json
@@ -45,15 +60,20 @@ import os
 import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
+from . import approx_matmul as am
 from . import build
 from . import composed_matmul as cm
 from . import fused_matmul as fm
+from . import lut_bank as lb
 
 HEADER = "fused_gather.cuh"
 COMPOSED = ("fused_composed_matmul_bank", "composed_matmul_bank")
+LUT = ("lut_matmul", "lut_matmul_bank")
 ALL = ("fused_matmul", "fused_matmul_bank", "fused_composed_matmul",
        "composed_matmul") + COMPOSED
 BATCH = 64
@@ -101,44 +121,73 @@ def _edits() -> dict[str, list[tuple[str, str]]]:
                          "constexpr int kNarrowCost = 1;")],
         "cost3": [(cost, "constexpr int kWideCost = 3;\n"
                          "constexpr int kNarrowCost = 1;")],
+        "no_ksplit": [("  const int splits =\n      k_splits(",
+                       "  const int splits = 1 + 0 *\n      k_splits(")],
+        "threads1024": [("constexpr int kThreads = 512;",
+                         "constexpr int kThreads = 1024;"),
+                        ("constexpr int kKC = 32;", "constexpr int kKC = 16;")],
     }
 
 
 def _kernels(copy: str) -> tuple:
-    return ALL if copy in ("base", "no_swizzle", "parent_design") \
-        else COMPOSED
+    if copy in ("base", "no_swizzle", "no_ksplit", "threads1024", "parent"):
+        return LUT + ALL
+    if copy in ("no_lookup", "broadcast_index", "no_loads"):
+        return LUT + COMPOSED
+    return ALL if copy == "parent_design" else COMPOSED
 
 
-def _build() -> dict[tuple[str, str], ctypes._CFuncPtr]:
-    """Every copy's kernels, built in parallel; (copy, kernel) -> the
-    launch function, typed as the wrappers type it."""
+def _write_sources(root: Path, parent: Path | None) -> dict[str, tuple]:
+    """Each copy's sources under ``root/<copy>/``; copy -> its kernels.
+    ``parent``: a ``csrc/`` directory copied as it is, as the copy
+    ``parent``."""
     src = (build.CSRC / HEADER).read_text()
-    root = build.BUILD_DIR / "ablation" / "gather"
-    procs = {}
-    for copy, edits in _edits().items():
+    copies = dict(_edits())
+    if parent is not None:
+        copies["parent"] = None
+    for copy, edits in copies.items():
+        out = root / copy
+        out.mkdir(parents=True, exist_ok=True)
+        if edits is None:                  # another tree's sources
+            for f in parent.iterdir():
+                shutil.copy(f, out / f.name)
+            continue
         text = src
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"{copy}: edit target not found once")
             text = text.replace(old, new)
-        out = root / copy
-        out.mkdir(parents=True, exist_ok=True)
         (out / HEADER).write_text(text)
         for name in _kernels(copy):
             shutil.copy(build.CSRC / f"{name}.cu", out / f"{name}.cu")
-            procs[copy, name] = subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                 str(out / f"{name}.so"), str(out / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return {copy: _kernels(copy) for copy in copies}
+
+
+def _build(parent: Path | None) -> dict[tuple[str, str], ctypes._CFuncPtr]:
+    """Every copy's kernels, built in parallel (as many nvcc at a time as
+    the host has cores); (copy, kernel) -> the launch function, typed as
+    the wrappers type it."""
+    root = build.BUILD_DIR / "ablation" / "gather"
+    jobs = [(copy, name) for copy, names in
+            _write_sources(root, parent).items() for name in names]
+
+    def nvcc(job):
+        out = root / job[0] / job[1]
+        return subprocess.run(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+             str(out.with_suffix(".so")), str(out.with_suffix(".cu"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        done = dict(zip(jobs, pool.map(nvcc, jobs)))
     fns = {}
-    for (copy, name), proc in procs.items():
-        log, _ = proc.communicate()
+    for (copy, name), proc in done.items():
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {copy}/{name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {copy}/{name}:\n"
+                               f"{proc.stdout}")
         lib = ctypes.CDLL(str(root / copy / f"{name}.so"))
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = (cm._ARGTYPES if name.startswith("composed")
-                       else fm._ARGTYPES)[name]
+        fn.argtypes = _argtypes(name)
         fn.restype = ctypes.c_int
         fns[copy, name] = fn
     return fns
@@ -170,6 +219,19 @@ def _sass(path, out_path) -> list[dict]:
     return loops
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the launch functions' argument types, as the wrappers set them
+_LUT_ARGTYPES = {"lut_matmul": [_P] * 4 + [_I] * 4 + [_P],
+                 "lut_matmul_bank": [_P, _L] + [_P] * 3 + [_I] * 5 + [_P]}
+
+
+def _argtypes(name: str) -> list:
+    if name in LUT:
+        return _LUT_ARGTYPES[name]
+    return (cm._ARGTYPES if name.startswith("composed")
+            else fm._ARGTYPES)[name]
+
+
 class _Uncounted:
     """Stands in for a wrapper's launch counter: these launches are not
     the main path's."""
@@ -178,9 +240,9 @@ class _Uncounted:
 
 def _operands(device) -> dict:
     """Per layer shape: the operands each timed kernel takes (as
-    ``chip_smoke.py``'s timing phase builds them: K4/K8 banked
-    activations after conv_init; K5/K6 the codes the two-step datapath
-    makes of K7's/K8's operands)."""
+    ``chip_smoke.py``'s timing phase builds them: K2/K4/K8 banked
+    activations after conv_init; K1/K2 random 8-bit codes; K5/K6 the
+    codes the two-step datapath makes of K7's/K8's operands)."""
     import numpy as np
     from ..approx.quant import calibrate, quantize, scalar_params
     from ..approx.specs import bank_for
@@ -221,6 +283,15 @@ def _operands(device) -> dict:
             return fm.pack_scalars(lanes, device, *sp)
 
         cases = {}
+        qa = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32,
+                           device=device)
+        qw = torch.randint(0, 256, (k, n), generator=gen, dtype=torch.int32,
+                           device=device)
+        cases["lut_matmul"] = (qa, qw, luts8[0])
+        qab = qa if shared else torch.randint(
+            0, 256, (luts8.shape[0], m, k), generator=gen, dtype=torch.int32,
+            device=device)
+        cases["lut_matmul_bank"] = (qab, qw, luts8)
         x1 = xs(1)
         cases["fused_matmul"] = (x1, w, luts8[0], *fused(x1, 8, 1), ())
         x17 = xs(luts8.shape[0])
@@ -249,9 +320,18 @@ def _operands(device) -> dict:
 
 
 def _call(name: str, fn, args):
-    """One launch of a copy's kernel ``fn`` through its wrapper's
-    ``_launch`` (the same checks and arguments), the wrapper's launch
-    function swapped for ``fn`` during the call."""
+    """One launch of a copy's kernel ``fn`` through its wrapper (the same
+    arguments), the wrapper's launch function swapped for ``fn`` during
+    the call and its launch count left as it was."""
+    if name in LUT:
+        mod = am if name == "lut_matmul" else lb
+        wrapper = getattr(mod, name)
+        own, launches = mod._launcher, wrapper.launches
+        mod._launcher = lambda: fn
+        try:
+            return wrapper(*args)
+        finally:
+            mod._launcher, wrapper.launches = own, launches
     mod = cm if name.startswith("composed") else fm
     own = mod._launcher
     mod._launcher = lambda _name: fn
@@ -275,12 +355,17 @@ def _ms(fn, reps: int = 5, warmup: int = 2) -> float:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another tree's csrc/ directory, built and timed "
+                         "as the copy 'parent'")
+    args = ap.parse_args()
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    fns = _build()
+    fns = _build(args.parent)
     os.makedirs(OUT_DIR, exist_ok=True)
     loops = _sass(build.BUILD_DIR / "ablation" / "gather" / "base"
                   / "composed_matmul_bank.so",
@@ -289,7 +374,7 @@ def main() -> None:
     print(f"[ablation] {card}; ten-shape sums of ms per call "
           f"(ResNet-8, batch {BATCH})")
     result = {"card": card, "ms": {}, "k6_loops": loops}
-    for copy in _edits():
+    for copy in list(_edits()) + (["parent"] if args.parent else []):
         row = {}
         for key in ops["conv_init"]:
             name = key.split()[0]
