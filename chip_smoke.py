@@ -18,7 +18,9 @@ Phases (any failure exits nonzero):
      and wide lanes interleaved, a bank mixing exact/trunc/loa trees
      (K8, and K6 with a reduce code per lane), ragged shapes, shapes at
      which one lane's K is split into ranges (``SPLIT``: the deep layers,
-     a ragged K with a short last range) and a table
+     a ragged K with a short last range), K3/K4 at their staging's ragged
+     edges (``QUANT8_RAGGED``: N <= 8, K in {1, 31, 33, 577}, M in {1,
+     513}, activations shared and banked) and a table
      with LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
      population (32 candidates, 8192 vectors) for the 8-bit multiplier
      and adder; the low-rank kernel (K9), whose f32 sums run in another
@@ -61,7 +63,12 @@ Phases (any failure exits nonzero):
      its table lookups, its integer ops and its bytes (K9 also beside
      ``torch.matmul`` of its pre-gathered tables, its ``library_ms``, with
      its regime and grid; K1-K8 with their items and K ranges,
-     ``fused_matmul.k_split``), and a CGP
+     ``fused_matmul.k_split``; K3/K4 also by their launch alone,
+     ``launch_ms``, its device time from ``torch.profiler``,
+     ``device_ms``, and by the device work one call through
+     ``kernels.ops`` queues, ``kernels_per_call`` from ``torch.profiler``,
+     which fails above two for K3: its kernel and, where K is split, one
+     memset), and a CGP
      generation's wall split into host time and the time from its
      operands on the card to its scores on the host.
 
@@ -96,6 +103,12 @@ RAGGED = ((1000, 37, 10), (777, 100, 50), (129, 577, 65), (1, 1, 1))
 # body's k_splits): the two deep layers, a ragged K whose last range is
 # short, and many ranges with a one-code last chunk
 SPLIT = ((4096, 576, 64), (4096, 288, 64), (4096, 100, 64), (512, 577, 64))
+# K3/K4 at the ragged edges of their staging: one column tile of one
+# thread across N (N <= 8: 512-row tiles), K of one code, one short of a
+# chunk, one past it and many chunks with a one-code last, one row and
+# one past a row tile
+QUANT8_RAGGED = tuple((m, k, n) for m in (1, 513) for k in (1, 31, 33, 577)
+                      for n in (1, 8))
 # composed entries of a bank that mixes reduction trees (K8 compare)
 MIXED_REDUCE = (("mul8u_exact", 16, "trunc3"), ("mul8u_trunc6", 12, "exact"),
                 ("mul8u_exact", 16, "loa4"))
@@ -375,6 +388,29 @@ def phase_compare(shapes: dict, device) -> dict:
     all_shapes = (list(shapes.items())
                   + [(f"ragged{s}", s) for s in RAGGED]
                   + [(f"split{s}", s) for s in SPLIT])
+
+    def check_fused(cases, what, k):
+        for name, op, plain, args, codes, bits in cases:
+            sp = _scalars(args[0], args[1], bits)
+            lanes = args[2].shape[0] if args[2].ndim == 3 else 1
+            fp, ip = fm.pack_scalars(lanes, device, *sp)
+            packed = fm.pack_codes(lanes, device, *codes) if codes else ()
+            want = plain(args[0], args[1], args[2].to(torch.int32), *packed,
+                         fp, ip)
+            got = op(*args, *codes, *sp, raw=True)
+            check(name, got, want, f"{what} x{tuple(args[0].shape)}")
+            s = (fm.limbs_to_f32(*want[:2]) if codes
+                 else want[0].to(torch.float32))
+            check(name, [op(*args, *codes, *sp)],
+                  [fm.dequant(s, want[-2], want[-1], fp, ip, k)],
+                  f"{what} f32")
+
+    for m, k, n in QUANT8_RAGGED:             # K3 and K4 cases only
+        x = _floats((m, k), gen, device)
+        w = _floats((k, n), gen, device, 0.2)
+        xb17 = _floats((N_LANES, m, k), gen, device)
+        check_fused(_fused_cases(t, x, xb17, None, w)[:4],
+                    f"quant8 ragged {(m, k, n)}", k)
     for label, (m, k, n) in all_shapes:
         what = f"{label} {(m, k, n)}"
         qa = _codes((m, k), gen, device)
@@ -395,21 +431,7 @@ def phase_compare(shapes: dict, device) -> dict:
         w = _floats((k, n), gen, device, 0.2)
         xb17 = _floats((N_LANES, m, k), gen, device)
         xbw = _floats((n_wide, m, k), gen, device)
-        for name, op, plain, args, codes, bits in _fused_cases(
-                t, x, xb17, xbw, w):
-            sp = _scalars(args[0], w, bits)
-            lanes = args[2].shape[0] if args[2].ndim == 3 else 1
-            fp, ip = fm.pack_scalars(lanes, device, *sp)
-            packed = fm.pack_codes(lanes, device, *codes) if codes else ()
-            plain_args = (args[0], w, args[2].to(torch.int32))
-            want = plain(*plain_args, *packed, fp, ip)
-            got = op(*args, *codes, *sp, raw=True)
-            check(name, got, want, f"{what} x{tuple(args[0].shape)}")
-            s = (fm.limbs_to_f32(*want[:2]) if codes
-                 else want[0].to(torch.float32))
-            check(name, [op(*args, *codes, *sp)],
-                  [fm.dequant(s, want[-2], want[-1], fp, ip, k)],
-                  f"{what} f32")
+        check_fused(_fused_cases(t, x, xb17, xbw, w), what, k)
         del x, w, xb17, xbw
         # two-step composed on codes (K5, K6): 16-bit codes; the wide
         # study's 12-lane bank with shared or per-lane codes
@@ -975,17 +997,29 @@ def phase_timing(shapes: dict, device) -> dict:
     wide_int = [int_ops_per_product(mk, kd, kk) for mk, (kd, kk) in zip(
         wide["masks"].tolist(), wide["codes"].tolist())]
     bank_int = tuple(map(sum, zip(*wide_int)))
+    # the device work one K3 / K4 call through kernels.ops queues (raw
+    # outputs: the f32 epilogue is the caller's), at a shape whose K is
+    # split (head: kernel + memset) and one whose K is not
+    per_call_shapes = {"head": ("fused_matmul", "fused_matmul_bank"),
+                       "s0_b0_conv1": ("fused_matmul", "fused_matmul_bank")}
+    per_call = {}
 
     def row(kernel, label, mkn, lanes, lookups, int_ops, nbytes, call,
-            plain):
+            plain, launch=None):
         reps, plain_reps = (20, 2) if kernel.startswith("lut") else (10, 1)
         split = fm.k_split(lanes, *mkn, sms)
+        if launch is not None:                  # the launch alone, and
+            launch_ms = {                       # its device time
+                "launch_ms": _time(launch, reps=reps, warmup=3),
+                "device_ms": _device_ops(launch, reps)["device_ms"]}
+        else:
+            launch_ms = {}
         rows.append({
             "kernel": kernel, "layer": label, "M": mkn[0], "K": mkn[1],
             "N": mkn[2], "lanes": lanes, "items": split.items,
             "splits": split.splits, "lookups": lookups,
             "int_ops": int_ops, "bytes": nbytes,
-            "ms": _time(call, reps=reps, warmup=3),
+            "ms": _time(call, reps=reps, warmup=3), **launch_ms,
             "plain_ms": _time(plain, reps=plain_reps, warmup=1),
             **_bounds(lookups / lookup_rate,
                       int_seconds(*int_ops, int_rate),
@@ -1041,10 +1075,17 @@ def phase_timing(shapes: dict, device) -> dict:
             limbs = 2 if codes else 1
             nbytes = (xin.numel() * 4 + w.numel() * 4
                       + lanes * (lut_b + limbs * out_b + sums_b))
+            # K3/K4 also by their launch alone, with the scalars made
+            sc = fm.lane_scalars(lanes, device, *sp)
+            launch = (None if codes else
+                      lambda: getattr(fm, name)(xin, w, tab, sc))
             row(name, label, mkn, lanes, per_product * m * k * n,
                 (ints[0] * m * k * n, ints[1] * m * k * n), nbytes,
                 lambda: op(xin, w, tab, *codes, *sp, raw=True),
-                lambda: plain(xin, w, tab32, *packed, fp, ip))
+                lambda: plain(xin, w, tab32, *packed, fp, ip), launch)
+            if name in per_call_shapes.get(label, ()):
+                per_call[f"{name} {label}"] = _device_ops(
+                    lambda: op(xin, w, tab, *sp, raw=True))
         # two-step composed on codes: K5 one 16-bit loa4 multiplier, K6
         # the wide study's bank, each on the codes the two-step datapath
         # makes of K7's and K8's operands (per-lane widths give per-lane
@@ -1082,14 +1123,69 @@ def phase_timing(shapes: dict, device) -> dict:
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['limit']}, "
               f"{r['bound_ms'] / r['ms']:.1%})")
+    for key, v in per_call.items():
+        print(f"[timing] {key}: one call through kernels.ops queues "
+              f"{v['count']} device op(s), {v['device_ms']:.4f} ms on the "
+              f"device: {v['names']}")
+    over = {k: v for k, v in per_call.items()
+            if k.startswith("fused_matmul ") and v["count"] > 2}
+    if over:
+        raise AssertionError(f"a K3 call queues more than its kernel and "
+                             f"one memset: {over}")
+    for name in ("fused_matmul", "fused_matmul_bank"):
+        sel = [r for r in rows if r["kernel"] == name]
+        print(f"[timing] {name}: ten shapes {sum(r['ms'] for r in sel):.4f}"
+              f" ms through kernels.ops, "
+              f"{sum(r['launch_ms'] for r in sel):.4f} ms the launch alone, "
+              f"{sum(r['device_ms'] for r in sel):.4f} ms on the device")
     rows += _bitsim_timing(device, lookup_rate, int_rate)
     fp32_rate = sms * FP32_LANES_PER_SM * 2 * clock_hz
     rows += _lowrank_timing(device, fp32_rate)
     return {"lookup_rate_per_s": lookup_rate,
-            "alu_int_ops_per_s": int_rate,
+            "alu_int_ops_per_s": int_rate, "kernels_per_call": per_call,
             "wide_bank": t["wide_names"],
             "wide_bank_int_ops_per_product": wide_int,
             "fp32_flops_per_s": fp32_rate, "rows": rows}
+
+
+def _device_ops(call, reps: int = 1, attempts: int = 3) -> dict:
+    """The device work of one call, under ``torch.profiler`` over
+    ``reps`` calls: the count of device-side entries (kernels and
+    memsets) a call queues, their names and their device time a call.
+    A window's last kernel record can arrive after the window closes, so
+    each window ends with two marker kernels (``torch.cuda._sleep``'s
+    spin kernel, which no call here queues), left out of the count; a
+    count that is still not a whole number of calls is profiled again,
+    up to ``attempts`` times, and fails then (the call's kernel at least
+    must show)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()                                      # warm: builds, caches
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            for _ in range(2):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and "spin_kernel" not in e.key]
+        count = sum(e.count for e in dev)
+        counts.append(count)
+        if count >= reps and count % reps == 0:
+            break
+    else:
+        raise AssertionError(f"the profiler saw no whole number of calls' "
+                             f"device work in {reps} calls: {counts}")
+    device_ms = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in dev) / 1e3 / reps
+    return {"count": count // reps, "names": sorted(e.key[:60] for e in dev),
+            "device_ms": device_ms, "profiled_windows": len(counts)}
 
 
 def _bounds(lookup_s: float, int_s: float, bytes_s: float) -> dict:

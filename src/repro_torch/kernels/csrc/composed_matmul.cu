@@ -30,9 +30,9 @@ extern "C" int composed_matmul_launch(const int* qa, const int* qw,
                                       const int* rcode, int* lo, int* hi,
                                       int M, int K, int N, int grid,
                                       void* stream) {
-  return fusedmm::launch<true>(qa, 0, qw, 0, lut, nullptr, nullptr, mask,
-                               rcode, lo, hi, nullptr, nullptr, 1, M, K, N,
-                               grid, static_cast<cudaStream_t>(stream));
+  return fusedmm::launch_codes<true>(qa, 0, qw, 0, lut, mask, rcode, lo,
+                                     hi, 1, M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

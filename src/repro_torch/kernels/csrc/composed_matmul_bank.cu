@@ -23,10 +23,10 @@ extern "C" int composed_matmul_bank_launch(
     long long qw_lane_stride, const uint16_t* luts, const unsigned* masks,
     const int* rcodes, int* lo, int* hi, int n_lanes, int M, int K, int N,
     int grid, void* stream) {
-  return fusedmm::launch<true>(qa, qa_lane_stride, qw, qw_lane_stride, luts,
-                               nullptr, nullptr, masks, rcodes, lo, hi,
-                               nullptr, nullptr, n_lanes, M, K, N, grid,
-                               static_cast<cudaStream_t>(stream));
+  return fusedmm::launch_codes<true>(qa, qa_lane_stride, qw,
+                                     qw_lane_stride, luts, masks, rcodes,
+                                     lo, hi, n_lanes, M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

@@ -20,19 +20,20 @@
 // shared-memory lookups.  Design in fused_gather.cuh;
 // the masked ragged K edge needs no pad-limb correction, and every
 // shift of the tree is kept below 32 bits.
+// out is one allocation: lo (M*N), hi (M*N), row (M), col
+// (N), int32 (where K is split, one memset zeroes it).
 #include "fused_gather.cuh"
 
 extern "C" int fused_composed_matmul_launch(const float* x, const float* w,
                                             const uint16_t* lut,
                                             const unsigned* mask,
                                             const int* rcode,
-                                            const float* fp, const int* ip,
-                                            int* lo, int* hi, int* row,
-                                            int* col, int M, int K, int N,
-                                            int grid, void* stream) {
-  return fusedmm::launch<true>(x, 0, w, 0, lut, fp, ip, mask, rcode, lo, hi,
-                               row, col, 1, M, K, N, grid,
-                               static_cast<cudaStream_t>(stream));
+                                            fusedmm::Scalars sc, int* out,
+                                            int M, int K, int N, int grid,
+                                            void* stream) {
+  return fusedmm::launch_quant<true>(x, 0, w, lut, sc, mask, rcode, out, 1,
+                                     M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

@@ -1,7 +1,7 @@
 // fused_composed_matmul_bank: the fused composed datapath for a bank
 // that mixes operand widths (8, 12, 16 bits; mask 0 = narrow lane) and
 // reduction trees, in one launch.  Per lane l: its table (a tile LUT),
-// quantization scalars fp[l] = (sa, sw, qmax), ip[l] = (za, zw), 2W-bit
+// quantization scalars (sa, za, sw, zw, qmax: fusedmm::Scalars), 2W-bit
 // mask masks[l] and reduce code rcodes[l] = (kind, k); outputs the
 // limbs lo, hi (n, M, N) and the code sums row (n, M), col (n, N).
 // x is shared (lane stride 0, re-quantized per lane) or banked.
@@ -16,16 +16,18 @@
 // fused_gather.cuh split the lanes' items by cost and stage each lane's
 // table once; the lane's mask and code are uniform across a block, so
 // the narrow/wide and tree-kind branches never diverge within a warp.
+// out is one allocation: lo (n*M*N), hi (n*M*N), row (n*M), col
+// (n*N), int32 (where K is split, one memset zeroes it).
 #include "fused_gather.cuh"
 
 extern "C" int fused_composed_matmul_bank_launch(
     const float* x, long long x_lane_stride, const float* w,
     const uint16_t* luts, const unsigned* masks, const int* rcodes,
-    const float* fp, const int* ip, int* lo, int* hi, int* row, int* col,
-    int n_lanes, int M, int K, int N, int grid, void* stream) {
-  return fusedmm::launch<true>(x, x_lane_stride, w, 0, luts, fp, ip, masks,
-                               rcodes, lo, hi, row, col, n_lanes, M, K, N,
-                               grid, static_cast<cudaStream_t>(stream));
+    fusedmm::Scalars sc, int* out, int n_lanes, int M, int K, int N,
+    int grid, void* stream) {
+  return fusedmm::launch_quant<true>(x, x_lane_stride, w, luts, sc, masks,
+                                     rcodes, out, n_lanes, M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

@@ -17,17 +17,20 @@
 // x: f32 (M, K) per lane, lane stride 0 when the activations are shared
 // (each lane still quantizes them with its own scale and zero point);
 // w: f32 (K, N), shared (lane stride 0; the codes of a mixed-width bank
-// are per lane, (n_lanes, K, N)); luts: uint16 (n_lanes, 256, 256); fp: f32
-// (n_lanes, 3) = (sa, sw, qmax); ip: int32 (n_lanes, 2) = (za, zw);
+// are per lane, (n_lanes, K, N)); luts: uint16 (n_lanes, 256, 256);
+// Scalars: sa, za, sw, zw, qmax, each read through its own pointer with
+// its own lane stride (0 when the lanes share it; f32, za and zw int32),
+// or passed by value when its pointer is null, so the calibration's
+// tensors go in as they are and a call queues no packing kernel;
 // masks: uint32 (n_lanes,); rcodes: int32 (n_lanes, 2) = encode_reduce
-// (kind, k).  Every per-lane value is read from device memory, so no
-// launch waits on the host.  The f32 correction and dequant stay with
-// the caller (eager PyTorch), as the TPU kernels leave them to theirs.
+// (kind, k).  No launch waits on the host.  The f32 correction and
+// dequant stay with the caller (eager PyTorch), as the TPU kernels leave
+// them to theirs.
 //
 // Instantiated on int operands (In = int), the kernel reads x and w as
-// int32 codes, stages them as they are (no quantize, no per-lane scalars:
-// fp and ip are not read) and keeps no code sums (row_out and col_out
-// are not written): composed_matmul*.cu take <true, int> (W-bit codes),
+// int32 codes, stages them as they are (no quantize, no per-lane scalars
+// are read) and keeps no code sums (row_out and col_out are not
+// written): composed_matmul*.cu take <true, int> (W-bit codes),
 // lut_matmul*.cu <false, int> (8-bit codes; masks, rcodes and out_hi are
 // not touched either, and every lane weighs 1 in the split).
 //
@@ -51,12 +54,13 @@
 //  * The column tile is sized to the real N (kNT outputs a thread, 1..8
 //    threads across N) instead of the TPU kernels' 128-wide pad, since
 //    the case study's N is 10..64.
-//  * K is walked in chunks of kKC, quantized while staged (loads issued
-//    kBatch at a time); ragged M, N and K edges are masked, so no padded
-//    term reaches a sum and no pad correction is needed.  Row sums are
-//    kept by the threads of column group 0 and written by the
-//    column-tile-0 unit, column sums by the threads of row 0 and written
-//    by the row-tile-0 unit.
+//  * K is walked in chunks of kKC, quantized while staged (fused_kernel:
+//    loads issued kBatch at a time, between two barriers); ragged M, N
+//    and K edges are masked, so no padded term reaches a sum and no pad
+//    correction is needed.  In fused_kernel (K7, K8) row sums are kept by
+//    the threads of column group 0 and written by the column-tile-0 unit,
+//    column sums by the threads of row 0 and written by the row-tile-0
+//    unit; K3/K4 make them at staging (below).
 //  * K split: where the (lane, tile) items leave blocks idle (fewer items
 //    than blocks: one lane at the deep layers has 64 items for 132 SMs;
 //    a bank's thousands of items never split), each item's K is cut into
@@ -83,6 +87,39 @@
 //    tree in closed forms that need no right shift (see tree()); codes the
 //    closed forms do not take (loa with k = 0 or k >= 32) keep the guarded
 //    runtime tree of registry.reduce_apply_dyn.
+//
+// The 8-bit float kernels (K3, K4: quant8_kernel) stage their chunks in
+// a kernel of their own, where the other six keep fused_kernel's two
+// barriers a chunk:
+//  * Two operand buffers, one barrier a chunk.  Every thread issues the
+//    f32 loads of chunk c + 1 (a warp's rows of A, up to kARegs a thread,
+//    and its W elements, in registers: `Staged`), gathers chunk c from
+//    one buffer while they are in flight, then quantizes them (__fdiv_rn,
+//    rint, clip) into the other buffer; one __syncthreads hands the
+//    buffers over.  The loads' latency hides under the gather, and the
+//    block waits once a chunk, not twice.
+//  * Codes as bytes: a row of A codes is kARow bytes (kKC codes and a
+//    pad word, so the 32 / tn rows a warp reads fall in distinct banks),
+//    read four k steps a 32-bit load; a chunk's W codes are kKC x tile_n
+//    bytes, a thread's eight columns one 8-byte load a k step (the int32
+//    tiles took an A load a step and two 16-byte W loads).  Two buffers
+//    then fit beside the table at every tile (quant_smem_bytes(1) =
+//    170 752 bytes; the int32 A tile alone was 67 584 at tn = 1).
+//  * Code sums where the codes are made: a warp quantizes whole rows (row
+//    e / kKC, k e % kKC of element e = t + i kThreads), so a row's chunk
+//    sum is one __reduce_add_sync, kept in shared memory by the lane that
+//    writes it out; every W element a thread makes lies in column
+//    t % tile_n (tile_n divides kThreads), so its column sum is one
+//    register, reduced across the threads once per unit (warp shuffles,
+//    then shared atomics).  Row sums are made only by units of
+//    column tile 0 and column sums only by units of row tile 0, the ones
+//    that write them (a branch uniform across the block).
+//  * The table is staged by the threads' 16-byte copy before a lane's
+//    first chunk; a unit's first loads are issued before the copy, under
+//    which their latency hides.
+//  * Outputs (of K7/K8 too, launch_quant): one allocation, the
+//    accumulator (K7/K8: the limbs lo, hi), then the row sums, then the
+//    column sums, so where K is split one memset zeroes them.
 #pragma once
 
 #include <cstdint>
@@ -93,6 +130,18 @@
 // and nothing here (least of all the once-only flags in launch) may be
 // merged with another library's copy when several are loaded.
 namespace fusedmm {
+
+// The quantization scalars of every lane: sa, za, sw, zw, qmax (za and
+// zw int32, the others f32), each read at ptr[i] + lane * stride[i]
+// (stride 0: one value for every lane), or value[i] when ptr[i] is null.
+// Outside the unnamed namespace: the extern "C" launch functions take it
+// by value, and a type of internal linkage would hide them.
+struct Scalars {
+  const void* ptr[5];
+  long long stride[5];
+  float value[5];
+};
+
 namespace {
 
 constexpr int kThreads = 512;   // threads per block
@@ -105,6 +154,21 @@ constexpr int kWideCost = 5;
 constexpr int kNarrowCost = 2;
 // row bits of the table swizzle (0: row-major table)
 constexpr unsigned kSwizzle = 31u;
+// quant8_kernel: operand buffers, chunk c + 1's loads issued before
+// chunk c's gather, A rows and W elements a thread stages a chunk, bytes
+// a staged A row; code sums kept by the gathering threads in their loop
+// in place of the staging (the last three switches are gather_ablation's)
+constexpr int kStages = 2;
+constexpr bool kPrefetch = true;
+constexpr int kARegs = 32;
+constexpr int kWRegs = 4;
+constexpr int kARow = kKC + 4;
+constexpr bool kSumsInLoop = false;
+static_assert(kThreads / 32 * kARegs >= kThreads &&
+              kWRegs * kThreads >= kKC * 8 * kNT,
+              "a thread's registers hold its share of a chunk at every tile");
+
+enum { kSa, kZa, kSw, kZw, kQmax };
 
 // the inner loops, one per lane (the 8-bit kernels' lanes are narrow)
 enum Path { kNarrow, kExact, kTrunc, kLoa8, kLoa, kDyn };
@@ -147,18 +211,38 @@ inline int k_splits(long long items, int chunks, int grid) {
   return best;
 }
 
-// table, row tile and two column-digit tiles (the 8-bit kernels use one)
-inline size_t smem_bytes(int tn) {
+// fused_kernel's table, row tile and column-digit tiles (two composed,
+// one at 8 bits)
+inline size_t smem_bytes(int tn, bool composed) {
   const int tm = kThreads / tn;
   return kLutEntries * sizeof(uint16_t)
        + (size_t)tm * (kKC + 1) * sizeof(int)
-       + 2 * (size_t)kKC * tn * kNT * sizeof(int);
+       + (composed ? 2 : 1) * (size_t)kKC * tn * kNT * sizeof(int);
+}
+
+// quant8_kernel's table, kStages byte buffers of the A and W codes, the
+// row sums (tm) and the column sums (at most 64), all offsets multiples
+// of 16
+inline size_t quant_smem_bytes(int tn) {
+  const int tm = kThreads / tn;
+  return kLutEntries * sizeof(uint16_t)
+       + kStages * ((size_t)tm * kARow + (size_t)kKC * tn * kNT)
+       + (size_t)tm * sizeof(unsigned) + 8 * kNT * sizeof(unsigned);
 }
 
 __device__ __forceinline__ int quantize(float v, float scale, float zp,
                                         float qmax) {
   const float q = rintf(__fdiv_rn(v, scale)) + zp;
   return (int)fminf(fmaxf(q, 0.0f), qmax);
+}
+
+// Lane l's scalar i as f32 (za and zw are exact: codes below 2^24).
+__device__ __forceinline__ float lane_scalar(const Scalars& s, int i,
+                                             int l) {
+  if (s.ptr[i] == nullptr) return s.value[i];
+  const long long at = (long long)l * s.stride[i];
+  return i == kZa || i == kZw ? (float)static_cast<const int*>(s.ptr[i])[at]
+                              : static_cast<const float*>(s.ptr[i])[at];
 }
 
 // The code a staged operand element becomes: quantized from f32, or an
@@ -279,11 +363,13 @@ __device__ __forceinline__ unsigned lookup(const unsigned char* lut,
 // (a & kSwizzle) >> 2 and the words in a chunk by a & 3, which puts entry
 // (a, w) at (a << 8) | (w ^ ((a & kSwizzle) << 1)) (row-major when
 // kSwizzle is 0).
+// Thread t of T copies every T-th 16-byte chunk.
 __device__ __forceinline__ void stage_table(const uint16_t* lut,
-                                            uint16_t* s_lut) {
+                                            uint16_t* s_lut, int t, int T) {
   const uint4* src = reinterpret_cast<const uint4*>(lut);
   uint4* dst = reinterpret_cast<uint4*>(s_lut);
-  for (int i = threadIdx.x; i < kLutEntries * 2 / 16; i += kThreads) {
+#pragma unroll 4
+  for (int i = t; i < kLutEntries * 2 / 16; i += T) {
     uint4 v = src[i];
     const unsigned a = (unsigned)i >> 5, key = a & kSwizzle;
     if (key & 1u) v = make_uint4(v.y, v.x, v.w, v.z);
@@ -394,8 +480,7 @@ template <bool kComposed, typename In>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_kernel(const In* __restrict__ x, long long x_lane_stride,
              const In* __restrict__ w, long long w_lane_stride,
-             const uint16_t* __restrict__ luts,
-             const float* __restrict__ fp, const int* __restrict__ ip,
+             const uint16_t* __restrict__ luts, Scalars sc,
              const unsigned* __restrict__ masks,
              const int* __restrict__ rcodes,
              int* __restrict__ out_lo, int* __restrict__ out_hi,
@@ -410,7 +495,7 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   const int tile_n = tn * kNT;             // columns per tile
   int* s_a = reinterpret_cast<int*>(smem + kLutEntries * sizeof(uint16_t));
   // low and high column digits, doubled (a uint16 entry's byte offset);
-  // the 8-bit kernels stage the low ones only
+  // the 8-bit kernels stage the low ones only (and have no s_w1)
   int* s_w = s_a + tm * (kKC + 1);
   int* s_w1 = s_w + kKC * tile_n;
 
@@ -446,13 +531,13 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
 
     if (lane != staged_lane) {
       __syncthreads();                     // previous table no longer read
-      stage_table(luts + (size_t)lane * kLutEntries, s_lut);
+      stage_table(luts + (size_t)lane * kLutEntries, s_lut, tid, kThreads);
       if (kQuant) {
-        sa = fp[lane * 3];
-        sw = fp[lane * 3 + 1];
-        qmax = fp[lane * 3 + 2];
-        za = (float)ip[lane * 2];
-        zw = (float)ip[lane * 2 + 1];
+        sa = lane_scalar(sc, kSa, lane);
+        za = lane_scalar(sc, kZa, lane);
+        sw = lane_scalar(sc, kSw, lane);
+        zw = lane_scalar(sc, kZw, lane);
+        qmax = lane_scalar(sc, kQmax, lane);
       }
       if (kComposed)
         tr = lane_tree(masks[lane], rcodes[lane * 2],
@@ -577,45 +662,433 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   }
 }
 
-// Launch on `stream` with `grid` persistent blocks; returns the first
-// CUDA error of the launch (the outputs' zeroing when K is split, then
-// cudaGetLastError()).
-template <bool kComposed, typename In>
-inline int launch(const In* x, long long x_lane_stride, const In* w,
-                  long long w_lane_stride,
-                  const uint16_t* luts, const float* fp, const int* ip,
-                  const unsigned* masks, const int* rcodes, int* out_lo,
-                  int* out_hi, int* row_out, int* col_out, int n_lanes,
-                  int M, int K, int N, int grid, cudaStream_t stream) {
-  constexpr bool kQuant = std::is_same<In, float>::value;
-  const int tn = threads_across_n(N);
-  const int splits =
-      k_splits(gather_items(n_lanes, M, N), (K + kKC - 1) / kKC, grid);
-  if (splits > 1) {                        // the units add into zeros
-    const size_t mn = (size_t)n_lanes * M * N * sizeof(int);
-    int* zero[4] = {out_lo, kComposed ? out_hi : nullptr,
-                    kQuant ? row_out : nullptr, kQuant ? col_out : nullptr};
-    const size_t bytes[4] = {mn, mn, (size_t)n_lanes * M * sizeof(int),
-                             (size_t)n_lanes * N * sizeof(int)};
-    for (int i = 0; i < 4; ++i) {
-      if (zero[i] == nullptr) continue;
-      const cudaError_t err = cudaMemsetAsync(zero[i], 0, bytes[i], stream);
-      if (err != cudaSuccess) return (int)err;
+// ---- quant8_kernel: the 8-bit float kernels (K3, K4) ----
+
+// A unit of work, decoded from its index.
+struct Unit {
+  int lane, m0, n0, k_begin, k_end;
+};
+
+__device__ __forceinline__ Unit decode_unit(long long item,
+                                            long long per_lane, int splits,
+                                            int tiles_n, int tm, int tile_n,
+                                            int chunks, int K) {
+  Unit u;
+  u.lane = (int)(item / per_lane);
+  const long long rem = item % per_lane;
+  const long long tile = rem / splits;
+  const int part = (int)(rem % splits);
+  u.m0 = (int)(tile / tiles_n) * tm;
+  u.n0 = (int)(tile % tiles_n) * tile_n;
+  u.k_begin = (int)((long long)part * chunks / splits) * kKC;
+  u.k_end = min(K, (int)((long long)(part + 1) * chunks / splits) * kKC);
+  return u;
+}
+
+// The quantization scalars of one lane.
+struct Quant {
+  float sa, za, sw, zw, qmax;
+};
+
+// A thread's raw operands of a chunk: a[j] the A element of its warp's
+// row j (row warp + j warps of the tile, k = lane), w[j] the W element
+// e = t + j kThreads.
+struct Staged {
+  float a[kARegs];
+  float w[kWRegs];
+};
+
+// Issue thread t's loads of the chunk at k0 (kc codes deep) of unit u;
+// masked elements are 0.
+__device__ __forceinline__ void load_chunk(
+    Staged& v, const float* __restrict__ x_lane, const float* __restrict__ w,
+    const Unit& u, int k0, int kc, int M, int K, int N, int tm, int tile_n,
+    int t) {
+  const int lane = t & 31, warp = t >> 5, warps = kThreads >> 5;
+  const int rows = tm / warps;             // rows a warp quantizes
+  const bool k_in = lane < kc;
+#pragma unroll
+  for (int j = 0; j < kARegs; ++j) {
+    const int m = u.m0 + warp + j * warps;
+    v.a[j] = j < rows && m < M && k_in ? x_lane[(size_t)m * K + k0 + lane]
+                                       : 0.0f;
+  }
+  const int nn = t % tile_n;               // this thread's column
+  const bool n_in = u.n0 + nn < N;
+#pragma unroll
+  for (int j = 0; j < kWRegs; ++j) {
+    const int e = t + j * kThreads, kk = e / tile_n;
+    v.w[j] = e < kKC * tile_n && n_in && kk < kc
+                 ? w[(size_t)(k0 + kk) * N + u.n0 + nn] : 0.0f;
+  }
+}
+
+// Quantize thread t's operands into one buffer as bytes (0 where
+// masked): a warp makes whole rows, so a row's chunk sum is one warp
+// reduction, added to s_row by lane j % 32, which writes it out
+// (sums_out); every W element of thread t lies in column t % tile_n, so
+// csum keeps their sum.
+__device__ __forceinline__ void store_chunk(
+    const Staged& v, const Unit& u, int kc, int M, int N, int tm,
+    int tile_n, const Quant& q, unsigned char* a_buf, unsigned char* w_buf,
+    unsigned* s_row, unsigned& csum, int t) {
+  const int lane = t & 31, warp = t >> 5, warps = kThreads >> 5;
+  const int rows = tm / warps;
+  const bool row_on = !kSumsInLoop && u.n0 == 0;
+  const bool col_on = !kSumsInLoop && u.m0 == 0;
+  const bool k_in = lane < kc;
+#pragma unroll
+  for (int j = 0; j < kARegs; ++j) {
+    if (j < rows) {                        // uniform across the warp
+      const int rr = warp + j * warps;
+      const unsigned c = u.m0 + rr < M && k_in
+          ? (unsigned)quantize(v.a[j], q.sa, q.za, q.qmax) : 0u;
+      a_buf[rr * kARow + lane] = (unsigned char)c;
+      if (row_on) {
+        const unsigned s = __reduce_add_sync(0xffffffffu, c);
+        if (lane == (j & 31)) s_row[rr] += s;
+      }
     }
   }
-  static bool configured = false;          // once: the largest tile's need
+  const bool n_in = u.n0 + t % tile_n < N;
+#pragma unroll
+  for (int j = 0; j < kWRegs; ++j) {
+    const int e = t + j * kThreads, kk = e / tile_n;
+    if (e < kKC * tile_n) {
+      const unsigned c = n_in && kk < kc
+          ? (unsigned)quantize(v.w[j], q.sw, q.zw, q.qmax) : 0u;
+      w_buf[e] = (unsigned char)c;
+      if (col_on) csum += c;
+    }
+  }
+}
+
+// The code sums of unit u into the outputs, and their slots cleared:
+// rows by the lanes that kept them, columns reduced over the threads of
+// one column (shuffles, then shared atomics).  Every thread calls it.
+__device__ __forceinline__ void sums_out(
+    const Unit& u, int M, int N, int tm, int tile_n, unsigned* s_row,
+    unsigned* s_col, unsigned csum, int* row_out, int* col_out, bool add,
+    int t) {
+  if (kSumsInLoop) return;
+  const int lane = t & 31, warp = t >> 5, warps = kThreads >> 5;
+  if (u.n0 == 0) {
+    for (int i = lane; i < tm / warps; i += 32) {
+      const int rr = warp + i * warps;
+      if (u.m0 + rr < M)
+        put(row_out + (size_t)u.lane * M + u.m0 + rr, s_row[rr], add);
+      s_row[rr] = 0u;
+    }
+  }
+  if (u.m0 == 0) {                         // uniform across the block
+    for (int off = tile_n; off < 32; off <<= 1)
+      csum += __shfl_xor_sync(0xffffffffu, csum, off);
+    if (lane < tile_n) atomicAdd(&s_col[t % tile_n], csum);
+    __syncthreads();
+    if (t < tile_n) {
+      if (u.n0 + t < N)
+        put(col_out + (size_t)u.lane * N + u.n0 + t, s_col[t], add);
+      s_col[t] = 0u;
+    }
+    __syncthreads();
+  }
+}
+
+// One step k of the thread's row (table row offset r0) against its eight
+// columns' codes (bytes of wv): acc[j] += LUT[a, w_j].
+__device__ __forceinline__ void narrow8_step(unsigned r0, uint2 wv,
+                                             const unsigned char* lut,
+                                             unsigned (&acc)[kNT]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc[j] += lookup(lut, r0 ^ ((wv.x >> (8 * j) << 1) & 0x1FEu));
+    acc[j + 4] += lookup(lut, r0 ^ ((wv.y >> (8 * j) << 1) & 0x1FEu));
+  }
+}
+
+// One K chunk (kc steps) of a gathering thread: its row's codes a_row
+// (bytes, four a load) and its columns' w_grp (8 bytes a step, row
+// stride tile_n); with kSumsInLoop, the sums its row (g == 0) and
+// columns (r == 0) need.
+__device__ __forceinline__ void narrow8_chunk(
+    const unsigned char* a_row, const unsigned char* w_grp, int tile_n,
+    int kc, const unsigned char* lut, unsigned (&acc)[kNT],
+    bool row_sum_on, bool col_sum_on, unsigned& row_sum,
+    unsigned (&col_sum)[kNT]) {
+  const unsigned* a4 = reinterpret_cast<const unsigned*>(a_row);
+  int kk = 0;
+#pragma unroll 2
+  for (; kk + 4 <= kc; kk += 4) {
+    const unsigned av = a4[kk >> 2];
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      narrow8_step(row_addr((av >> (8 * s)) & 255u),
+                   *reinterpret_cast<const uint2*>(w_grp + (kk + s) * tile_n),
+                   lut, acc);
+  }
+  for (; kk < kc; ++kk)
+    narrow8_step(row_addr(a_row[kk]),
+                 *reinterpret_cast<const uint2*>(w_grp + kk * tile_n), lut,
+                 acc);
+  if (kSumsInLoop && row_sum_on)
+    for (kk = 0; kk < kc; ++kk) row_sum += a_row[kk];
+  if (kSumsInLoop && col_sum_on)
+    for (kk = 0; kk < kc; ++kk)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) col_sum[j] += w_grp[kk * tile_n + j];
+}
+
+// A gathering thread's outputs of unit u (row r, column group g).
+__device__ __forceinline__ void acc_out(const Unit& u, int M, int N,
+                                        int tm, int r, int g,
+                                        const unsigned (&acc)[kNT],
+                                        unsigned row_sum,
+                                        const unsigned (&col_sum)[kNT],
+                                        int* out, int* row_out,
+                                        int* col_out, bool add) {
+  const int m = u.m0 + r;
+  if (m < M) {
+    const size_t o = ((size_t)u.lane * M + m) * N;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int n = u.n0 + g * kNT + j;
+      if (n < N) put(out + o + n, acc[j], add);
+    }
+    if (kSumsInLoop && u.n0 == 0 && g == 0)
+      put(row_out + (size_t)u.lane * M + m, row_sum, add);
+  }
+  if (kSumsInLoop && u.m0 == 0 && r == 0) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int n = u.n0 + g * kNT + j;
+      if (n < N) put(col_out + (size_t)u.lane * N + n, col_sum[j], add);
+    }
+  }
+}
+
+// K3/K4: fused_kernel<false, float>'s function (see the file comment for
+// the staging).  Every thread stages its share of a chunk and gathers
+// (row tid / tn, column group tid % tn); chunk c of a unit is in buffer
+// (gc + c) % kStages, gc the block's chunks so far.
+__global__ void __launch_bounds__(kThreads, 1)
+quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
+              const float* __restrict__ w,
+              const uint16_t* __restrict__ luts, Scalars sc,
+              int* __restrict__ out, int* __restrict__ row_out,
+              int* __restrict__ col_out, int n_lanes, int M, int K, int N,
+              int tn, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* s_lut = reinterpret_cast<uint16_t*>(smem);
+  const int tm = kThreads / tn, tile_n = tn * kNT;
+  unsigned char* s_a = smem + kLutEntries * sizeof(uint16_t);
+  unsigned char* s_w = s_a + kStages * tm * kARow;
+  unsigned* s_row = reinterpret_cast<unsigned*>(s_w + kStages * kKC * tile_n);
+  unsigned* s_col = s_row + tm;
+
+  const int tid = threadIdx.x;
+  const int tiles_m = (M + tm - 1) / tm;
+  const int tiles_n = (N + tile_n - 1) / tile_n;
+  const int chunks = (K + kKC - 1) / kKC;
+  const bool add = splits > 1;
+  const long long per_lane = (long long)tiles_m * tiles_n * splits;
+  const long long begin =
+      range_start(nullptr, n_lanes, per_lane, blockIdx.x, gridDim.x);
+  const long long end =
+      range_start(nullptr, n_lanes, per_lane, blockIdx.x + 1, gridDim.x);
+
+  for (int i = tid; i < tm + 8 * kNT; i += kThreads) s_row[i] = 0u;
+  __syncthreads();
+
+  const int r = tid / tn, g = tid % tn;    // this thread's row and group
+  const unsigned char* lut = smem;
+  int staged_lane = -1;
+  Quant q{0.f, 0.f, 0.f, 0.f, 0.f};
+  long long gc = 0;                        // chunks of the block so far
+  // the next chunk's loads are issued before each gather, across units
+  // too (v holds them)
+  constexpr bool kPipelined = kStages > 1 && kPrefetch;
+  Staged v;
+  bool loaded = false;                     // v holds this unit's chunk 0
+  auto load = [&](const Unit& un, int c) {  // unit un's chunk c
+    const int k0 = un.k_begin + c * kKC;
+    load_chunk(v, x + (size_t)un.lane * x_lane_stride, w, un, k0,
+               min(kKC, K - k0), M, K, N, tm, tile_n, tid);
+  };
+  for (long long item = begin; item < end; ++item) {
+    const Unit u = decode_unit(item, per_lane, splits, tiles_n, tm, tile_n,
+                               chunks, K);
+    const int n_chunks = (u.k_end - u.k_begin + kKC - 1) / kKC;
+    // a first unit's loads go out before the table copy, under which
+    // their latency hides
+    if (kPipelined && !loaded && n_chunks > 0) load(u, 0);
+    loaded = false;
+    if (u.lane != staged_lane) {
+      __syncthreads();                     // the old table is no longer read
+      stage_table(luts + (size_t)u.lane * kLutEntries, s_lut, tid, kThreads);
+      q = Quant{lane_scalar(sc, kSa, u.lane), lane_scalar(sc, kZa, u.lane),
+                lane_scalar(sc, kSw, u.lane), lane_scalar(sc, kZw, u.lane),
+                lane_scalar(sc, kQmax, u.lane)};
+      staged_lane = u.lane;
+    }
+    unsigned acc[kNT], col_sum[kNT], row_sum = 0u, csum = 0u;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) acc[j] = col_sum[j] = 0u;
+    auto a_buf = [&](long long c) { return s_a + (c % kStages) * tm * kARow; };
+    auto w_buf = [&](long long c) {
+      return s_w + (c % kStages) * kKC * tile_n;
+    };
+    auto store = [&](int c) {              // chunk c of this unit
+      store_chunk(v, u, min(kKC, K - u.k_begin - c * kKC), M, N, tm, tile_n,
+                  q, a_buf(gc + c), w_buf(gc + c), s_row, csum, tid);
+    };
+    auto stage = [&](int c) {
+      load(u, c);
+      store(c);
+    };
+    auto gather = [&](int c) {
+      const int k0 = u.k_begin + c * kKC;
+      narrow8_chunk(a_buf(gc + c) + r * kARow, w_buf(gc + c) + g * kNT,
+                    tile_n, min(kKC, K - k0), lut, acc, u.n0 == 0 && g == 0,
+                    u.m0 == 0 && r == 0, row_sum, col_sum);
+    };
+
+    if (kStages == 1) {
+      for (int c = 0; c < n_chunks; ++c) {
+        __syncthreads();                   // the buffer consumed
+        stage(c);
+        __syncthreads();                   // chunk (and table) staged
+        gather(c);
+      }
+    } else {
+      // chunk c + 1's loads (or the next unit's chunk 0) are in flight
+      // while chunk c is gathered, then quantized into the other buffer
+      if (n_chunks > 0) {
+        if (kPipelined) store(0);
+        else stage(0);
+      }
+      __syncthreads();                     // chunk 0 (and table) staged
+      for (int c = 0; c < n_chunks; ++c) {
+        const bool next = c + 1 < n_chunks;
+        if (kPipelined && next) {
+          load(u, c + 1);
+        } else if (kPipelined && item + 1 < end) {
+          const Unit un = decode_unit(item + 1, per_lane, splits, tiles_n,
+                                      tm, tile_n, chunks, K);
+          if (un.k_end > un.k_begin) {
+            load(un, 0);
+            loaded = true;
+          }
+        } else if (next) {
+          stage(c + 1);
+        }
+        gather(c);
+        if (kPipelined && next) store(c + 1);
+        __syncthreads();                   // chunk c consumed, c+1 staged
+      }
+    }
+    gc += n_chunks;
+    sums_out(u, M, N, tm, tile_n, s_row, s_col, csum, row_out, col_out, add,
+             tid);
+    acc_out(u, M, N, tm, r, g, acc, row_sum, col_sum, out, row_out, col_out,
+            add);
+  }
+}
+
+// K ranges of a launch's items (k_splits).
+inline int launch_splits(int n_lanes, int M, int K, int N, int grid) {
+  return k_splits(gather_items(n_lanes, M, N), (K + kKC - 1) / kKC, grid);
+}
+
+// Configure the kernel once (the largest tile's shared memory) and
+// launch it on `stream` with `grid` persistent blocks: quant8_kernel for
+// the 8-bit float kernels (K3, K4), fused_kernel for the others.
+template <bool kComposed, typename In>
+inline int run(const In* x, long long x_lane_stride, const In* w,
+               long long w_lane_stride, const uint16_t* luts,
+               const Scalars& sc, const unsigned* masks, const int* rcodes,
+               int* out_lo, int* out_hi, int* row_out, int* col_out,
+               int n_lanes, int M, int K, int N, int grid, int splits,
+               cudaStream_t stream) {
+  constexpr bool kQuant8 = std::is_same<In, float>::value && !kComposed;
+  const int tn = threads_across_n(N);
+  static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_kernel<kComposed, In>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(1));
+    const cudaError_t err =
+        kQuant8 ? cudaFuncSetAttribute(
+                      quant8_kernel,
+                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      (int)quant_smem_bytes(1))
+                : cudaFuncSetAttribute(
+                      fused_kernel<kComposed, In>,
+                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      (int)smem_bytes(1, kComposed));
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn), stream>>>(
-      x, x_lane_stride, w, w_lane_stride, luts, fp, ip, masks, rcodes,
-      out_lo, out_hi, row_out, col_out, n_lanes, M, K, N, tn, splits);
+  if constexpr (kQuant8) {
+    quant8_kernel<<<grid, kThreads, quant_smem_bytes(tn), stream>>>(
+        x, x_lane_stride, w, luts, sc, out_lo, row_out, col_out, n_lanes, M,
+        K, N, tn, splits);
+  } else {
+    fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn, kComposed),
+                                  stream>>>(
+        x, x_lane_stride, w, w_lane_stride, luts, sc, masks, rcodes, out_lo,
+        out_hi, row_out, col_out, n_lanes, M, K, N, tn, splits);
+  }
   return (int)cudaGetLastError();
+}
+
+// The kernels on codes (K1, K2: 8-bit; K5, K6: composed).  out_lo (and
+// out_hi) are each their own allocation of n_lanes M N int32, zeroed
+// apiece where K is split.  Returns the first CUDA error of the launch.
+template <bool kComposed>
+inline int launch_codes(const int* qa, long long qa_lane_stride,
+                        const int* qw, long long qw_lane_stride,
+                        const uint16_t* luts, const unsigned* masks,
+                        const int* rcodes, int* out_lo, int* out_hi,
+                        int n_lanes, int M, int K, int N, int grid,
+                        cudaStream_t stream) {
+  const int splits = launch_splits(n_lanes, M, K, N, grid);
+  if (splits > 1) {                        // the units add into zeros
+    const size_t bytes = (size_t)n_lanes * M * N * sizeof(int);
+    int* const outs[2] = {out_lo, kComposed ? out_hi : nullptr};
+    for (int* p : outs) {
+      if (p == nullptr) continue;
+      const cudaError_t err = cudaMemsetAsync(p, 0, bytes, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  return run<kComposed, int>(qa, qa_lane_stride, qw, qw_lane_stride, luts,
+                             Scalars{}, masks, rcodes, out_lo, out_hi,
+                             nullptr, nullptr, n_lanes, M, K, N, grid, splits,
+                             stream);
+}
+
+// The kernels on f32 operands (K3, K4: 8-bit; K7, K8: composed).  `out`
+// is one allocation of int32: the accumulator (K7/K8: the limbs lo, then
+// hi), n_lanes M N each, then the row sums (n_lanes M), then the column
+// sums (n_lanes N); where K is split, one memset zeroes it.  Returns the
+// first CUDA error of the launch.
+template <bool kComposed>
+inline int launch_quant(const float* x, long long x_lane_stride,
+                        const float* w, const uint16_t* luts,
+                        const Scalars& sc, const unsigned* masks,
+                        const int* rcodes, int* out, int n_lanes, int M,
+                        int K, int N, int grid, cudaStream_t stream) {
+  const size_t mn = (size_t)n_lanes * M * N;
+  int* row_out = out + (kComposed ? 2 : 1) * mn;
+  int* col_out = row_out + (size_t)n_lanes * M;
+  const int splits = launch_splits(n_lanes, M, K, N, grid);
+  if (splits > 1) {                        // the units add into zeros
+    const size_t words = (size_t)(col_out - out) + (size_t)n_lanes * N;
+    const cudaError_t err =
+        cudaMemsetAsync(out, 0, words * sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return run<kComposed, float>(x, x_lane_stride, w, 0, luts, sc, masks,
+                               rcodes, out, kComposed ? out + mn : nullptr,
+                               row_out, col_out, n_lanes, M, K, N, grid,
+                               splits, stream);
 }
 
 }  // namespace

@@ -14,22 +14,26 @@
 //
 // Bound on an H100: shared-memory gather throughput (one lookup per
 // product).  Two uint16 tables do not fit next to the tiles, so instead
-// of double buffering, the persistent blocks of fused_gather.cuh walk
-// contiguous (lane, tile) ranges and stage each lane's table once.
+// of double buffering the table, the persistent blocks of
+// fused_gather.cuh (quant8_kernel) walk contiguous (lane, tile) ranges
+// and stage each lane's table once; the operand chunks are double
+// buffered: every thread issues chunk c + 1's loads before it gathers
+// chunk c and quantizes them after, one barrier a chunk.
+// out is one allocation: acc (n*M*N), then row (n*M), then col (n*N),
+// int32 (where K is split, one memset zeroes it).
 #include "fused_gather.cuh"
 
 extern "C" int fused_matmul_bank_launch(const float* x,
                                         long long x_lane_stride,
                                         const float* w,
                                         const uint16_t* luts,
-                                        const float* fp, const int* ip,
-                                        int* acc, int* row, int* col,
+                                        fusedmm::Scalars sc, int* out,
                                         int n_lanes, int M, int K, int N,
                                         int grid, void* stream) {
-  return fusedmm::launch<false>(x, x_lane_stride, w, 0, luts, fp, ip, nullptr,
-                                nullptr, acc, nullptr, row, col, n_lanes, M,
-                                K, N, grid,
-                                static_cast<cudaStream_t>(stream));
+  return fusedmm::launch_quant<false>(x, x_lane_stride, w, luts, sc,
+                                      nullptr, nullptr, out, n_lanes, M, K,
+                                      N, grid,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

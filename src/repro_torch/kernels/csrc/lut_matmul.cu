@@ -19,10 +19,9 @@
 extern "C" int lut_matmul_launch(const int* qa, const int* qw,
                                  const uint16_t* lut, int* out, int M,
                                  int K, int N, int grid, void* stream) {
-  return fusedmm::launch<false, int>(qa, 0, qw, 0, lut, nullptr, nullptr,
-                                nullptr, nullptr, out, nullptr, nullptr,
-                                nullptr, 1, M, K, N, grid,
-                                static_cast<cudaStream_t>(stream));
+  return fusedmm::launch_codes<false>(qa, 0, qw, 0, lut, nullptr, nullptr,
+                                      out, nullptr, 1, M, K, N, grid,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

@@ -23,10 +23,10 @@ extern "C" int lut_matmul_bank_launch(const int* qa,
                                       const int* qw, const uint16_t* luts,
                                       int* out, int n_lanes, int M, int K,
                                       int N, int grid, void* stream) {
-  return fusedmm::launch<false, int>(qa, qa_lane_stride, qw, 0, luts, nullptr,
-                                nullptr, nullptr, nullptr, out, nullptr,
-                                nullptr, nullptr, n_lanes, M, K, N, grid,
-                                static_cast<cudaStream_t>(stream));
+  return fusedmm::launch_codes<false>(qa, qa_lane_stride, qw, 0, luts,
+                                      nullptr, nullptr, out, nullptr,
+                                      n_lanes, M, K, N, grid,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* lutmm_error_string(int err) {

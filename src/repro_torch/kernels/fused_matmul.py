@@ -18,8 +18,13 @@ Hopper counterparts of the reference's TPU kernels in
     .cu``) — K7 over a bank mixing widths (mask 0 = narrow lane) and
     reduce trees.
 
-Per-lane values travel as device tensors (``pack_scalars``,
-``pack_codes``), so no launch waits on the host.  The composed kernels
+The quantization scalars go in as the caller holds them
+(``lane_scalars``: a tensor on the device through its own pointer and
+lane stride, a number by value), so a K3 or K4 call queues its kernel
+and nothing else (and one memset of its outputs, which lie in one
+allocation, where K is split); the plain versions take them packed
+(``pack_scalars``).  Per-lane composed codes travel as device tensors
+(``pack_codes``), so no launch waits on the host.  The composed kernels
 split their (lane, row tile, column tile) items over the persistent
 blocks by cost, a wide lane's item weighing ``WIDE_COST`` and a narrow
 one's ``NARROW_COST`` (``split_starts`` mirrors the device's formula).
@@ -45,14 +50,26 @@ import torch
 
 from ..approx.quant import dequant_sums
 from . import build
-from .approx_matmul import _ptr, sm_count
+from .approx_matmul import sm_count
+
+
+class Scalars(ctypes.Structure):
+    """``fusedmm::Scalars`` of ``csrc/fused_gather.cuh``: sa, za, sw, zw,
+    qmax, each read at ``ptr[i] + lane * stride[i]`` on the device, or
+    ``value[i]`` where ``ptr[i]`` is null."""
+    _fields_ = [("ptr", ctypes.c_void_p * 5),
+                ("stride", ctypes.c_longlong * 5),
+                ("value", ctypes.c_float * 5)]
+
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "fused_matmul": [_P] * 8 + [_I] * 4 + [_P],
-    "fused_matmul_bank": [_P, _L] + [_P] * 7 + [_I] * 5 + [_P],
-    "fused_composed_matmul": [_P] * 11 + [_I] * 4 + [_P],
-    "fused_composed_matmul_bank": [_P, _L] + [_P] * 10 + [_I] * 5 + [_P],
+    "fused_matmul": [_P] * 3 + [Scalars, _P] + [_I] * 4 + [_P],
+    "fused_matmul_bank": ([_P, _L] + [_P] * 2 + [Scalars, _P] + [_I] * 5
+                          + [_P]),
+    "fused_composed_matmul": [_P] * 5 + [Scalars, _P] + [_I] * 4 + [_P],
+    "fused_composed_matmul_bank": ([_P, _L] + [_P] * 4 + [Scalars, _P]
+                                   + [_I] * 5 + [_P]),
 }
 
 
@@ -167,6 +184,56 @@ def pack_scalars(n: int, device, sa, za, sw, zw, qmax) -> tuple:
     return fp, ip
 
 
+# the dtype of each scalar on the device, in the order the kernels read
+# them: sa, za, sw, zw, qmax
+_SCALAR_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
+                  torch.float32)
+
+
+class LaneScalars(NamedTuple):
+    """The five quantization scalars as a call hands them to a kernel:
+    ``values``, each a tensor of one or n values on the device or a
+    number, and ``struct``, the kernels' ``Scalars`` argument, which
+    points into those tensors (``values`` keeps them alive)."""
+    values: tuple
+    struct: Scalars
+
+
+def lane_scalars(n: int, device, sa, za, sw, zw, qmax) -> LaneScalars:
+    """The five scalars as the kernels read them: a tensor of one or
+    ``n`` values on ``device`` through its pointer, with lane stride 0
+    when the lanes share it (else 1), or a number by value (``za``,
+    ``zw`` as ints).  A contiguous tensor already of its dtype on
+    ``device`` (the calibration's, on the datapath) goes as it is and
+    queues no device work; another is copied there first."""
+    # the device as Tensor.get_device() names it (-1: the host)
+    index = (-1 if device.type == "cpu" else device.index
+             if device.index is not None or device.type != "cuda"
+             else torch.cuda.current_device())
+    values, ptrs, strides, by_value = [], [], [], []
+    for v, dtype in zip((sa, za, sw, zw, qmax), _SCALAR_DTYPES):
+        if not isinstance(v, torch.Tensor):
+            v = int(v) if dtype is torch.int32 else float(v)
+            values.append(v)
+            ptrs.append(None)
+            strides.append(0)
+            by_value.append(v)
+            continue
+        if (index is None or v.get_device() != index or v.dtype is not dtype
+                or not v.is_contiguous()):
+            v = v.to(device=device, dtype=dtype).contiguous()
+        count = v.numel()
+        if count != 1 and count != n:
+            raise ValueError(f"per-lane value has {count} entries, the "
+                             f"bank {n} lanes")
+        values.append(v)
+        ptrs.append(v.data_ptr())
+        strides.append(0 if count == 1 else 1)
+        by_value.append(0.0)
+    return LaneScalars(tuple(values),
+                       Scalars(tuple(ptrs), tuple(strides), tuple(by_value)))
+
+
 def pack_codes(n: int, device, mask, rcode) -> tuple:
     """Per-lane composed descriptors: ``masks`` (n,) int64 holding the
     uint32 2W-bit product masks (0 = narrow lane) and ``rcodes`` (n, 2)
@@ -199,6 +266,23 @@ def dequant(s: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
                         fp[:, 0].reshape(lane), fp[:, 1].reshape(lane), k)
 
 
+def dequant_lanes(s: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                  sc: LaneScalars, k: int) -> torch.Tensor:
+    """``dequant`` on ``lane_scalars``: the same ops per element, each
+    scalar as it came (a number as a host 0-d tensor of its dtype, which
+    queues no device work)."""
+    lane = (-1, 1, 1) if s.ndim == 3 else ()
+
+    def at(i):
+        v = sc.values[i]
+        if not isinstance(v, torch.Tensor):
+            return torch.tensor(v, dtype=_SCALAR_DTYPES[i])
+        return v.reshape(lane) if v.numel() > 1 else v.reshape(())
+
+    return dequant_sums(s, row[..., :, None], col[..., None, :], at(1),
+                        at(3), at(0), at(2), k)
+
+
 def limbs_to_f32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """``lo + 65536 * hi`` in f32 (the multiply is exact, so one
     rounding, whatever contracts)."""
@@ -212,72 +296,81 @@ def _mask_bits(masks: torch.Tensor) -> torch.Tensor:
                        masks).to(torch.int32).contiguous()
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def _stream(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as a raw handle: about
+    0.1 us a call, where ``torch.cuda.current_stream()`` builds a Stream
+    object in about 5 us (the host of an H100 machine), which K3's small
+    calls feel."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def _launch(name: str, fn, x, w, luts16, fp, ip, codes=()):
-    """Launch one fused kernel; returns its int32 outputs with a lane
-    axis.  ``codes`` = (masks, rcodes) for the composed kernels."""
+def _launch(name: str, fn, x, w, luts16, sc, codes=()):
+    """Launch one fused kernel; returns its int32 outputs (accumulator or
+    limbs, row sums, column sums; with a lane axis for the banked
+    kernels), views of the one allocation the kernel takes, in the order
+    ``fused_gather.cuh::launch_quant`` lays them out.  ``sc``:
+    ``lane_scalars``; ``codes`` = (masks, rcodes) for the composed
+    kernels."""
     banked = name.endswith("_bank")
-    n_lanes = luts16.shape[0] if banked else 1
-    m, k = x.shape[-2:]
+    lanes = luts16.shape[0] if banked else 1
+    m, k = x.shape[-2], x.shape[-1]
     n = w.shape[1]
-    dev = x.device
-    mats = [torch.empty((n_lanes, m, n), dtype=torch.int32, device=dev)
-            for _ in range(2 if codes else 1)]
-    row = torch.empty((n_lanes, m), dtype=torch.int32, device=dev)
-    col = torch.empty((n_lanes, n), dtype=torch.int32, device=dev)
-    if m == 0 or n == 0 or n_lanes == 0:
+    limbs = 2 if codes else 1
+    sizes = [lanes * m * n] * limbs + [lanes * m, lanes * n]
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=x.device)
+    parts = buf.split_with_sizes(sizes)
+    shapes = ([(lanes, m, n)] * limbs + [(lanes, m), (lanes, n)] if banked
+              else [(m, n)] * limbs + [(m,), (n,)])
+    outs = tuple(t.view(shape) for t, shape in zip(parts, shapes))
+    if m == 0 or n == 0 or lanes == 0:
         # nothing to gather; a kernel that walks no tile writes no sum
-        return (*(t.zero_() for t in mats), row.zero_(), col.zero_())
+        buf.zero_()
+        return outs
     # every operand stays referenced here until the launch is queued:
     # a temporary freed earlier could be handed to the next allocation
-    # and overwritten before the kernel reads it
-    ins = [w, luts16]
+    # and overwritten before the kernel reads it (sc holds the scalars)
+    ins = [w.data_ptr(), luts16.data_ptr()]
     if codes:
-        ins += [_mask_bits(codes[0]), codes[1].contiguous()]
-    ins += [fp.contiguous(), ip.contiguous(), *mats, row, col]
-    lead = ((_ptr(x), m * k if x.ndim == 3 else 0) if banked
-            else (_ptr(x),))
-    dims = (n_lanes, m, k, n) if banked else (m, k, n)
+        masks, rcodes = _mask_bits(codes[0]), codes[1].contiguous()
+        ins += [masks.data_ptr(), rcodes.data_ptr()]
+    lead = ((x.data_ptr(), m * k if x.ndim == 3 else 0) if banked
+            else (x.data_ptr(),))
+    dims = (lanes, m, k, n) if banked else (m, k, n)
     err = _launcher(name)(
-        *lead, *(_ptr(t) for t in ins), *dims,
+        *lead, *ins, sc.struct, buf.data_ptr(), *dims,
         sm_count(x.device.index or 0), _stream(x))
     build.check(name, err)
     fn.launches += 1
-    return (*mats, row, col)
+    return outs
 
 
-def fused_matmul(x, w, lut16, fp, ip) -> tuple:
-    """Launch K3.  x (M,K), w (K,N) f32, lut16 (256,256) uint16, fp (1,3),
-    ip (1,2), all contiguous on one CUDA device (checked by
-    ``ops.fused_matmul_lut``) -> acc (M,N), row (M,), col (N,) int32."""
-    return tuple(t[0] for t in _launch("fused_matmul", fused_matmul, x, w,
-                                       lut16, fp, ip))
+def fused_matmul(x, w, lut16, sc) -> tuple:
+    """Launch K3.  x (M,K), w (K,N) f32, lut16 (256,256) uint16, all
+    contiguous on one CUDA device (checked by ``ops.fused_matmul_lut``),
+    sc the ``lane_scalars`` of one lane -> acc (M,N), row (M,), col (N,)
+    int32."""
+    return _launch("fused_matmul", fused_matmul, x, w, lut16, sc)
 
 
-def fused_matmul_bank(x, w, luts16, fp, ip) -> tuple:
+def fused_matmul_bank(x, w, luts16, sc) -> tuple:
     """Launch K4.  x (M,K) shared or (n,M,K) banked, luts16 (n,256,256),
-    fp (n,3), ip (n,2) -> acc (n,M,N), row (n,M), col (n,N) int32."""
-    return _launch("fused_matmul_bank", fused_matmul_bank, x, w, luts16,
-                   fp, ip)
+    sc the ``lane_scalars`` of n lanes -> acc (n,M,N), row (n,M), col
+    (n,N) int32."""
+    return _launch("fused_matmul_bank", fused_matmul_bank, x, w, luts16, sc)
 
 
-def fused_composed_matmul(x, w, lut16, masks, rcodes, fp, ip) -> tuple:
+def fused_composed_matmul(x, w, lut16, masks, rcodes, sc) -> tuple:
     """Launch K7.  As K3 plus masks (1,) int64 and rcodes (1,2) int32
     -> lo, hi (M,N), row (M,), col (N,) int32."""
-    return tuple(t[0] for t in _launch(
-        "fused_composed_matmul", fused_composed_matmul, x, w, lut16, fp,
-        ip, (masks, rcodes)))
+    return _launch("fused_composed_matmul", fused_composed_matmul, x, w,
+                   lut16, sc, (masks, rcodes))
 
 
-def fused_composed_matmul_bank(x, w, luts16, masks, rcodes, fp,
-                               ip) -> tuple:
+def fused_composed_matmul_bank(x, w, luts16, masks, rcodes, sc) -> tuple:
     """Launch K8.  As K4 plus masks (n,) int64 and rcodes (n,2) int32
     -> lo, hi (n,M,N), row (n,M), col (n,N) int32."""
     return _launch("fused_composed_matmul_bank", fused_composed_matmul_bank,
-                   x, w, luts16, fp, ip, (masks, rcodes))
+                   x, w, luts16, sc, (masks, rcodes))
 
 
 for _fn in (fused_matmul, fused_matmul_bank, fused_composed_matmul,

@@ -15,11 +15,14 @@ all-wide bank; ``base``, ``no_swizzle``, ``parent_design``,
 ``no_loads``, ``no_ksplit`` and ``threads1024`` K1 and K2 (the operands
 ``chip_smoke.py``'s timing phase gives them: K2 and K4 the 17-lane
 case-study bank, activations shared at conv_init and banked after).
-``--parent DIR`` adds the copy ``parent``: the eight kernels built from
-the sources in DIR (another tree's ``csrc/``, with the same launch
-functions).  Times are ten-shape sums of CUDA-event means.  The copies
-that remove a part compute wrong results: the point is the time the part
-cost.
+``single_buffer``, ``no_prefetch``, ``sums_in_loop`` and ``no_quant``
+time K3 and K4 only (their ``quant8_kernel``).  ``--parent DIR`` adds the
+copy ``parent``: the eight kernels built from the sources in DIR (another
+tree's ``csrc/``; fused kernels that take packed scalars, ``fp`` (n, 3)
+and ``ip`` (n, 2), and four output pointers, as before
+``fusedmm::Scalars``, are called so).  Times are ten-shape sums
+of CUDA-event means.  The copies that remove a part compute wrong
+results: the point is the time the part cost.
 
   base             the body as it is
   even_split       every block takes an equal count of items (wide cost 1)
@@ -40,7 +43,17 @@ cost.
   no_ksplit        K never split into ranges (one unit per item)
   threads1024      1024-thread blocks (64 registers a thread) with a K
                    chunk of 16 (the row tile's staging fits beside the
-                   table)
+                   table); not K3/K4, whose staged pass (36 operands a
+                   thread) would not fit 64 registers
+  single_buffer    K3/K4 with one operand buffer: stage, barrier, gather,
+                   barrier (the parent's two-barrier staging)
+  no_prefetch      K3/K4 staging chunk c + 1 (loads and quantize) before
+                   gathering chunk c, its loads' latency not hidden
+  sums_in_loop     K3/K4's code sums kept by the gathering threads in their
+                   loop (row sums by column group 0, column sums by row 0,
+                   every unit), as the parent body keeps them
+  no_quant         K3/K4's codes cut from the f32 bits in place of the
+                   IEEE division and rint (timing only: not bit-exact)
 
 ``no_swizzle`` + ``no_ksplit`` on K1/K2 stands for the earlier K1/K2
 body's table and grid.
@@ -74,8 +87,10 @@ from . import lut_bank as lb
 HEADER = "fused_gather.cuh"
 COMPOSED = ("fused_composed_matmul_bank", "composed_matmul_bank")
 LUT = ("lut_matmul", "lut_matmul_bank")
-ALL = ("fused_matmul", "fused_matmul_bank", "fused_composed_matmul",
-       "composed_matmul") + COMPOSED
+QUANT8 = ("fused_matmul", "fused_matmul_bank")
+ALL = QUANT8 + ("fused_composed_matmul", "composed_matmul") + COMPOSED
+# the copies that time K3/K4 alone (quant8_kernel's parts)
+QUANT8_COPIES = ("single_buffer", "no_prefetch", "sums_in_loop", "no_quant")
 BATCH = 64
 OUT_DIR = "chiprun_out"
 
@@ -121,28 +136,42 @@ def _edits() -> dict[str, list[tuple[str, str]]]:
                          "constexpr int kNarrowCost = 1;")],
         "cost3": [(cost, "constexpr int kWideCost = 3;\n"
                          "constexpr int kNarrowCost = 1;")],
-        "no_ksplit": [("  const int splits =\n      k_splits(",
-                       "  const int splits = 1 + 0 *\n      k_splits(")],
+        "no_ksplit": [("  return k_splits(gather_items(",
+                       "  return 1 + 0 * k_splits(gather_items(")],
         "threads1024": [("constexpr int kThreads = 512;",
                          "constexpr int kThreads = 1024;"),
                         ("constexpr int kKC = 32;", "constexpr int kKC = 16;")],
+        "single_buffer": [("constexpr int kStages = 2;",
+                           "constexpr int kStages = 1;")],
+        "sums_in_loop": [("constexpr bool kSumsInLoop = false;",
+                          "constexpr bool kSumsInLoop = true;")],
+        "no_quant": [("  const float q = rintf(__fdiv_rn(v, scale)) + zp;",
+                      "  const float q = (float)((__float_as_uint(v) >> 15)"
+                      " & 255u);")],
+        "no_prefetch": [("constexpr bool kPrefetch = true;",
+                         "constexpr bool kPrefetch = false;")],
     }
 
 
 def _kernels(copy: str) -> tuple:
-    if copy in ("base", "no_swizzle", "no_ksplit", "threads1024", "parent"):
+    if copy in ("base", "no_swizzle", "no_ksplit", "parent"):
         return LUT + ALL
+    if copy == "threads1024":
+        return LUT + tuple(k for k in ALL if k not in QUANT8)
+    if copy in QUANT8_COPIES:
+        return QUANT8
     if copy in ("no_lookup", "broadcast_index", "no_loads"):
         return LUT + COMPOSED
     return ALL if copy == "parent_design" else COMPOSED
 
 
-def _write_sources(root: Path, parent: Path | None) -> dict[str, tuple]:
-    """Each copy's sources under ``root/<copy>/``; copy -> its kernels.
-    ``parent``: a ``csrc/`` directory copied as it is, as the copy
-    ``parent``."""
+def _write_sources(root: Path, parent: Path | None,
+                   names: list) -> dict[str, tuple]:
+    """The sources of the copies ``names`` under ``root/<copy>/``; copy ->
+    its kernels.  ``parent``: a ``csrc/`` directory copied as it is, as
+    the copy ``parent``."""
     src = (build.CSRC / HEADER).read_text()
-    copies = dict(_edits())
+    copies = {c: e for c, e in _edits().items() if c in names}
     if parent is not None:
         copies["parent"] = None
     for copy, edits in copies.items():
@@ -163,13 +192,22 @@ def _write_sources(root: Path, parent: Path | None) -> dict[str, tuple]:
     return {copy: _kernels(copy) for copy in copies}
 
 
-def _build(parent: Path | None) -> dict[tuple[str, str], ctypes._CFuncPtr]:
+def _packed_abi(parent: Path | None) -> bool:
+    """Whether the parent's fused kernels take packed scalars (fp, ip)."""
+    return parent is not None and "Scalars" not in (
+        parent / "fused_matmul.cu").read_text()
+
+
+def _build(parent: Path | None,
+           copies: list) -> dict[tuple[str, str], ctypes._CFuncPtr]:
     """Every copy's kernels, built in parallel (as many nvcc at a time as
     the host has cores); (copy, kernel) -> the launch function, typed as
-    the wrappers type it."""
+    the wrappers type it (the parent's packed-scalar kernels as the
+    parent's wrappers typed them)."""
     root = build.BUILD_DIR / "ablation" / "gather"
+    packed = _packed_abi(parent)
     jobs = [(copy, name) for copy, names in
-            _write_sources(root, parent).items() for name in names]
+            _write_sources(root, parent, copies).items() for name in names]
 
     def nvcc(job):
         out = root / job[0] / job[1]
@@ -187,7 +225,9 @@ def _build(parent: Path | None) -> dict[tuple[str, str], ctypes._CFuncPtr]:
                                f"{proc.stdout}")
         lib = ctypes.CDLL(str(root / copy / f"{name}.so"))
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _argtypes(name)
+        fn.argtypes = (_PACKED_ARGTYPES[name]
+                       if packed and copy == "parent"
+                       and name in _PACKED_ARGTYPES else _argtypes(name))
         fn.restype = ctypes.c_int
         fns[copy, name] = fn
     return fns
@@ -223,6 +263,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the launch functions' argument types, as the wrappers set them
 _LUT_ARGTYPES = {"lut_matmul": [_P] * 4 + [_I] * 4 + [_P],
                  "lut_matmul_bank": [_P, _L] + [_P] * 3 + [_I] * 5 + [_P]}
+# the fused kernels of a tree from before fusedmm::Scalars, for --parent
+# only (drop with _launch_packed once no tree to compare takes them):
+# packed scalars, fp (n, 3) = (sa, sw, qmax) and ip (n, 2) = (za, zw)
+# pointers after the table (and composed codes), then one pointer an
+# output
+_PACKED_ARGTYPES = {
+    "fused_matmul": [_P] * 8 + [_I] * 4 + [_P],
+    "fused_matmul_bank": [_P, _L] + [_P] * 7 + [_I] * 5 + [_P],
+    "fused_composed_matmul": [_P] * 11 + [_I] * 4 + [_P],
+    "fused_composed_matmul_bank": [_P, _L] + [_P] * 10 + [_I] * 5 + [_P],
+}
 
 
 def _argtypes(name: str) -> list:
@@ -238,11 +289,12 @@ class _Uncounted:
     launches = 0
 
 
-def _operands(device) -> dict:
+def _operands(device) -> tuple[dict, dict]:
     """Per layer shape: the operands each timed kernel takes (as
     ``chip_smoke.py``'s timing phase builds them: K2/K4/K8 banked
     activations after conv_init; K1/K2 random 8-bit codes; K5/K6 the
-    codes the two-step datapath makes of K7's/K8's operands)."""
+    codes the two-step datapath makes of K7's/K8's operands), and the
+    fused kernels' scalars packed (fp, ip)."""
     import numpy as np
     from ..approx.quant import calibrate, quantize, scalar_params
     from ..approx.specs import bank_for
@@ -268,7 +320,7 @@ def _operands(device) -> dict:
     banks = {"wide12": tables(case_study_names(lib, 6) + wide_names(lib)),
              "wide5": tables(wide_names(lib))}
     shapes = main_path_shapes(resnet.resnet_config(8), BATCH)
-    out = {}
+    out, packed = {}, {}
     for label, (m, k, n) in shapes.items():
         shared = label == "conv_init"
         w = torch.randn((k, n), generator=gen, device=device) * 0.2
@@ -280,9 +332,10 @@ def _operands(device) -> dict:
         def fused(x, bits, lanes):
             sp = scalar_params(calibrate(x, bits, lanes=x.ndim == 3),
                                calibrate(w, bits))
-            return fm.pack_scalars(lanes, device, *sp)
+            packs.append(fm.pack_scalars(lanes, device, *sp))
+            return (fm.lane_scalars(lanes, device, *sp),)
 
-        cases = {}
+        cases, packs = {}, []
         qa = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.int32,
                            device=device)
         qw = torch.randint(0, 256, (k, n), generator=gen, dtype=torch.int32,
@@ -316,13 +369,42 @@ def _operands(device) -> dict:
                 cases["composed_matmul_bank wide12"] = (
                     qab, qwb, b["luts"], b["masks"], b["codes"])
         out[label] = cases
-    return out
+        fused_keys = [key for key in cases if key.startswith("fused")]
+        packed[label] = dict(zip(fused_keys, packs))
+    return out, packed
 
 
-def _call(name: str, fn, args):
+def _launch_packed(name: str, fn, x, w, luts16, packed, codes=()):
+    """One launch of a fused kernel that takes packed scalars and an
+    allocation an output (``_PACKED_ARGTYPES``), with the outputs and
+    arguments its wrapper gave it."""
+    banked = name.endswith("_bank")
+    n_lanes = luts16.shape[0] if banked else 1
+    m, k = x.shape[-2:]
+    n = w.shape[1]
+    outs = [torch.empty((n_lanes, m, n), dtype=torch.int32, device=x.device)
+            for _ in range(2 if codes else 1)]
+    outs += [torch.empty((n_lanes, m), dtype=torch.int32, device=x.device),
+             torch.empty((n_lanes, n), dtype=torch.int32, device=x.device)]
+    ins = [w, luts16]
+    if codes:
+        ins += [fm._mask_bits(codes[0]), codes[1].contiguous()]
+    ins += [*packed, *outs]
+    lead = ((am._ptr(x), m * k if x.ndim == 3 else 0) if banked
+            else (am._ptr(x),))
+    dims = (n_lanes, m, k, n) if banked else (m, k, n)
+    build.check(name, fn(*lead, *(am._ptr(t) for t in ins), *dims,
+                         am.sm_count(x.device.index or 0), fm._stream(x)))
+    return outs
+
+
+def _call(name: str, fn, args, packed=None):
     """One launch of a copy's kernel ``fn`` through its wrapper (the same
     arguments), the wrapper's launch function swapped for ``fn`` during
-    the call and its launch count left as it was."""
+    the call and its launch count left as it was; ``packed``: the
+    scalars packed, for a kernel that takes them so."""
+    if packed is not None:
+        return _launch_packed(name, fn, *args[:3], packed, *args[4:])
     if name in LUT:
         mod = am if name == "lut_matmul" else lb
         wrapper = getattr(mod, name)
@@ -359,37 +441,53 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, default=None,
                     help="another tree's csrc/ directory, built and timed "
                          "as the copy 'parent'")
+    ap.add_argument("--copies", default=None,
+                    help="comma-separated copies to build and time "
+                         "(default: all; 'base' is always built)")
     args = ap.parse_args()
+    copies = [c for c in _edits() if args.copies is None
+              or c == "base" or c in args.copies.split(",")]
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    fns = _build(args.parent)
+    fns = _build(args.parent, copies)
     os.makedirs(OUT_DIR, exist_ok=True)
-    loops = _sass(build.BUILD_DIR / "ablation" / "gather" / "base"
-                  / "composed_matmul_bank.so",
+    base = build.BUILD_DIR / "ablation" / "gather" / "base"
+    loops = _sass(base / "composed_matmul_bank.so",
                   os.path.join(OUT_DIR, "gather_ablation_sass.txt"))
-    ops = _operands(dev)
+    k4_loops = _sass(base / "fused_matmul_bank.so",
+                     os.path.join(OUT_DIR, "gather_ablation_sass_k4.txt"))
+    ops, packed = _operands(dev)
+    packed_parent = _packed_abi(args.parent)
     print(f"[ablation] {card}; ten-shape sums of ms per call "
           f"(ResNet-8, batch {BATCH})")
-    result = {"card": card, "ms": {}, "k6_loops": loops}
-    for copy in list(_edits()) + (["parent"] if args.parent else []):
+    result = {"card": card, "ms": {}, "k6_loops": loops,
+              "k4_loops": k4_loops}
+    for copy in copies + (["parent"] if args.parent else []):
         row = {}
         for key in ops["conv_init"]:
             name = key.split()[0]
             if name not in _kernels(copy):
                 continue
             fn = fns[copy, name]
-            row[key] = sum(_ms(lambda: _call(name, fn, ops[s][key]))
-                           for s in ops)
+
+            old_abi = (packed_parent and copy == "parent"
+                       and name in _PACKED_ARGTYPES)
+
+            def call(s):
+                return _call(name, fn, ops[s][key],
+                             packed[s][key] if old_abi else None)
+            row[key] = sum(_ms(lambda: call(s)) for s in ops)
         result["ms"][copy] = row
         print(f"[ablation] {copy:16s} "
               + ", ".join(f"{k} {v:.3f}" for k, v in row.items()),
               flush=True)
-    for loop in loops:
-        print(f"[ablation] K6 loop {loop['start']}-{loop['end']}: "
-              f"{loop['instructions']} instructions {loop['opcodes']}")
+    for what, found in (("K6", loops), ("K4", k4_loops)):
+        for loop in found:
+            print(f"[ablation] {what} loop {loop['start']}-{loop['end']}: "
+                  f"{loop['instructions']} instructions {loop['opcodes']}")
     with open(os.path.join(OUT_DIR, "gather_ablation.json"), "w") as f:
         json.dump(result, f, indent=1)
 

@@ -15,9 +15,11 @@ take and return the uint64 planes of ``Netlist.eval_words`` on the host.
 
 The fused wrappers take float operands and the pre-calibrated
 quantization scalars (``quant.scalar_params``; numbers or tensors, per
-lane for the banked ones) and return the f32 result; ``raw=True``
-returns the kernel's int32 outputs instead (accumulator or lo/hi
-limbs, then the row and column code sums).
+lane for the banked ones), which reach the kernel as they are
+(``fused_matmul.lane_scalars``: on the datapath a K3 or K4 call queues
+its kernel, and a memset where K is split), and return the f32 result;
+``raw=True`` returns the kernel's int32 outputs instead (accumulator or
+lo/hi limbs, then the row and column code sums).
 """
 from __future__ import annotations
 
@@ -32,10 +34,10 @@ from . import ref
 from .approx_matmul import lut_matmul, lut_to_uint16
 from .bitsim import bitsim_pop_words, bitsim_words
 from .composed_matmul import composed_matmul, composed_matmul_bank
-from .fused_matmul import (dequant, fused_composed_matmul,
+from .fused_matmul import (dequant_lanes, fused_composed_matmul,
                            fused_composed_matmul_bank, fused_matmul,
-                           fused_matmul_bank, limbs_to_f32, pack_codes,
-                           pack_scalars)
+                           fused_matmul_bank, lane_scalars, limbs_to_f32,
+                           pack_codes, pack_scalars)
 from .lowrank_matmul import MAX_RANK, lowrank_matmul as lowrank_kernel
 from .lut_bank import lut_matmul_bank
 
@@ -194,12 +196,21 @@ def _check_fused(x: torch.Tensor, w: torch.Tensor, luts: torch.Tensor,
     return n if banked else 1
 
 
-def _finish(out: tuple, fp, ip, k: int, raw: bool):
+def _plain_fused(plain, n: int):
+    """A fused kernel's plain version as ``_dispatch`` calls it: the
+    ``lane_scalars`` last, packed here."""
+    def call(x, w, lut, *rest):
+        return plain(x, w, lut, *rest[:-1],
+                     *pack_scalars(n, x.device, *rest[-1].values))
+    return call
+
+
+def _finish(out: tuple, sc, k: int, raw: bool):
     if raw:
         return out
     s = limbs_to_f32(*out[:2]) if len(out) == 4 else out[0].to(
         torch.float32)
-    return dequant(s, out[-2], out[-1], fp, ip, k)
+    return dequant_lanes(s, out[-2], out[-1], sc, k)
 
 
 def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
@@ -209,9 +220,10 @@ def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     and code sums; f32 correction and dequant here.  x (M,K), w (K,N)
     f32, lut (256,256) int32 or uint16 -> (M,N) f32."""
     _check_fused(x, w, lut, False, MAX_LUT_K, "LUT")
-    fp, ip = pack_scalars(1, x.device, sa, za, sw, zw, qmax)
-    out = _dispatch(fused_matmul, ref.fused_matmul_ref, x, w, lut, fp, ip)
-    return _finish(out, fp, ip, x.shape[-1], raw)
+    sc = lane_scalars(1, x.device, sa, za, sw, zw, qmax)
+    out = _dispatch(fused_matmul, _plain_fused(ref.fused_matmul_ref, 1), x,
+                    w, lut, sc)
+    return _finish(out, sc, x.shape[-1], raw)
 
 
 def fused_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
@@ -222,10 +234,11 @@ def fused_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
     scalars per lane (n,) or shared -> (n,M,N) f32, lane ``b`` equal to
     ``fused_matmul_lut`` with lane ``b``'s table and scalars."""
     n = _check_fused(x, w, luts, True, MAX_LUT_K, "LUT")
-    fp, ip = pack_scalars(n, x.device, sa, za, sw, zw, qmax)
-    out = _dispatch(fused_matmul_bank, ref.fused_matmul_bank_ref, x, w,
-                    luts, fp, ip)
-    return _finish(out, fp, ip, x.shape[-1], raw)
+    sc = lane_scalars(n, x.device, sa, za, sw, zw, qmax)
+    out = _dispatch(fused_matmul_bank,
+                    _plain_fused(ref.fused_matmul_bank_ref, n), x, w, luts,
+                    sc)
+    return _finish(out, sc, x.shape[-1], raw)
 
 
 def fused_composed_matmul_lut(x: torch.Tensor, w: torch.Tensor,
@@ -237,11 +250,12 @@ def fused_composed_matmul_lut(x: torch.Tensor, w: torch.Tensor,
     2W-bit product mask (0 = narrow lane), int32 limbs recombined and
     dequantized here -> (M,N) f32."""
     _check_fused(x, w, lut, False, MAX_COMPOSED_K, "composed limb")
-    fp, ip = pack_scalars(1, x.device, sa, za, sw, zw, qmax)
-    masks, rcodes = pack_codes(1, x.device, mask, rcode)
-    out = _dispatch(fused_composed_matmul, ref.fused_composed_matmul_ref,
-                    x, w, lut, masks, rcodes, fp, ip)
-    return _finish(out, fp, ip, x.shape[-1], raw)
+    sc = lane_scalars(1, x.device, sa, za, sw, zw, qmax)
+    codes = pack_codes(1, x.device, mask, rcode)
+    out = _dispatch(fused_composed_matmul,
+                    _plain_fused(ref.fused_composed_matmul_ref, 1), x, w, lut,
+                    *codes, sc)
+    return _finish(out, sc, x.shape[-1], raw)
 
 
 def fused_composed_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
@@ -251,12 +265,12 @@ def fused_composed_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
     reduce codes (n,2) and scalars (n,) in one launch, so one call
     evaluates a bank mixing widths and reduce trees -> (n,M,N) f32."""
     n = _check_fused(x, w, luts, True, MAX_COMPOSED_K, "composed limb")
-    fp, ip = pack_scalars(n, x.device, sa, za, sw, zw, qmax)
-    masks, rcodes = pack_codes(n, x.device, masks, rcodes)
+    sc = lane_scalars(n, x.device, sa, za, sw, zw, qmax)
+    codes = pack_codes(n, x.device, masks, rcodes)
     out = _dispatch(fused_composed_matmul_bank,
-                    ref.fused_composed_matmul_bank_ref, x, w, luts, masks,
-                    rcodes, fp, ip)
-    return _finish(out, fp, ip, x.shape[-1], raw)
+                    _plain_fused(ref.fused_composed_matmul_bank_ref, n), x, w,
+                    luts, *codes, sc)
+    return _finish(out, sc, x.shape[-1], raw)
 
 
 def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,

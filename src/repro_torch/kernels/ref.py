@@ -5,9 +5,10 @@ They repeat each kernel's arithmetic with ordinary tensor ops — the
 ``lut`` datapath's blocked gather — so the CPU tests can compare them
 with the JAX reference and ``chip_smoke.py`` can compare each kernel
 with its plain version on the card.  The fused versions take the
-kernels' own packed arguments (``fused_matmul.pack_scalars`` /
-``pack_codes``) and return the kernels' integer outputs; the f32 result
-is ``fused_matmul.dequant`` of them, as in ``kernels.ops``.  The
+scalars packed (``fused_matmul.pack_scalars``) and the composed codes
+(``pack_codes``) and return the kernels' integer outputs; the f32 result
+is ``fused_matmul.dequant`` of them (``dequant_lanes`` in
+``kernels.ops``, the same ops on the unpacked scalars).  The
 composed versions on codes return the kernels' int32 limbs, the bitsim
 versions int32 words holding the uint32 bit patterns.  They are no
 yardstick of speed.
