@@ -23,7 +23,10 @@ Phases (any failure exits nonzero):
      513}, activations shared and banked) and a table
      with LUT[0,0] != 0; the population simulator (K11) at the CGP ladder's
      population (32 candidates, 8192 vectors) for the 8-bit multiplier
-     and adder; the low-rank kernel (K9), whose f32 sums run in another
+     and adder, and K11 and K10 on every walk of ``bitsim.walk_plan``
+     (a 1000-gate chain and the exact multiplier on the level walk, a
+     netlist of 1806 signals reading its gates from device memory,
+     mutants of both seeds at ragged word counts); the low-rank kernel (K9), whose f32 sums run in another
      order than its plain version's, held with its plain version to the
      bound |y - y64| <= 2 (K R + 1) 2^-24 S (y64 the sum in float64,
      S = sum_r |U_r(qa)| @ |V_r(qw)|) at the serve path's shapes
@@ -68,7 +71,9 @@ Phases (any failure exits nonzero):
      ``device_ms``, and by the device work one call through
      ``kernels.ops`` queues, ``kernels_per_call`` from ``torch.profiler``,
      which fails above two for K3: its kernel and, where K is split, one
-     memset), and a CGP
+     memset); K10/K11 likewise (launch alone, device time, one device
+     op a call) with their walk, level depth and depth floor (depth x
+     one level's wait, ``bitsim.probe_round_ms``), and a CGP
      generation's wall split into host time and the time from its
      operands on the card to its scores on the host.
 
@@ -199,6 +204,45 @@ def _populations(device) -> dict:
                      "tensors": ops.netlist_tensors(stack_netlists(pop),
                                                     exact.n_i, device)}
     return out
+
+
+def _random_netlist(rng, n_i: int, n_o: int, n_nodes: int):
+    """A random valid netlist whose first gates take every gate code."""
+    import numpy as np
+    from repro_torch.core.netlist import Netlist
+    funcs = rng.integers(0, 10, n_nodes)
+    funcs[:min(10, n_nodes)] = rng.permutation(10)[:min(10, n_nodes)]
+    lim = n_i + np.arange(n_nodes)
+    return Netlist(n_i=n_i, n_o=n_o, funcs=funcs.astype(np.int32),
+                   in0=rng.integers(0, lim).astype(np.int32),
+                   in1=rng.integers(0, lim).astype(np.int32),
+                   outputs=rng.integers(0, n_i + n_nodes, n_o).astype(
+                       np.int32))
+
+
+def _bitsim_cases() -> list:
+    """K10/K11 compare cases beyond the populations, one or more for
+    each walk of ``bitsim.walk_plan``: (label, netlists, words)."""
+    import numpy as np
+    from repro_torch.core.cgp import mutate
+    from repro_torch.core.netlist import Netlist
+    from repro_torch.core.seeds import array_multiplier, ripple_carry_adder
+    rng = np.random.default_rng(19)
+    n = 1000
+    chain = Netlist(n_i=2, n_o=2, funcs=(np.arange(n) % 8).astype(np.int32),
+                    in0=(1 + np.arange(n)).astype(np.int32),
+                    in1=(np.arange(n) // 2).astype(np.int32),
+                    outputs=np.array([1 + n, 2 + n // 2], np.int32))
+    cases = [("deep chain (1000 levels)", [chain, chain], 100),
+             ("exact mul8, exhaustive", [array_multiplier(8)], 2048),
+             ("1806 signals", [_random_netlist(rng, 16, 8, 1790)
+                               for _ in range(2)], 70)]
+    for name, seed in (("mul8", array_multiplier(8)),
+                       ("add8", ripple_carry_adder(8))):
+        pop = [seed] + [mutate(seed, rng, 4) for _ in range(5)]
+        cases += [(f"{name} mutants, ragged", pop, w)
+                  for w in (1, 33, 257, 1000)]
+    return cases
 
 
 def _floats(shape, gen, device, scale=1.0):
@@ -351,8 +395,11 @@ def _scalars(x, w, bits):
 
 
 def phase_compare(shapes: dict, device) -> dict:
+    import numpy as np
     import torch
     from repro_torch.approx.registry import encode_reduce
+    from repro_torch.core.netlist import stack_netlists
+    from repro_torch.kernels import bitsim as kbitsim
     from repro_torch.kernels import composed_matmul as cm
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import ops, ref
@@ -505,6 +552,26 @@ def phase_compare(shapes: dict, device) -> dict:
                                                    pop["words"])],
               [ref.bitsim_pop_ref(*pop["tensors"], pop["words"])],
               f"{name} generation (32 x {pop['words'].shape[1]} words)")
+    # every walk of K10/K11 (bitsim.walk_plan): a deep chain and the
+    # exact multiplier (level), a netlist past the staged descriptors
+    # (serial_global), ragged word counts (both walks)
+    for what, nls, w in _bitsim_cases():
+        n_i = nls[0].n_i
+        words = ops.words_to_device(np.random.default_rng(w).integers(
+            0, 2 ** 32, (n_i, w), dtype=np.uint64).astype(np.uint32),
+            device)
+        tens = ops.netlist_tensors(stack_netlists(nls), n_i, device)
+        walks = {kbitsim.walk_plan(n_i, tens[0].shape[1], len(nls), w,
+                                   sm_count(device.index or 0)).walk,
+                 kbitsim.walk_plan(n_i, nls[0].n_nodes, 1, w,
+                                   sm_count(device.index or 0)).walk}
+        check("bitsim_pop", [ops.bitsim_pop_planes(*tens, words)],
+              [ref.bitsim_pop_ref(*tens, words)],
+              f"{what} x{len(nls)}, {w} words ({sorted(walks)})")
+        one = ops.netlist_tensors((nls[0].funcs, nls[0].in0, nls[0].in1,
+                                   nls[0].outputs), n_i, device)
+        check("bitsim", [ops.bitsim_planes(*one, words)],
+              [ref.bitsim_ref(*one, words)], f"{what}, {w} words")
     lowrank_ratio = max(c["err_over_bound"] for c in lowrank_cases)
     print(f"[compare] {cases} kernel-vs-plain cases: bit-exact, K9 within "
           f"its bound (max |K9 - y64| / bound {lowrank_ratio:.3g}); max abs "
@@ -1139,6 +1206,13 @@ def phase_timing(shapes: dict, device) -> dict:
               f"{sum(r['launch_ms'] for r in sel):.4f} ms the launch alone, "
               f"{sum(r['device_ms'] for r in sel):.4f} ms on the device")
     rows += _bitsim_timing(device, lookup_rate, int_rate)
+    for name in ("bitsim_pop", "bitsim"):
+        sel = [r for r in rows if r["kernel"] == name]
+        print(f"[timing] {name}: two cases {sum(r['ms'] for r in sel):.4f} "
+              f"ms through kernels.ops, "
+              f"{sum(r['launch_ms'] for r in sel):.4f} ms the launch alone, "
+              f"{sum(r['device_ms'] for r in sel):.4f} ms on the device, "
+              f"depth floor {sum(r['depth_floor_ms'] for r in sel):.5f} ms")
     fp32_rate = sms * FP32_LANES_PER_SM * 2 * clock_hz
     rows += _lowrank_timing(device, fp32_rate)
     return {"lookup_rate_per_s": lookup_rate,
@@ -1260,15 +1334,25 @@ def _lowrank_timing(device, fp32_rate: float) -> list:
 def _bitsim_timing(device, lookup_rate: float, int_rate: float) -> list:
     """K11 on one CGP generation of the ``small`` ladder (32 candidates,
     8192 vectors) and K10 on the exact 8-bit circuits over exhaustive
-    planes (65 536 vectors), beside their bounds.  A gate-word step is
-    shared-memory traffic: one access per input its gate reads plus the
+    planes (65 536 vectors), beside their bounds: through ``kernels.ops``
+    (``ms``), the launcher alone (``launch_ms``), the device time and the
+    device ops of one call through ``ops`` from ``torch.profiler``
+    (``device_ms``, ``kernels_per_call``: must be 1), the walk
+    ``bitsim.walk_plan`` picks, the level depth (the largest of the
+    candidates') and, as information beside the bound, the depth floor:
+    depth x one level's wait measured by ``bitsim.probe_round_ms`` (a
+    dependent shared load, an add, a store and a barrier in a block of
+    the level walk's 128 threads).  The bound: a gate-word step is
+    shared-memory traffic, one access per input its gate reads plus the
     store, counted over the active gates only (the inactive ones do not
     change the outputs), and one logic op (the gate); bytes: planes,
     netlist arrays and outputs, each once."""
     from repro_torch.core.gates import GATE_ARITY
     from repro_torch.core.netlist import exhaustive_inputs
     from repro_torch.core.seeds import array_multiplier, ripple_carry_adder
+    from repro_torch.kernels import bitsim as kbitsim
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.approx_matmul import sm_count
 
     def accesses(nls, words):
         return sum(int((GATE_ARITY[nl.funcs][nl.active_mask()] + 1).sum())
@@ -1282,7 +1366,7 @@ def _bitsim_timing(device, lookup_rate: float, int_rate: float) -> list:
         words = pop["words"]
         cases.append(("bitsim_pop", f"{name} generation", pop["netlists"],
                       pop["tensors"], words, ops.bitsim_pop_planes,
-                      ref.bitsim_pop_ref))
+                      kbitsim.bitsim_pop_words, ref.bitsim_pop_ref))
     for name, nl in (("mul8 exact", array_multiplier(8)),
                      ("add8 exact", ripple_carry_adder(8))):
         words = ops.words_to_device(ops.split_planes64(
@@ -1290,27 +1374,49 @@ def _bitsim_timing(device, lookup_rate: float, int_rate: float) -> list:
         tens = ops.netlist_tensors((nl.funcs, nl.in0, nl.in1, nl.outputs),
                                    nl.n_i, device)
         cases.append(("bitsim", f"{name} exhaustive", [nl], tens, words,
-                      ops.bitsim_planes, ref.bitsim_ref))
+                      ops.bitsim_planes, kbitsim.bitsim_words,
+                      ref.bitsim_ref))
+    round_ms = kbitsim.probe_round_ms(device)
+    print(f"[timing] bitsim probe: one level's wait (dependent shared load, "
+          f"add, store, barrier; 128 threads) {round_ms * 1e6:.2f} ns")
     rows = []
-    for kernel, label, nls, tens, words, op, plain in cases:
+    for kernel, label, nls, tens, words, op, launch, plain in cases:
         n_i, w = words.shape
         n_o = nls[0].n_o
         steps, n_ops = accesses(nls, w), gates(nls, w)
         nbytes = (n_i * w + sum(t.numel() for t in tens)
                   + len(nls) * n_o * w) * 4
+        depth = max(int(kbitsim.level_schedule(
+            nl.funcs, nl.in0, nl.in1, nl.n_i)[0].max(initial=0))
+            for nl in nls)
+        per_call = _device_ops(lambda: op(*tens, words), reps=10)
+        if per_call["count"] != 1:
+            raise AssertionError(f"a {kernel} call through kernels.ops "
+                                 f"queues more than its kernel: {per_call}")
         r = {"kernel": kernel, "layer": label, "candidates": len(nls),
              "words": w, "accesses": steps, "int_ops": (n_ops, 0),
              "bytes": nbytes,
+             "walk": kbitsim.walk_plan(n_i, tens[0].shape[-1], len(nls), w,
+                                       sm_count(device.index or 0)).walk,
+             "depth": depth, "depth_floor_ms": depth * round_ms,
              "ms": _time(lambda: op(*tens, words), reps=20, warmup=3),
+             "launch_ms": _time(lambda: launch(*tens, words), reps=20,
+                                warmup=3),
+             "device_ms": per_call["device_ms"],
+             "kernels_per_call": per_call["count"],
              "plain_ms": _time(lambda: plain(*tens, words), reps=1,
                                warmup=1),
              **_bounds(steps / lookup_rate, int_seconds(n_ops, 0, int_rate),
                        nbytes / HBM_BYTES_PER_S)}
         rows.append(r)
         print(f"[timing] {kernel:26s} {label:18s} x{len(nls):2d} "
-              f"{w:5d} words: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} "
-              f"ms, bound {r['bound_ms']:.6f} ms by {r['limit']}, "
-              f"{r['bound_ms'] / r['ms']:.1%})")
+              f"{w:5d} words, {r['walk']} walk: {r['ms']:.4f} ms via ops, "
+              f"{r['launch_ms']:.4f} ms the launch alone, "
+              f"{r['device_ms']:.4f} ms on the device "
+              f"({r['kernels_per_call']} device op a call; plain "
+              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.6f} ms by "
+              f"{r['limit']}, {r['bound_ms'] / r['ms']:.1%}; depth "
+              f"{depth}, depth floor {r['depth_floor_ms']:.5f} ms)")
     return rows
 
 

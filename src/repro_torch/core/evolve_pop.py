@@ -198,12 +198,18 @@ class PopEvaluator:
         if self.engine == "numpy" or self.n_i > EXHAUSTIVE_LIMIT_BITS:
             return evaluate_errors(nl, self.exact)
         if self._verify_cache is None:
+            # the exhaustive planes stay on the device between searches
             planes = exhaustive_inputs(self.n_i)
             num = 1 << self.n_i
-            self._verify_cache = (planes, num, unpack_outputs(
-                self.exact.eval_words(planes), self.n_o, num))
-        planes, num, e_out = self._verify_cache
-        a_out = unpack_outputs(ops.bitsim(nl, planes, self.device),
+            self._verify_cache = (
+                ops.words_to_device(ops.split_planes64(planes), self.device),
+                num, unpack_outputs(self.exact.eval_words(planes), self.n_o,
+                                    num))
+        words, num, e_out = self._verify_cache
+        out = ops.bitsim_planes(*ops.netlist_tensors(
+            (nl.funcs, nl.in0, nl.in1, nl.outputs), nl.n_i, self.device),
+            words)
+        a_out = unpack_outputs(ops.join_planes32(ops.words_to_host(out)),
                                self.n_o, num)
         return error_report_from_values(a_out, e_out, exhaustive=True)
 

@@ -11,16 +11,18 @@
 // netlist slice through its BlockSpec index map.
 //
 // Bound and design: bitsim.cuh.  The grid's y axis is the candidate, so
-// a generation's 32 candidates x 256 words run as 32 x (256 / wb) blocks.
+// a generation's 32 candidates x 256 words run as 32 x (256 / wb) blocks,
+// each of which stages and schedules its candidate's netlist.
 #include "bitsim.cuh"
 
 extern "C" int bitsim_pop_launch(const int* funcs, const int* in0,
                                  const int* in1, const int* outs,
                                  const unsigned* planes, unsigned* out,
                                  int P, int n_nodes, int n_i, int n_o,
-                                 int W, int wb, void* stream) {
+                                 int W, int wb, int walk, int warps,
+                                 void* stream) {
   return bitsim::launch(funcs, in0, in1, outs, planes, out, P, n_nodes,
-                        n_i, n_o, W, wb,
+                        n_i, n_o, W, wb, walk, warps,
                         static_cast<cudaStream_t>(stream));
 }
 

@@ -11,16 +11,24 @@ plan of the CUDA kernels, whose wrappers refuse a netlist too large for
 shared memory rather than fall back to the plain version.
 
 The CUDA kernels are compared with their plain versions by the
-``gpu``-marked test (and ``chip_smoke.py``) on the card."""
-import jax.numpy as jnp
+``gpu``-marked tests (and ``chip_smoke.py``) on the card: the CGP
+populations, a deep chain, a netlist that takes the serial walk reading
+its netlist from device memory, every gate code in both walks and ragged
+word counts (``python -m pytest -m gpu tests/test_torch_bitsim.py``; the
+card's machine has no JAX, which only the CPU tests use)."""
 import numpy as np
 import pytest
 import torch
 
 from repro.core import gates
 from repro.core.netlist import Netlist
-from repro.kernels import ops as ref_ops
-from repro.kernels.bitsim import bitsim_pallas, bitsim_pop_pallas
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels import ops as ref_ops
+    from repro.kernels.bitsim import bitsim_pallas, bitsim_pop_pallas
+except ImportError:     # the GPU machine: only the gpu-marked tests run
+    jnp = ref_ops = bitsim_pallas = bitsim_pop_pallas = None
 from repro_torch.core import netlist as port_netlist
 from repro_torch.core.seeds import array_multiplier, ripple_carry_adder
 from repro_torch.kernels import bitsim as kbitsim
@@ -241,3 +249,90 @@ def test_cuda_bitsim_kernels_match_plain(cuda, which):
     assert torch.equal(got, want) and torch.equal(one, want[5])
     assert ops.launch_counts()["bitsim_pop"] == 1
     assert ops.launch_counts()["bitsim"] == 1
+
+
+def _cuda_equal_plain(cuda, netlists, n_i, w, seed=0):
+    """K11 on ``netlists`` and K10 on each one over ``w`` random words,
+    each equal to its plain version bit for bit; one launch a call."""
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(0, 2 ** 32, (n_i, w), dtype=np.uint64)
+    words = ops.words_to_device(planes.astype(np.uint32), cuda)
+    tens = ops.netlist_tensors(port_netlist.stack_netlists(netlists), n_i,
+                               cuda)
+    ops.reset_launch_counts()
+    got = ops.bitsim_pop_planes(*tens, words)
+    want = ref.bitsim_pop_ref(*tens, words)
+    assert torch.equal(got, want)
+    for nl in netlists:
+        one = ops.netlist_tensors((nl.funcs, nl.in0, nl.in1, nl.outputs),
+                                  n_i, cuda)
+        assert torch.equal(ops.bitsim_planes(*one, words),
+                           ref.bitsim_ref(*one, words))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bitsim_pop"] == 1
+    assert ops.launch_counts()["bitsim"] == len(netlists)
+
+
+def _chain(n_nodes: int, n_i: int = 2) -> Netlist:
+    """Gate j reads gate j - 1 (and an earlier signal): depth n_nodes,
+    the gate codes in turn."""
+    nl = Netlist(n_i=n_i, n_o=3,
+                 funcs=np.array([j % gates.N_FUNCS for j in range(n_nodes)],
+                                np.int32),
+                 in0=np.array([n_i - 1 + j for j in range(n_nodes)],
+                              np.int32),
+                 in1=np.array([j // 2 for j in range(n_nodes)], np.int32),
+                 outputs=np.array([n_i + n_nodes - 1, n_i + n_nodes // 2,
+                                   0], np.int32))
+    nl.validate()
+    return nl
+
+
+@pytest.mark.gpu
+def test_cuda_bitsim_deep_chain(cuda):
+    """A 1000-gate chain (1000 levels, the level walk at its deepest)
+    and a 60-gate one (the serial walk)."""
+    long, short = _chain(1000), _chain(60)
+    assert kbitsim.walk_plan(2, 1000, 1, 100).walk == "level"
+    assert kbitsim.walk_plan(2, 60, 2, 300).walk == "serial"
+    _cuda_equal_plain(cuda, [long], 2, 100)
+    _cuda_equal_plain(cuda, [short, _chain(45)], 2, 300)
+
+
+@pytest.mark.gpu
+def test_cuda_bitsim_serial_walk_from_device_memory(cuda):
+    """1806 signals: the scratch and staged descriptors pass 227 KB, so
+    the kernel walks serially with the netlist read through __ldg."""
+    rng = np.random.default_rng(11)
+    pop = [random_netlist(rng, 16, 8, 1790) for _ in range(3)]
+    assert kbitsim.walk_plan(16, 1790, 3, 70).walk == "serial_global"
+    _cuda_equal_plain(cuda, pop, 16, 70)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes", [40, 400])
+def test_cuda_bitsim_every_gate_code(cuda, n_nodes):
+    """Every gate code on random inputs, in the serial walk (40 gates)
+    and the level walk (400)."""
+    rng = np.random.default_rng(n_nodes)
+    pop = [random_netlist(rng, 6, 12, n_nodes) for _ in range(4)]
+    assert {int(f) for nl in pop for f in nl.funcs} == set(range(10))
+    assert kbitsim.walk_plan(6, n_nodes, 4, 77).walk == (
+        "serial" if n_nodes == 40 else "level")
+    _cuda_equal_plain(cuda, pop, 6, 77)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 33, 257, 1000])
+@pytest.mark.parametrize("which", ["add8", "mul8"])
+def test_cuda_bitsim_ragged_words(cuda, which, w):
+    """Word counts that are no multiple of the 128- (add8) or 32-word
+    (mul8) block; mul8's population takes the level walk up to 257
+    words and the serial walk at 1000 (192 blocks), K10 the level
+    walk."""
+    from repro_torch.core.cgp import mutate
+    seed = {"add8": ripple_carry_adder(8),
+            "mul8": array_multiplier(8)}[which]
+    rng = np.random.default_rng(w)
+    pop = [seed] + [mutate(seed, rng, 4) for _ in range(5)]
+    _cuda_equal_plain(cuda, pop, seed.n_i, w)
