@@ -43,7 +43,29 @@ Phases (any failure exits nonzero):
      accuracies must be equal list for list; the wide-width Pareto study
      (``repro_torch.launch.wide_pareto``) under ``"fused"`` (K3/K7/K8)
      and ``"pallas"`` (K1/K5/K6), each failing unless its two gates
-     hold, and the pallas rows must equal the fused ones; the circuit
+     hold, and the pallas rows must equal the fused ones; the
+     heterogeneous per-layer DSE (``repro_torch.launch.
+     heterogeneous_pareto``: the uniform Table II sweep, then
+     ``explore_heterogeneous`` — per-layer sweep, beam, batched
+     verification through ``policy_bank_eval`` — the equal-assignment
+     check and batched against sequential verification, 8 + 3
+     multipliers at 256 images) under ``"pallas"`` (K1/K2) and
+     ``"fused"`` (K3/K4), failing unless its equal-assignment and
+     verification gates hold, the batched verification launched K2 (K4)
+     exactly once a layer and eval batch and nothing else, and the fused
+     rows, verified points and selection equal the pallas ones (the
+     dominance gate's result at this size is printed and recorded);
+     then the reference's recorded ``--quick`` form (64 images, 12 + 3
+     multipliers) under ``"pallas"``, failing unless all three gates,
+     dominance included, hold and its multipliers, uniform points,
+     verified assignments, selection and dominating point equal the
+     reference's recorded run (``benchmarks/results/
+     BENCH_heterogeneous.json``; accuracies within one image); then a
+     policy bank mixing 8-bit and composed 12/16-bit lanes over the
+     ResNet-8 layers on one batch, whose logits under ``"pallas"`` (K6)
+     and ``"fused"`` (K8) must equal the plain datapath's, and an 8-bit
+     policy bank at the study's lane count, with repeated lanes, whose
+     logits under K2 and K4 must too, each one launch a layer; the circuit
      library evolved on the card (``repro_torch.core.build_library``,
      budget ``small``, ``engine="device"``: K11 scores every generation,
      K10 re-verifies each search's final circuit), then the ``tiny``
@@ -114,6 +136,19 @@ SPLIT = ((4096, 576, 64), (4096, 288, 64), (4096, 100, 64), (512, 577, 64))
 # one past a row tile
 QUANT8_RAGGED = tuple((m, k, n) for m in (1, 513) for k in (1, 31, 33, 577)
                       for n in (1, 8))
+# the heterogeneous study's kernels under each variant (the single-lane
+# kernel runs the sequential evaluations), and its banked kernel, which
+# the batched verification must launch once a layer and eval batch
+HETERO_KERNELS = {"pallas": ("lut_matmul", "lut_matmul_bank"),
+                  "fused": ("fused_matmul", "fused_matmul_bank")}
+# the JAX reference's recorded run of the study's --quick configuration
+BENCH_HETEROGENEOUS = os.path.join(ROOT, "benchmarks", "results",
+                                   "BENCH_heterogeneous.json")
+# a policy bank mixing 8-bit and composed wide lanes (loa4, the wide
+# study's tree): its kernel under each variant
+POLICY_BANK_NARROW = ("mul8u_trunc6", "mul8u_bam_h0_v4")
+POLICY_BANK_KERNEL = {"pallas": "composed_matmul_bank",
+                      "fused": "fused_composed_matmul_bank"}
 # composed entries of a bank that mixes reduction trees (K8 compare)
 MIXED_REDUCE = (("mul8u_exact", 16, "trunc3"), ("mul8u_trunc6", 12, "exact"),
                 ("mul8u_exact", 16, "loa4"))
@@ -771,6 +806,7 @@ def phase_main(device) -> dict:
                              f"{wide_rows}")
     print("[main] wide study rows (accuracy, logit_mae) under pallas equal "
           "the fused ones, point for point")
+    out.update(phase_heterogeneous(device, log, out["launches"]))
     lib, record = phase_library(device, log, out["launches"])
     out["library"] = record
     out["serve"] = phase_serve(device, log, out["launches"])
@@ -778,6 +814,215 @@ def phase_main(device) -> dict:
         raise AssertionError(f"a kernel never ran on the main paths: "
                              f"{out['launches']}")
     return out, lib
+
+
+def _hetero_decisions(record) -> dict:
+    return {k: record[k] for k in ("baseline_accuracy", "uniform",
+                                   "uniform_best", "heterogeneous",
+                                   "selected", "dominating")}
+
+
+def _study(device, log, variant: str, **kw) -> dict:
+    """``heterogeneous_pareto.run``; its equal-assignment and verification
+    gates raise here, while a failed dominance gate is the study's
+    result at this size: printed, kept in the record
+    (``dominating: null``), and not a fault of the port."""
+    from repro_torch.launch import heterogeneous_pareto
+    try:
+        return heterogeneous_pareto.run(device, log=log, variant=variant,
+                                        **kw)
+    except heterogeneous_pareto.GateError as e:
+        if e.gate != "dominance":
+            raise
+        r = e.record
+        log(f"DOMINANCE GATE FAILED ({variant}, {r['eval_n']} images): no "
+            f"verified heterogeneous point dominates the best uniform "
+            f"point {r['uniform_best']} within {r['quality_bound']}")
+        return r
+
+
+def _check_study(record, kernels: tuple, label: str) -> None:
+    """The correctness gates held, and the batched verification launched
+    the banked kernel exactly once a layer and eval batch and nothing
+    else (no silent sequential path)."""
+    v = record["verification"]
+    want = {kernels[1]: v["layers"] * record["eval_batches"]}
+    if (v["batched_launches"] != want or v["k"] < 2
+            or not (record["equal_assignment_bit_identical"]
+                    and v["bit_identical"])):
+        raise AssertionError(
+            f"heterogeneous study ({label}) malformed: batched "
+            f"verification launched {v['batched_launches']} (want "
+            f"{want}), k {v['k']}")
+    print(f"[main] heterogeneous ({label}) on {_smi('name,power.limit')}: "
+          f"explore_heterogeneous (per-layer sweep, beam, batched "
+          f"verification) {record['explore_heterogeneous_s']:.3f} s; "
+          f"verification of {v['k']} assignments batched "
+          f"{v['batched_s']:.3f} s ({want}), sequential "
+          f"{v['sequential_s']:.3f} s, speedup {v['speedup']:.2f}; "
+          f"equal-assignment check {record['equal_assignment_s']:.3f} s; "
+          f"dominating {record['dominating'] is not None}")
+
+
+def _check_against_bench(record) -> None:
+    """The ``--quick`` study against the reference's recorded run of the
+    same configuration (``BENCH_HETEROGENEOUS``, read as JSON): the same
+    multipliers; the same uniform points, verified assignments, best
+    uniform point, selection and dominating point, each with its power
+    (the reference rounds to six places); every accuracy within one
+    image."""
+    with open(BENCH_HETEROGENEOUS) as f:
+        want = json.load(f)
+    tol = 1 / record["eval_n"]
+    bad = []
+
+    def same(got, ref, what):
+        if (got is None) != (ref is None):
+            bad.append(f"{what}: {got} != {ref}")
+            return
+        if got is None:
+            return
+        if (got["multiplier"] != ref["multiplier"]
+                or got.get("assignment") != ref.get("assignment")
+                or round(got["network_rel_power"], 6)
+                != ref["network_rel_power"]
+                or abs(got["accuracy"] - ref["accuracy"]) > tol):
+            bad.append(f"{what}: {got} != {ref}")
+
+    def by_point(points):
+        return sorted(points, key=lambda p: (
+            round(p["network_rel_power"], 6),
+            json.dumps(p.get("assignment") or p["multiplier"],
+                       sort_keys=True)))
+
+    if record["multipliers"] != want["multipliers"]:
+        bad.append(f"multipliers {record['multipliers']} != "
+                   f"{want['multipliers']}")
+    if abs(record["baseline_accuracy"] - want["baseline_accuracy"]) > tol:
+        bad.append(f"baseline {record['baseline_accuracy']} != "
+                   f"{want['baseline_accuracy']}")
+    for key in ("uniform", "heterogeneous"):
+        got, ref = by_point(record[key]), by_point(want[key])
+        if len(got) != len(ref):
+            bad.append(f"{key}: {len(got)} points != {len(ref)}")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            same(g, r, f"{key}[{i}]")
+    for key in ("uniform_best", "selected", "dominating"):
+        same(record[key], want[key], key)
+    if bad:
+        raise AssertionError("heterogeneous --quick study differs from "
+                             "the reference's recorded run: "
+                             + "; ".join(bad))
+    print(f"[main] heterogeneous (pallas --quick) equals the reference's "
+          f"recorded run ({os.path.relpath(BENCH_HETEROGENEOUS, ROOT)}): "
+          f"{len(want['multipliers'])} multipliers, "
+          f"{len(want['heterogeneous'])} verified assignments, selection "
+          f"{want['selected']['multiplier']}, dominating point, powers "
+          f"equal, accuracies within {tol}")
+
+
+def phase_heterogeneous(device, log, launches_total: dict) -> dict:
+    """Path: the heterogeneous per-layer DSE under each variant through
+    ``heterogeneous_pareto.run`` at the reference's default size (256
+    images, 8 picks + extras), its correctness gates and launches
+    (``_check_study``), the fused decisions equal to the pallas ones;
+    then the reference's recorded ``--quick`` configuration (64 images,
+    12 picks + extras) under ``pallas``, where all three gates must hold
+    and the decisions must equal the reference's recorded ones
+    (``_check_against_bench``); then two policy banks' logits against
+    the plain datapath's (``_check_policy_bank_logits``)."""
+    from repro_torch.launch import heterogeneous_pareto
+    out, decisions = {}, {}
+    runs = [(variant, kernels, {})
+            for variant, kernels in HETERO_KERNELS.items()]
+    runs.append(("pallas", HETERO_KERNELS["pallas"], dict(quick=True)))
+    for variant, kernels, kw in runs:
+        label = variant + (" --quick" if kw.get("quick") else "")
+        if kw.get("quick"):
+            study = lambda: heterogeneous_pareto.run(  # noqa: E731
+                device, log=log, variant=variant, **kw)
+        else:
+            study = lambda: _study(device, log, variant, **kw)  # noqa: E731
+        record, wall, launches = _drive(
+            f"heterogeneous Pareto study ({label})", study, kernels)
+        _check_study(record, kernels, label)
+        if kw.get("quick"):
+            _check_against_bench(record)
+        else:
+            decisions[variant] = _hetero_decisions(record)
+        out[f"heterogeneous_{label.replace(' --', '_')}"] = {
+            **record, "main_path_s": wall, "launches": launches}
+        for k, n in launches.items():
+            launches_total[k] += n
+    if decisions["fused"] != decisions["pallas"]:
+        raise AssertionError(f"heterogeneous study differs between "
+                             f"variants: {decisions}")
+    print("[main] heterogeneous study under fused equals pallas: uniform "
+          "rows, verified points and selection, point for point")
+    study = out["heterogeneous_pallas"]
+    out["heterogeneous_policy_bank"] = _check_policy_bank_logits(
+        device, list(POLICY_BANK_NARROW), 4, POLICY_BANK_KERNEL,
+        "mixed-width", wide=True)
+    out["heterogeneous_policy_bank_8bit"] = _check_policy_bank_logits(
+        device, study["multipliers"], study["verification"]["k"],
+        {v: k[1] for v, k in HETERO_KERNELS.items()}, "8-bit")
+    return out
+
+
+def _check_policy_bank_logits(device, names: list, n_rows: int,
+                              kernel: dict, label: str,
+                              wide: bool = False) -> dict:
+    """A policy bank of ``n_rows`` assignments of ``names`` (with the
+    wide study's composed 12/16-bit recipes when ``wide``) over the
+    ResNet-8 layers (row ``p``'s layer ``j`` on ``names[p + j]``, the
+    first layer on one table in every lane; rows repeat past
+    ``len(names)``), through the whole
+    network on one eval batch: logits under ``pallas`` and ``fused``
+    equal the plain datapath's bit for bit, each variant's kernel
+    (``kernel``) launched once a layer and nothing else."""
+    import torch
+    from repro_torch.approx.layers import policy_bank_eval
+    from repro_torch.approx.specs import PolicyBank
+    from repro_torch.core.library import get_default_library
+    from repro_torch.data.synthetic import CifarBatches
+    from repro_torch.kernels.ops import launches_during
+    from repro_torch.launch.wide_pareto import wide_names
+    from repro_torch.models import resnet
+    from repro_torch.models.weights import load_resnet8
+    lib = get_default_library()
+    cfg = resnet.resnet_config(8)
+    names = list(names) + (wide_names(lib) if wide else [])
+    layers = tuple(resnet.layer_mult_counts(cfg))
+    rows = [{l: names[(p + j) % len(names)] if j else names[2]
+             for j, l in enumerate(layers)} for p in range(n_rows)]
+    pbank = PolicyBank.from_assignments(rows, lib, layers=layers)
+    b = next(CifarBatches("test", BATCH, BATCH).eval_batches())
+    images = torch.from_numpy(b["images"]).to(device)
+    model = load_resnet8().to(device)
+
+    def logits(variant):
+        return policy_bank_eval(
+            lambda pol: {"logits": resnet.forward(model, images, cfg, pol)},
+            pbank, variant=variant)["logits"]
+
+    want = logits("ref")
+    widths = sorted({lib.entry(n).width for n in pbank.bank.names})
+    for variant, k in kernel.items():
+        got, launches = launches_during(lambda: logits(variant))
+        if not (torch.isfinite(got).all() and torch.equal(got, want)
+                and got.shape == (len(rows), BATCH, cfg.n_classes)
+                and launches == {k: len(layers)}):
+            raise AssertionError(
+                f"{label} policy-bank logits under {variant} differ from "
+                f"the plain datapath's, or launches {launches} != one {k} "
+                f"a layer")
+    distinct = len({json.dumps(r, sort_keys=True) for r in rows})
+    print(f"[main] {label} policy bank ({len(rows)} assignments, "
+          f"{distinct} distinct, over {len(layers)} layers, widths "
+          f"{widths}): logits under pallas ({kernel['pallas']}) and fused "
+          f"({kernel['fused']}) equal the plain datapath's, one launch a "
+          f"layer")
+    return {"assignments": rows, "widths": widths, "distinct": distinct}
 
 
 def _same_library(a, b) -> bool:

@@ -10,12 +10,14 @@ from .workload import (Workload, as_workload, classification,
                        layer_mult_counts)
 from .registry import (Datapath, available_datapaths, get_datapath,
                        register_datapath)
-from .specs import (BackendSpec, LutBank, MaterializedBackend, bank_for,
-                    canonicalize, clear_materialize_cache, materialize,
-                    materialize_cache_stats)
+from .specs import (BackendSpec, LutBank, MaterializedBackend, PolicyBank,
+                    bank_for, canonicalize, clear_materialize_cache,
+                    materialize, materialize_cache_stats)
 from .backend import as_backend, backend_matmul
-from .layers import ApproxPolicy, bank_backend, bank_eval, spec_of
+from .layers import (ApproxPolicy, bank_backend, bank_eval,
+                     policy_bank_eval, policy_for_lane, spec_of)
 from .resilience import (BankableEval, LayerComponents, all_layers_sweep,
                          can_bank, per_layer_sweep)
-from .dse import (DesignPoint, ExploreResult, explore, pareto_points,
-                  select_multiplier, select_point)
+from .dse import (DesignPoint, ExploreResult, compose_assignments,
+                  explore, explore_heterogeneous, pareto_points,
+                  select_multiplier, select_point, verify_assignments)

@@ -17,22 +17,36 @@ cache, so repeated explorations (and the shared exact baseline) never
 re-evaluate the same configuration; backend materialization is cached
 per (library, spec).
 
-The heterogeneous two-stage search (``explore_heterogeneous``) is
-not ported yet (ROADMAP.md Queue 1); ``ExploreResult`` keeps its
-``heterogeneous`` axis so results move between the packages as JSON.
+``explore_heterogeneous`` goes beyond the paper's single-multiplier
+endpoint: a two-stage autoAx-style search that composes a DIFFERENT
+multiplier per layer (prediction from per-layer component models +
+layer-wise Pareto pruning + beam composition, then exact batched
+verification of the shortlist through ``policy_bank_eval``), filling
+``ExploreResult``'s ``heterogeneous`` axis with points that carry full
+per-layer assignments (DESIGN.md §2.5).  The port's predict stage is the
+exact per-layer sweep; the learned surrogate (``predictor="surrogate"``)
+is not ported yet (``SURROGATE_ITEM``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, Mapping, Optional, Sequence
 
+import numpy as np
+
 from . import objectives as objectives_mod
-from .layers import ApproxPolicy
+from .layers import ApproxPolicy, policy_bank_eval, policy_for_lane
 from .objectives import get_objective
-from .resilience import (ResilienceRow, all_layers_sweep, can_bank,
-                         per_layer_sweep)
-from .specs import BackendSpec
+from .power import (auto_rel_power, cost_axes_map,
+                    network_costs_for_assignment,
+                    network_power_for_assignment, rel_power_map)
+from .resilience import (LayerComponents, ResilienceRow, _unstack_metrics,
+                         all_layers_sweep, can_bank, per_layer_sweep)
+from .specs import BackendSpec, PolicyBank
 from .workload import Workload, as_workload
+
+#: The ROADMAP.md item that ports the learned predict stage, by title.
+SURROGATE_ITEM = 'ROADMAP.md Queue 1, "Surrogate-guided DSE"'
 
 DEFAULT_OBJECTIVES = ("accuracy", "power")
 
@@ -75,6 +89,29 @@ class DesignPoint:
             multiplier_rel_power=r.multiplier_rel_power,
             mult_share=r.mult_share, spec=r.spec, errors=dict(r.errors),
             metrics=dict(r.metrics), costs=dict(r.costs))
+
+    @staticmethod
+    def from_assignment(assignment: Mapping[str, str], accuracy: float,
+                        network_rel_power: float,
+                        mode: str = "lut",
+                        variant: str = "ref",
+                        metrics: Optional[Mapping[str, float]] = None,
+                        costs: Optional[Mapping[str, float]] = None
+                        ) -> "DesignPoint":
+        """A verified heterogeneous composition as a design point; the
+        distinct multipliers are summarized in ``multiplier``, the
+        exact per-layer mapping preserved in ``assignment``, and the
+        datapath it was measured under in ``mode``/``variant``."""
+        distinct = tuple(dict.fromkeys(assignment.values()))
+        label = (distinct[0] if len(distinct) == 1
+                 else f"hetero[{len(distinct)}]")
+        return DesignPoint(
+            multiplier=label, layer="hetero", accuracy=accuracy,
+            network_rel_power=network_rel_power,
+            multiplier_rel_power=network_rel_power, mult_share=1.0,
+            spec=None, assignment=tuple(assignment.items()),
+            mode=mode, variant=variant,
+            metrics=dict(metrics or {}), costs=dict(costs or {}))
 
     def policy(self, base: Optional[BackendSpec] = None) -> ApproxPolicy:
         """Deployable policy for this point: the multiplier everywhere
@@ -410,3 +447,278 @@ def select_point(result: ExploreResult, max_accuracy_drop: float,
         result,
         constraints={result.primary: _budget(result, max_accuracy_drop)},
         minimize="power", axis=axis)
+
+
+# ----------------------------------------------------------------------
+# Heterogeneous two-stage DSE (DESIGN.md §2.5)
+# ----------------------------------------------------------------------
+def compose_assignments(components: LayerComponents,
+                        quality_bound: Optional[float] = None,
+                        power_budget: Optional[float] = None,
+                        beam_width: int = 8,
+                        top_k: int = 8) -> list[np.ndarray]:
+    """Prediction-stage composition: layer-wise Pareto pruning followed
+    by a beam search over layers (largest multiplication counts first).
+
+    Beam states accumulate predicted quality drop (additive model) and
+    assigned power; states past the drop threshold are cut, and the beam
+    keeps both the lowest-power and the lowest-drop frontiers so a
+    cheap-but-damaged prefix cannot starve the search.  The beam runs at
+    a ladder of thresholds around ``quality_bound`` (0.5x, 1x, 2x) and
+    unions the results: the additive model is pessimistic, so verifying
+    a band around the predicted bound recovers compositions the
+    prediction would wrongly cut.  Returns up to ``top_k`` distinct
+    assignment rows (indices into ``components.multipliers``) ordered by
+    predicted power — the shortlist the verification stage measures.
+    """
+    thresholds = ([quality_bound * 0.5, quality_bound, quality_bound * 2]
+                  if quality_bound is not None else [None])
+    out, seen = [], set()
+    for threshold in thresholds:
+        for row in _beam_once(components, threshold, beam_width, top_k):
+            if power_budget is not None and \
+                    components.predict_power(row) > power_budget:
+                continue
+            key = tuple(row.tolist())
+            if key not in seen:
+                seen.add(key)
+                out.append(row)
+    # tie-break toward better predicted quality in the primary's own
+    # direction (a min-primary's predict_accuracy is higher-is-worse)
+    sign = 1.0 if components.direction == "min" else -1.0
+    out.sort(key=lambda r: (components.predict_power(r),
+                            sign * components.predict_accuracy(r)))
+    return out[:top_k]
+
+
+def _beam_once(components: LayerComponents, threshold: Optional[float],
+               beam_width: int, top_k: int) -> list[np.ndarray]:
+    fronts = components.layer_pareto()
+    d = components.drop()
+    order = sorted(range(len(components.layers)),
+                   key=lambda j: -components.counts[j])
+    # state: (assigned_power_sum, drop_sum, {layer_idx: mult_idx})
+    states: list[tuple[float, float, dict]] = [(0.0, 0.0, {})]
+    for j in order:
+        nxt = []
+        for pw, dr, part in states:
+            for i in fronts[j]:
+                dr2 = dr + float(d[j, i])
+                if threshold is not None and dr2 > threshold:
+                    continue
+                nxt.append((pw + components.counts[j]
+                            * float(components.rel_power[i]), dr2,
+                            {**part, j: i}))
+        if not nxt:
+            # bound infeasible at this layer: keep the least-damaging
+            # candidate so the search always returns something
+            for pw, dr, part in states:
+                i = min(fronts[j],
+                        key=lambda i: (float(d[j, i]),
+                                       float(components.rel_power[i])))
+                nxt.append((pw + components.counts[j]
+                            * float(components.rel_power[i]),
+                            dr + float(d[j, i]), {**part, j: i}))
+        by_power = sorted(nxt, key=lambda s: (s[0], s[1]))[:beam_width]
+        by_drop = sorted(nxt, key=lambda s: (s[1], s[0]))[:beam_width]
+        seen_ids = set()
+        states = []
+        for s in by_power + by_drop:
+            key = tuple(sorted(s[2].items()))
+            if key not in seen_ids:
+                seen_ids.add(key)
+                states.append(s)
+    states.sort(key=lambda s: (s[0], s[1]))
+    out, seen = [], set()
+    for pw, dr, part in states:
+        row = np.asarray([part[j] for j in range(len(components.layers))],
+                         dtype=np.int32)
+        key = tuple(row.tolist())
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(row)
+        if len(out) >= top_k:
+            break
+    return out
+
+
+def verify_assignments(
+    eval_fn: Callable[[ApproxPolicy], float],
+    assignments: list[Mapping[str, str]],
+    layer_counts: dict[str, int],
+    library,
+    mode: str = "lut",
+    variant: str = "ref",
+    batch: bool = True,
+    cache: Optional[dict] = None,
+    rel_power=None,
+    layers: Optional[tuple] = None,
+    fill: Optional[str] = None,
+) -> list[DesignPoint]:
+    """Verification stage: measure every candidate assignment EXACTLY.
+
+    Batched (default, when the eval and datapath support it): the
+    assignments pack into a ``PolicyBank`` and evaluate through
+    ``policy_bank_eval`` in one pass of the model (one banked kernel
+    call a layer and batch).  Otherwise each candidate's
+    ``policy_for_lane`` is evaluated in turn through the policy cache,
+    as in the reference.  Either way results land in ``cache`` under
+    sequential-compatible policy keys, and power is the exact
+    count-weighted ``network_power_for_assignment``.
+
+    ``layers`` pins the bank's layer axis and ``fill`` pads rows that do
+    not cover it with a named multiplier (``fill="mul8u_exact"`` equals
+    the golden base).
+    """
+    if not assignments:
+        return []
+    wl = as_workload(eval_fn)
+    if layers is None:
+        layers = tuple(dict.fromkeys(
+            l for a in assignments for l in a))
+    pbank = PolicyBank.from_assignments(assignments, library,
+                                        layers=layers, fill=fill)
+    batch = batch and can_bank(wl, mode, variant)
+    if batch:
+        out = policy_bank_eval(wl.traceable_metrics, pbank, mode=mode,
+                               variant=variant)
+        lanes = _unstack_metrics(out, wl.metrics, pbank.n_policies)
+    else:
+        run = wl.cached(cache) if cache is not None else wl
+        lanes = [run.measure(policy_for_lane(pbank, p, mode=mode,
+                                             variant=variant))
+                 for p in range(pbank.n_policies)]
+    if cache is not None:
+        for p, metrics in enumerate(lanes):
+            cache.setdefault(
+                policy_for_lane(pbank, p, mode=mode,
+                                variant=variant).cache_key(),
+                dict(metrics))
+    if rel_power is None:
+        rel_power = (auto_rel_power(library, pbank.bank.names)
+                     or rel_power_map(library, pbank.bank.names))
+    cost_map = cost_axes_map(library, pbank.bank.names)
+    points = []
+    for p, metrics in enumerate(lanes):
+        a = pbank.assignment(p)
+        points.append(DesignPoint.from_assignment(
+            a, metrics[wl.primary],
+            network_power_for_assignment(layer_counts, a, rel_power),
+            mode=mode, variant=variant, metrics=metrics,
+            costs=network_costs_for_assignment(layer_counts, a,
+                                               cost_map)))
+    return points
+
+
+def explore_heterogeneous(
+    eval_fn: Callable[[ApproxPolicy], float],
+    layer_counts: dict[str, int],
+    library=None,
+    multipliers: Optional[list[str]] = None,
+    mode: str = "lut",
+    variant: str = "ref",
+    quality_bound: float = 0.01,
+    power_budget: Optional[float] = None,
+    beam_width: int = 8,
+    top_k: int = 8,
+    components: Optional[LayerComponents] = None,
+    extra_assignments: Optional[list[Mapping[str, str]]] = None,
+    cache: Optional[dict] = None,
+    batch: bool = True,
+    rel_power=None,
+    predictor: str = "exact",
+    train_fraction: float = 0.25,
+    surrogate_config=None,
+) -> ExploreResult:
+    """Two-stage heterogeneous DSE (autoAx-style, DESIGN.md §2.5).
+
+    Width-generic (DESIGN.md §2.6): ``multipliers`` may mix 8-bit and
+    composed 12/16-bit entries; mixed sets rebase power onto a common
+    reference (``power.auto_rel_power``) in both the component models
+    and the verified points — pass ``rel_power`` to pick it yourself.
+
+    Stage 1 (predict): the per-layer sweep (batched when the eval
+    supports it), distilled into ``LayerComponents`` — or ``components``
+    from an earlier exploration.  Layer-wise Pareto pruning keeps the
+    per-layer non-dominated multipliers, and a beam search composes up
+    to ``top_k`` full assignments whose predicted (additive-drop)
+    quality stays within ``quality_bound`` of the golden baseline,
+    optionally under a ``power_budget`` ceiling.  Only the exact
+    predictor is ported: ``predictor="surrogate"`` raises
+    ``NotImplementedError`` (``SURROGATE_ITEM``), and ``train_fraction``
+    / ``surrogate_config`` belong to it.
+
+    Stage 2 (verify): the shortlist — plus any ``extra_assignments`` —
+    is measured exactly by ``verify_assignments`` (one
+    ``policy_bank_eval`` pass when batched).  Verified points land on
+    ``result.heterogeneous`` with exact count-weighted power, and
+    ``result.selected`` is the lowest-power verified point within
+    ``quality_bound`` (and ``power_budget`` when given).
+
+    Returns an ``ExploreResult`` whose ``per_layer`` axis holds the
+    stage-1 sweep (empty when ``components`` was supplied).
+    """
+    if predictor not in ("exact", "surrogate"):
+        raise ValueError(
+            f"predictor must be 'exact' or 'surrogate', got {predictor!r}")
+    if predictor == "surrogate":
+        raise NotImplementedError(
+            "explore_heterogeneous(predictor='surrogate') is not ported "
+            f"yet ({SURROGATE_ITEM}); use predictor='exact'")
+    wl = as_workload(eval_fn)
+    if library is None:
+        from ..core.library import get_default_library
+        library = get_default_library()
+    if multipliers is None:
+        multipliers = [e.name for e in library.case_study_selection()]
+    cache = cache if cache is not None else {}
+    run = wl.cached(cache)
+
+    golden = BackendSpec.golden().materialize()
+    per_layer_points: list[DesignPoint] = []
+    baseline_metrics: dict = {}
+    if components is None:
+        baseline_metrics = run.measure(ApproxPolicy(default=golden))
+        baseline = baseline_metrics[wl.primary]
+        do_batch = batch and can_bank(wl, mode, variant)
+        rows = per_layer_sweep(wl if do_batch else run, layer_counts,
+                               multipliers, library, mode=mode,
+                               base=golden, variant=variant,
+                               batch=do_batch, rel_power=rel_power)
+        components = LayerComponents.from_rows(
+            rows, layer_counts, baseline, direction=wl.primary_direction)
+        if do_batch:
+            _seed_cache(cache, rows, golden)
+        per_layer_points = [DesignPoint.from_row(r) for r in rows]
+    baseline = components.baseline
+
+    candidates = compose_assignments(components,
+                                     quality_bound=quality_bound,
+                                     power_budget=power_budget,
+                                     beam_width=beam_width, top_k=top_k)
+    assignments = [
+        {l: components.multipliers[i]
+         for l, i in zip(components.layers, row)}
+        for row in candidates]
+    for extra in (extra_assignments or []):
+        a = dict(extra)
+        if a not in assignments:
+            assignments.append(a)
+
+    hetero = verify_assignments(
+        wl, assignments, layer_counts, library, mode=mode,
+        variant=variant, batch=batch, cache=cache, rel_power=rel_power)
+
+    result = ExploreResult(baseline_accuracy=baseline,
+                           per_layer=per_layer_points,
+                           heterogeneous=hetero,
+                           baseline_metrics=baseline_metrics,
+                           objectives=(wl.primary, "power"),
+                           primary=wl.primary)
+    constraints = {wl.primary: _budget(result, quality_bound)}
+    if power_budget is not None:
+        constraints["power"] = objectives_mod.AtMost(power_budget)
+    result.selected = objectives_mod.select(
+        result, constraints, minimize="power", axis="heterogeneous")
+    return result

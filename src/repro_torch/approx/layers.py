@@ -18,12 +18,14 @@ import json
 from dataclasses import dataclass, field
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .backend import BackendLike, as_backend, backend_matmul
 from .registry import get_datapath
-from .specs import BackendSpec, LutBank, MaterializedBackend, canonicalize
+from .specs import (BackendSpec, LutBank, MaterializedBackend, PolicyBank,
+                    canonicalize)
 
 
 def spec_of(backend: BackendLike) -> BackendSpec:
@@ -180,10 +182,109 @@ def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
             base = BackendSpec.golden().materialize()
         policy = ApproxPolicy(default=as_backend(base),
                               overrides=[(layer_pattern, mb)])
+    return _lane_outputs(fn, policy, bank.n_mult)
+
+
+def _lane_outputs(fn, policy: ApproxPolicy, n: int) -> dict:
+    """``fn(policy)`` without autograd, each output with its leading lane
+    axis of ``n`` (scalars broadcast to every lane)."""
     with torch.inference_mode():
         out = fn(policy)
-    n = bank.n_mult
     return {k: (v.expand(n) if v.ndim == 0 else v) for k, v in out.items()}
+
+
+# ----------------------------------------------------------------------
+# Heterogeneous per-layer evaluation (DESIGN.md §2.5)
+# ----------------------------------------------------------------------
+#: Banked constants with one entry per bank lane (leading axis): a
+#: layer of a policy bank gathers them by its assignment column.
+_LANE_CONSTS = ("luts", "luts16", "bits", "masks", "reduce_codes")
+
+
+@dataclass(frozen=True, eq=False)
+class AssignedBankBackend(MaterializedBackend):
+    """One layer of a policy bank as a banked backend: lane ``p`` runs
+    table ``index[p]`` of the banked backend ``source`` over the whole
+    bank.  Its per-lane constants (``_LANE_CONSTS``) are gathered on the
+    device from ``source``'s, which every layer shares, so the bank moves
+    to a device once (``index_select``: contiguous, dtype kept, so the
+    kernels read the uint16 tables as ``lut_to_uint16`` packed them)."""
+
+    source: Optional[MaterializedBackend] = None
+    index: Optional[np.ndarray] = None          # (n_policies,) int64
+
+    @property
+    def lanes(self) -> int:
+        return len(self.index)
+
+    def device_consts(self, device: torch.device) -> dict:
+        key = str(device)
+        out = self._on_device.get(key)
+        if out is None:
+            idx = torch.from_numpy(self.index).to(device)
+            out = {k: (v.index_select(0, idx) if k in _LANE_CONSTS else v)
+                   for k, v in self.source.device_consts(device).items()}
+            self._on_device[key] = out
+        return out
+
+
+def bank_assignment_overrides(bank: LutBank, assign, layers, *,
+                              mode: str = "lut", variant: str = "ref"
+                              ) -> list[tuple[str, MaterializedBackend]]:
+    """Per-layer policy overrides for every policy lane at once: layer
+    ``layers[j]`` runs one banked backend whose lane ``p`` is table
+    ``assign[p, j]`` of ``bank`` (``assign``: (n_policies, n_layers)
+    indices into ``bank.names``).  The port's form of the reference's
+    one-vmap-lane-per-policy overrides: each layer is one banked
+    datapath call whatever the number of policies — K2 (8-bit) or K6
+    (wide lanes) under ``pallas``, K4 or K8 under ``fused``.  The
+    datapath choice and the mixed-reduce check are ``bank_backend``'s."""
+    src = bank_backend(bank, mode, variant)
+    assign = np.asarray(assign, dtype=np.int64)
+    return [(layer, AssignedBankBackend(
+        spec=src.spec, datapath=src.datapath, consts=src.consts,
+        source=src, index=np.ascontiguousarray(assign[:, j])))
+        for j, layer in enumerate(layers)]
+
+
+def policy_for_lane(pbank: PolicyBank, p: int, *, mode: str = "lut",
+                    variant: str = "ref",
+                    base: Optional[BackendLike] = None) -> ApproxPolicy:
+    """The sequential (serializable) policy lane ``p`` of a
+    ``policy_bank_eval`` stands for: ``base`` (golden int8 by default)
+    everywhere, with layer ``j`` overridden to multiplier
+    ``pbank.bank.names[pbank.assign[p, j]]``.  Evaluating it equals lane
+    ``p`` of the banked evaluation bit for bit."""
+    base = base if base is not None else BackendSpec.golden().materialize()
+    return ApproxPolicy(default=base,
+                        overrides=pbank.spec_overrides(p, mode=mode,
+                                                       variant=variant))
+
+
+def policy_bank_eval(fn, pbank: PolicyBank, *, mode: str = "lut",
+                     variant: str = "ref",
+                     base: Optional[BackendLike] = None) -> dict:
+    """Evaluate ``fn(policy)`` for every heterogeneous assignment row of
+    ``pbank`` in ONE pass of the model — the per-layer generalization of
+    ``bank_eval``.  Lane ``p`` runs multiplier
+    ``pbank.bank.names[pbank.assign[p, j]]`` in layer ``pbank.layers[j]``
+    (``bank_assignment_overrides``: one banked call a layer for all
+    lanes); layers not named in ``pbank.layers`` run ``base`` (golden
+    int8 by default), on lane-carrying activations after the first
+    assigned layer and without a lane axis before it.
+
+    ``fn`` and the result follow ``bank_eval``: a dict of tensors, each
+    returned with a leading ``n_policies`` axis, lane ``p`` equal bit for
+    bit to the sequential evaluation of ``policy_for_lane(pbank, p)``.
+    """
+    if base is None:
+        base = BackendSpec.golden().materialize()
+    policy = ApproxPolicy(
+        default=as_backend(base),
+        overrides=bank_assignment_overrides(
+            pbank.bank, pbank.assign, pbank.layers, mode=mode,
+            variant=variant))
+    return _lane_outputs(fn, policy, pbank.n_policies)
 
 
 def per_lane(fn, x: torch.Tensor, lanes: bool) -> torch.Tensor:

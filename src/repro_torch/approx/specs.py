@@ -395,6 +395,157 @@ class LutBank:
                        reduces=per_lane)
 
 
+# ----------------------------------------------------------------------
+# PolicyBank: heterogeneous per-layer assignments over one LutBank
+# (DESIGN.md §2.5)
+# ----------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)  # id-hash: ndarray field
+class PolicyBank:
+    """K heterogeneous per-layer multiplier assignments sharing one
+    ``LutBank`` — the *policy axis* of a heterogeneous sweep.
+
+    ``assign[p, j]`` is the index into ``bank.names`` of the multiplier
+    policy ``p`` uses in layer ``layers[j]``; layers not named here run
+    the evaluation's base backend (golden int8 by default).  Row ``p``
+    therefore stands for the serializable
+    ``ApproxPolicy(default=base, overrides=spec_overrides(p))``, and
+    ``approx.layers.policy_bank_eval`` evaluates every row in one pass
+    of the model: layer ``j`` runs one banked call over the tables
+    ``luts[assign[:, j]]``, equal to K sequential override evaluations.
+    """
+
+    bank: LutBank
+    layers: tuple[str, ...]
+    assign: np.ndarray                # (n_policies, n_layers) int32
+
+    def __post_init__(self):
+        a = np.asarray(self.assign, dtype=np.int32)
+        if a.ndim != 2 or a.shape[1] != len(self.layers):
+            raise ValueError(
+                f"assign must be (n_policies, {len(self.layers)}), "
+                f"got {a.shape}")
+        if a.size and (a.min() < 0 or a.max() >= self.bank.n_mult):
+            raise ValueError(
+                f"assign indices must be in [0, {self.bank.n_mult}); "
+                f"got range [{a.min()}, {a.max()}]")
+        object.__setattr__(self, "assign", a)
+
+    @property
+    def n_policies(self) -> int:
+        return int(self.assign.shape[0])
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.layers)
+
+    def assignment(self, p: int) -> dict[str, str]:
+        """Row ``p`` as a layer-name -> multiplier-name mapping."""
+        return {layer: self.bank.names[self.assign[p, j]]
+                for j, layer in enumerate(self.layers)}
+
+    def spec_overrides(self, p: int, mode: str = "lut",
+                       variant: str = "ref"
+                       ) -> list[tuple[str, BackendSpec]]:
+        """Serializable ``ApproxPolicy`` overrides for row ``p`` (layer
+        order preserved; layer names are exact, disjoint patterns)."""
+        return [(layer, BackendSpec(mode=mode, multiplier=name,
+                                    block_m=self.bank.block_m,
+                                    variant=variant))
+                for layer, name in self.assignment(p).items()]
+
+    @staticmethod
+    def from_assignments(assignments, library=None,
+                         layers=None, block_m: int = 512,
+                         fill: Optional[str] = None) -> "PolicyBank":
+        """Pack layer->multiplier mappings into one shared bank.
+
+        ``assignments`` is a sequence of dicts; ``layers`` defaults to
+        the union of their keys in first-appearance order.  Every
+        mapping must cover every layer unless ``fill`` names a
+        multiplier, which then runs in a row's unassigned layers
+        (``fill="mul8u_exact"`` computes the golden int8 products).  The
+        distinct multiplier names form one ``bank_for``-cached
+        ``LutBank``."""
+        assignments = list(assignments)
+        if layers is None:
+            layers = []
+            for a in assignments:
+                for name in a:
+                    if name not in layers:
+                        layers.append(name)
+        layers = tuple(layers)
+        names: list[str] = []
+        rows: list[Mapping[str, str]] = []
+        for a in assignments:
+            missing = [l for l in layers if l not in a]
+            if missing and fill is None:
+                raise ValueError(
+                    f"assignment {a!r} misses layers {missing} "
+                    "(pass fill=<multiplier name> to pad partial rows)")
+            row = dict(a) if not missing else {
+                **{l: fill for l in missing}, **a}
+            rows.append(row)
+            for l in layers:
+                if row[l] not in names:
+                    names.append(row[l])
+        bank = bank_for(names, library, block_m=block_m)
+        index = {n: i for i, n in enumerate(bank.names)}
+        assign = np.asarray([[index[r[l]] for l in layers]
+                             for r in rows], dtype=np.int32)
+        return PolicyBank(bank=bank, layers=layers, assign=assign)
+
+    @staticmethod
+    def uniform(names, layers, library=None,
+                block_m: int = 512) -> "PolicyBank":
+        """One row per multiplier name, assigned to every layer — the
+        heterogeneous engine restricted to uniform policies (the
+        equal-assignment consistency check)."""
+        return PolicyBank.from_assignments(
+            [{l: n for l in layers} for n in names],
+            library=library, layers=layers, block_m=block_m)
+
+    @staticmethod
+    def from_policies(policies, layers, library=None,
+                      block_m: int = 512, mode: str = "lut"
+                      ) -> "PolicyBank":
+        """Bank assembly from request policies (DESIGN.md §2.8): each
+        ``ApproxPolicy`` resolves over ``layers`` through
+        ``policy_assignment``, and row ``p`` is policy ``p``'s per-layer
+        lane assignment."""
+        assignments = [policy_assignment(p, layers, mode=mode,
+                                         block_m=block_m)
+                       for p in policies]
+        return PolicyBank.from_assignments(assignments, library=library,
+                                           layers=tuple(layers),
+                                           block_m=block_m)
+
+
+def policy_assignment(policy, layers, *, mode: str = "lut",
+                      block_m: int = 512) -> dict[str, str]:
+    """Resolve an ``ApproxPolicy`` to a layer-tag -> multiplier-name
+    mapping over ``layers``.  Every layer must resolve to a ``mode``
+    spec with the bank's ``block_m``; anything else cannot ride a
+    LUT-bank lane and raises with the layer named."""
+    from .layers import spec_of   # runtime import: layers imports us
+    out: dict[str, str] = {}
+    for layer in layers:
+        spec = spec_of(policy.backend_for(layer))
+        if spec.mode != mode:
+            raise ValueError(
+                f"policy resolves layer {layer!r} to mode "
+                f"{spec.mode!r}; mixed-policy serving batches every "
+                f"request through the banked {mode!r} datapath — "
+                f"express the request as a {mode!r}-mode policy "
+                "(multiplier='mul8u_exact' emulates the exact product)")
+        if spec.block_m != block_m:
+            raise ValueError(
+                f"policy resolves layer {layer!r} with block_m="
+                f"{spec.block_m}, but the shared bank blocks at "
+                f"{block_m} — one banked program compiles one blocking")
+        out[layer] = spec.multiplier
+    return out
+
+
 _BANK_CACHE: "OrderedDict[tuple, LutBank]" = OrderedDict()
 _BANK_CACHE_MAX = 16
 

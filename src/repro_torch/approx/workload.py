@@ -252,4 +252,4 @@ def layer_mult_counts(cfg, batch: int = 1,
         return _resnet_mult_counts(cfg, batch)
     raise NotImplementedError(
         "layer_mult_counts for LM configs is not ported yet (ROADMAP.md "
-        "Queue 1, model zoo)")
+        'Queue 1, "LM model zoo and module profiles")')

@@ -32,7 +32,7 @@ def get_config(arch: str) -> LMConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {list(ARCHS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md Queue 1 item 6: "
-            "the LM model zoo)")
+            f"arch {arch!r} is not ported yet (ROADMAP.md Queue 1, "
+            '"LM model zoo and module profiles")')
     mod = importlib.import_module(f"{__name__}.{ARCHS[arch]}")
     return mod.config()

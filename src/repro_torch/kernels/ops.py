@@ -456,3 +456,13 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def launches_during(fn):
+    """``fn()`` and the kernel launches it made (nonzero counts only;
+    none on the CPU, where the wrappers run their plain versions)."""
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}

@@ -35,8 +35,8 @@ from ..models.registry import input_extras, model_fns
 from ..serve.engine import Engine, ServeConfig
 from .steps import pick_case_multiplier, serve_policy, train_policy
 
-CONTINUOUS_ITEM = ("ROADMAP.md Queue 1 item 7: ContinuousEngine, "
-                   "scheduler.py, kv_cache.py")
+CONTINUOUS_ITEM = ('ROADMAP.md Queue 1, "Continuous-batching serving": '
+                   "ContinuousEngine, scheduler.py, kv_cache.py")
 
 
 def setup(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",

@@ -21,7 +21,8 @@ Differences from the reference, none of which changes a value:
 Not ported yet, each raising where a config asks for it: the sharding
 hints (``hint_*``: no mesh on one card), ``layer_norm`` (encdec),
 ``_chunked_grouped_attention`` (``attn_impl="chunked"``) — ROADMAP.md
-Queue 1 item 6 — and ``chunked_cross_entropy`` (training, item 8).
+Queue 1, "LM model zoo and module profiles" — and
+``chunked_cross_entropy`` (Queue 1, "Training").
 """
 from __future__ import annotations
 
@@ -37,9 +38,10 @@ import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
 
-#: The ROADMAP.md items that port what this module does not have yet.
-ZOO_ITEM = "ROADMAP.md Queue 1 item 6: the LM model zoo"
-TRAIN_ITEM = "ROADMAP.md Queue 1 item 8: training"
+#: The ROADMAP.md items that port what this module does not have yet,
+#: named by title so that a renumbering leaves them true.
+ZOO_ITEM = 'ROADMAP.md Queue 1, "LM model zoo and module profiles"'
+TRAIN_ITEM = 'ROADMAP.md Queue 1, "Training"'
 
 
 @dataclass(frozen=True)

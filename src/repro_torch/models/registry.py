@@ -3,7 +3,8 @@
 hooks the engine uses (``input_extras``, ``prompt_extra_len``).
 
 The port has the decoder only; ``probe_layer_tags`` waits for the
-continuous-batching engine (ROADMAP.md Queue 1 item 7).
+continuous-batching engine (ROADMAP.md Queue 1, "Continuous-batching
+serving").
 """
 from __future__ import annotations
 
