@@ -65,7 +65,32 @@ Phases (any failure exits nonzero):
      ResNet-8 layers on one batch, whose logits under ``"pallas"`` (K6)
      and ``"fused"`` (K8) must equal the plain datapath's, and an 8-bit
      policy bank at the study's lane count, with repeated lanes, whose
-     logits under K2 and K4 must too, each one launch a layer; the circuit
+     logits under K2 and K4 must too, each one launch a layer; the
+     surrogate-guided DSE against the exact-sweep DSE
+     (``repro_torch.launch.dse_surrogate``: 108 candidates, the 57
+     8-bit multipliers of the library widened by 51 broken-array ones on
+     a new library instance, ResNet-8 under ``classification(
+     fidelity=True)``, the surrogate path first — per-layer sweep of 27
+     circuits, the MLP fit as a replayed CUDA graph, beam, batched
+     verification — then the exact path's 108-circuit sweep, beam and
+     verification) at the reference's recorded ``--quick`` size (32
+     images) under ``"pallas"`` (K2) and ``"fused"`` (K4) and at its
+     default (64 images) under ``"pallas"``, failing unless the fidelity
+     gate (mean per-layer Spearman >= 0.9 on the unseen circuits) holds,
+     243 / 972 cells were measured, each path launched the banked kernel
+     exactly 2 x 9 x eval batches times and nothing else, and the
+     captured fit equals the eager fit bit for bit; the speedup gate (a
+     wall-clock ratio) and the front gate, which the JAX reference
+     misses too at both sizes, are printed and recorded, a front miss at
+     ``--quick`` held to within 0.01 in logit_mae; the ``--quick``
+     pallas run must equal the reference's recorded run
+     (``benchmarks/results/BENCH_dse.json``: counts, training circuits,
+     evaluations, selections; logit_mae within 0.01 where the fronts
+     share a point; its exact front printed beside the record's) and
+     fused must equal pallas; the default library keeps its entries; then
+     one per-layer pass over the 108 candidates at one layer and batch,
+     whose logits under K2 and K4 must equal the plain datapath's with
+     one launch; the circuit
      library evolved on the card (``repro_torch.core.build_library``,
      budget ``small``, ``engine="device"``: K11 scores every generation,
      K10 re-verifies each search's final circuit), then the ``tiny``
@@ -144,6 +169,26 @@ HETERO_KERNELS = {"pallas": ("lut_matmul", "lut_matmul_bank"),
 # the JAX reference's recorded run of the study's --quick configuration
 BENCH_HETEROGENEOUS = os.path.join(ROOT, "benchmarks", "results",
                                    "BENCH_heterogeneous.json")
+# the surrogate-guided DSE: its banked kernel under each variant, the
+# JAX reference's recorded --quick run, the (layer, circuit) cells each
+# path measures (27 and 108 circuits x 9 layers), the layer of the
+# 108-lane pass check (its largest per-layer pass: 32 768 rows x 144)
+# and the logit_mae tolerance against the reference that
+# tests/test_torch_dse_surrogate.py states (LOGIT_MAE_ATOL)
+DSE_KERNEL = {"pallas": "lut_matmul_bank", "fused": "fused_matmul_bank"}
+BENCH_DSE = os.path.join(ROOT, "benchmarks", "results", "BENCH_dse.json")
+DSE_CIRCUITS = 108
+DSE_EVALS = (27 * 9, DSE_CIRCUITS * 9)
+DSE_LAYER = "s0_b0_conv1"
+LOGIT_MAE_ATOL = 0.01
+# gates of the surrogate-guided DSE recorded rather than failed: the
+# speedup gate (a wall-clock ratio the reference took on its CPU) and the
+# front gate, which the JAX reference misses as the port does (PERF.md
+# §6): at 64 images its own benchmark misses it on the same
+# candidate, at --quick its decision logic and verification on the rows
+# measured on the card miss it on the same point (there a miss must stay
+# within LOGIT_MAE_ATOL)
+DSE_RECORDED_GATES = ("speedup", "front")
 # a policy bank mixing 8-bit and composed wide lanes (loa4, the wide
 # study's tree): its kernel under each variant
 POLICY_BANK_NARROW = ("mul8u_trunc6", "mul8u_bam_h0_v4")
@@ -807,6 +852,7 @@ def phase_main(device) -> dict:
     print("[main] wide study rows (accuracy, logit_mae) under pallas equal "
           "the fused ones, point for point")
     out.update(phase_heterogeneous(device, log, out["launches"]))
+    out.update(phase_dse_surrogate(device, log, out["launches"]))
     lib, record = phase_library(device, log, out["launches"])
     out["library"] = record
     out["serve"] = phase_serve(device, log, out["launches"])
@@ -1023,6 +1069,239 @@ def _check_policy_bank_logits(device, names: list, n_rows: int,
           f"({kernel['fused']}) equal the plain datapath's, one launch a "
           f"layer")
     return {"assignments": rows, "widths": widths, "distinct": distinct}
+
+
+def _dse_study(device, log, variant: str, quick: bool) -> dict:
+    """``dse_surrogate.run``; its fidelity gate raises here, while a
+    missed speedup or front gate (``DSE_RECORDED_GATES``) is printed and
+    kept in the record, where ``_check_dse`` reads every gate."""
+    from repro_torch.launch import dse_surrogate
+    try:
+        return dse_surrogate.run(device, quick=quick, variant=variant,
+                                 log=log)
+    except dse_surrogate.GateError as e:
+        if e.gate not in DSE_RECORDED_GATES:
+            raise
+        return e.record
+
+
+def _front_misses(record) -> list:
+    """Each missed exact-front point with the surrogate-front point of
+    the lowest ``logit_mae`` at no higher power (None when there is
+    none), and the gap in ``logit_mae``."""
+    out = []
+    for miss in record["front"]["misses"]:
+        near = [p for p in record["front"]["surrogate"]
+                if p["network_rel_power"]
+                <= round(miss["network_rel_power"], 6)]
+        best = min(near, key=lambda p: p["logit_mae"], default=None)
+        out.append({**miss, "nearest": best,
+                    "gap": (None if best is None
+                            else best["logit_mae"] - miss["logit_mae"])})
+    return out
+
+
+def _check_dse(record, label: str, quick: bool) -> None:
+    """Every gate read from the record: the fidelity gate must hold; a
+    missed speedup gate is printed with the walls by stage; a missed
+    front gate is printed and, at ``--quick``, must be a near tie (each
+    missed exact-front point has a surrogate-front point at no higher
+    power within ``LOGIT_MAE_ATOL``).  Each path measured 27 x 9 and
+    108 x 9 (layer, circuit) cells, the MLP fit captured as a CUDA graph
+    equals the eager fit bit for bit, and each path launched only the
+    banked kernel, exactly once a layer and eval batch in its per-layer
+    sweep and once in its verification: 2 x 9 x eval batches."""
+    from repro_torch.launch import dse_surrogate
+    e2e, fid, fit = record["end_to_end"], record["fidelity"], record["fit"]
+    n = record["n_layers"] * record["eval_batches"]
+    want = {DSE_KERNEL[record["variant"]]: 2 * n}
+    bad = []
+    if not fid["mean_rho"] >= dse_surrogate.FIDELITY_GATE:
+        bad.append(f"fidelity gate: mean rho {fid['mean_rho']}")
+    if (e2e["evals_surrogate"], e2e["evals_exact"]) != DSE_EVALS:
+        bad.append(f"evaluations {e2e['evals_surrogate']} / "
+                   f"{e2e['evals_exact']} != {DSE_EVALS}")
+    for path, launches in record["launches"].items():
+        if launches != want:
+            bad.append(f"{path} path launched {launches}, want {want}")
+    if not fit["bit_equal"]:
+        bad.append(f"captured fit differs from the eager fit by "
+                   f"{fit['max_abs_diff']}")
+    misses = _front_misses(record)
+    record["front_gate_missed"] = bool(misses)
+    record["speedup_gate_missed"] = e2e["speedup"] < e2e["gate"]
+    if quick and any(m["gap"] is None or m["gap"] > LOGIT_MAE_ATOL
+                     for m in misses):
+        bad.append(f"front gate missed by more than {LOGIT_MAE_ATOL}: "
+                   f"{misses}")
+    if bad:
+        raise AssertionError(f"surrogate-guided DSE ({label}): "
+                             + "; ".join(bad))
+    if record["speedup_gate_missed"]:
+        print(f"[main] SPEEDUP GATE MISSED ({label}): {e2e['speedup']:.2f}x "
+              f"< {e2e['gate']}x")
+    for m in misses:
+        print(f"[main] FRONT GATE MISSED ({label}): exact-front point "
+              f"logit_mae {m['logit_mae']:.6f} at power "
+              f"{m['network_rel_power']:.6f}; nearest surrogate-front "
+              f"point at no higher power: "
+              f"{'none' if m['nearest'] is None else m['nearest']}")
+    print(f"[main] surrogate-guided DSE ({label}) on "
+          f"{_smi('name,power.limit')}: surrogate path "
+          f"{e2e['surrogate_s']:.3f} s {e2e['surrogate_stages']}; exact "
+          f"path {e2e['exact_s']:.3f} s {e2e['exact_stages']}; speedup "
+          f"{e2e['speedup']:.2f}x (gate {e2e['gate']}x); MLP fit eager "
+          f"{fit['eager_s']:.4f} s, captured {fit['captured_s']:.4f} s, bit "
+          f"equal; fidelity mean rho {fid['mean_rho']:.4f} (min "
+          f"{fid['min_rho']:.4f}) on {fid['n_unseen']} unseen; front "
+          f"{'missed' if misses else 'matches or dominates'}; launches "
+          f"{want} a path; peak memory "
+          f"{record['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
+def _dse_decisions(record) -> dict:
+    return {k: record["front"][k] for k in (
+        "surrogate", "exact", "selected_surrogate", "selected_exact")}
+
+
+def _check_against_dse_bench(record) -> None:
+    """The ``--quick`` study against the reference's recorded run of the
+    same configuration (``BENCH_DSE``, read as JSON): the candidate and
+    layer counts, the surrogate's training and validation circuits, the
+    evaluation counts and both selections equal; every ``logit_mae`` of
+    a front point whose assignment the record's fronts also hold within
+    ``LOGIT_MAE_ATOL``.  The exact front is printed beside the record's
+    and kept (``exact_front_as_recorded``), not held: the reference's
+    own run of this configuration no longer reproduces it either (its
+    beam sits on the quality bound, where last-bit differences in the
+    per-layer rows move it; PERF.md §6)."""
+    with open(BENCH_DSE) as f:
+        want = json.load(f)
+    bad = []
+    for key in ("n_circuits", "n_layers", "eval_n"):
+        if record[key] != want[key]:
+            bad.append(f"{key} {record[key]} != {want[key]}")
+    for key in ("train_names", "val_names"):
+        if record["surrogate"][key] != want["surrogate"][key]:
+            bad.append(f"{key} {record['surrogate'][key]} != "
+                       f"{want['surrogate'][key]}")
+    for key in ("evals_surrogate", "evals_exact"):
+        if record["end_to_end"][key] != want["end_to_end"][key]:
+            bad.append(f"{key} {record['end_to_end'][key]} != "
+                       f"{want['end_to_end'][key]}")
+    for key in ("selected_surrogate", "selected_exact"):
+        if record["front"][key] != want["front"][key]:
+            bad.append(f"{key} {record['front'][key]} != "
+                       f"{want['front'][key]}")
+
+    def key_of(p):
+        return json.dumps(p["assignment"], sort_keys=True)
+
+    recorded = {key_of(p): p for side in ("surrogate", "exact")
+                for p in want["front"][side]}
+    pairs = [(p, recorded[key_of(p)]) for side in ("surrogate", "exact")
+             for p in record["front"][side] if key_of(p) in recorded]
+    for g, r in pairs:
+        if abs(g["logit_mae"] - r["logit_mae"]) > LOGIT_MAE_ATOL:
+            bad.append(f"logit_mae {g['logit_mae']} != {r['logit_mae']} "
+                       f"at {g['assignment']}")
+    if bad:
+        raise AssertionError("surrogate-guided DSE (pallas --quick) "
+                             "differs from the reference's recorded run: "
+                             + "; ".join(bad))
+    got, ref = record["front"]["exact"], want["front"]["exact"]
+    same = ([(key_of(p), p["network_rel_power"]) for p in got]
+            == [(key_of(p), p["network_rel_power"]) for p in ref])
+    record["exact_front_as_recorded"] = same
+    print(f"[main] surrogate-guided DSE (pallas --quick) against the "
+          f"reference's recorded run ({os.path.relpath(BENCH_DSE, ROOT)}): "
+          f"{want['n_circuits']} circuits, training and validation "
+          f"circuits, {want['end_to_end']['evals_surrogate']} / "
+          f"{want['end_to_end']['evals_exact']} evaluations and selections "
+          f"{want['front']['selected_surrogate']} / "
+          f"{want['front']['selected_exact']} equal; {len(pairs)} front "
+          f"points the record also has, logit_mae within {LOGIT_MAE_ATOL}; "
+          f"exact front {'as recorded' if same else 'NOT AS RECORDED'}: "
+          f"{[(p['logit_mae'], p['network_rel_power']) for p in got]} "
+          f"against {[(p['logit_mae'], p['network_rel_power']) for p in ref]}")
+
+
+def _check_layer_pass(device) -> dict:
+    """One per-layer pass of the sweep over the 108 candidates at
+    ``DSE_LAYER`` and one eval batch: logits under ``pallas`` (K2) and
+    ``fused`` (K4) equal the plain datapath's bit for bit, one launch
+    each; the peak memory of the pallas pass is recorded."""
+    import torch
+    from repro_torch.core.library import load_default_library
+    from repro_torch.launch import dse_surrogate
+    lib = load_default_library()
+    names = dse_surrogate.widen_candidate_set(lib, DSE_CIRCUITS)
+    want, _ = dse_surrogate.layer_pass(lib, names, DSE_LAYER, "ref", device)
+    out = {}
+    for variant, kernel in DSE_KERNEL.items():
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        got, launches = dse_surrogate.layer_pass(lib, names, DSE_LAYER,
+                                                 variant, device)
+        torch.cuda.synchronize(device)
+        out[f"{variant}_max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(device)
+        if not (torch.isfinite(got).all() and torch.equal(got, want)
+                and got.shape == (len(names), 32, 10)
+                and launches == {kernel: 1}):
+            raise AssertionError(
+                f"108-lane per-layer pass under {variant} differs from the "
+                f"plain datapath's, or launches {launches} != one {kernel}")
+    print(f"[main] 108-lane per-layer pass at {DSE_LAYER} (32 images): "
+          f"logits under pallas (lut_matmul_bank) and fused "
+          f"(fused_matmul_bank) equal the plain datapath's, one launch "
+          f"each; peak memory pallas "
+          f"{out['pallas_max_memory_allocated'] / 2**30:.2f} GiB, fused "
+          f"{out['fused_max_memory_allocated'] / 2**30:.2f} GiB")
+    return out
+
+
+def phase_dse_surrogate(device, log, launches_total: dict) -> dict:
+    """Path: the surrogate-guided DSE against the exact-sweep DSE
+    through ``dse_surrogate.run``: its reference's recorded ``--quick``
+    configuration under ``pallas``, checked against the record
+    (``_check_against_dse_bench``), then under ``fused``, whose fronts
+    and selections must equal the pallas ones, then the default size
+    (64 images) under ``pallas``; each must hold the fidelity gate, its
+    evaluation counts and launches (``_check_dse``); the
+    process-wide default library must keep its entries; then the
+    108-lane per-layer pass against the plain datapath
+    (``_check_layer_pass``)."""
+    from repro_torch.core.library import get_default_library
+    default = get_default_library()
+    before = list(default.entries)
+    out, decisions = {}, {}
+    for variant, quick in (("pallas", True), ("fused", True),
+                           ("pallas", False)):
+        label = variant + (" --quick" if quick else "")
+        record, wall, launches = _drive(
+            f"surrogate-guided DSE ({label})",
+            lambda: _dse_study(device, log, variant, quick),
+            (DSE_KERNEL[variant],))
+        _check_dse(record, label, quick)
+        if quick:
+            decisions[variant] = _dse_decisions(record)
+        if (variant, quick) == ("pallas", True):
+            _check_against_dse_bench(record)
+        out[f"dse_surrogate_{label.replace(' --', '_')}"] = {
+            **record, "main_path_s": wall, "launches": launches}
+        for k, n in launches.items():
+            launches_total[k] += n
+    if decisions["fused"] != decisions["pallas"]:
+        raise AssertionError(f"surrogate-guided DSE differs between "
+                             f"variants: {decisions}")
+    print("[main] surrogate-guided DSE under fused equals pallas: exact "
+          "and surrogate fronts and selections, point for point")
+    if get_default_library() is not default or list(default.entries) != before:
+        raise AssertionError("the surrogate-guided DSE changed the "
+                             "process-wide default library")
+    out["dse_surrogate_layer_pass"] = _check_layer_pass(device)
+    return out
 
 
 def _same_library(a, b) -> bool:

@@ -21,3 +21,8 @@ from .resilience import (BankableEval, LayerComponents, all_layers_sweep,
 from .dse import (DesignPoint, ExploreResult, compose_assignments,
                   explore, explore_heterogeneous, pareto_points,
                   select_multiplier, select_point, verify_assignments)
+from .ranking import kendall, per_layer_spearman, rankdata, spearman
+from .surrogate import (FEATURE_NAMES, SurrogateConfig,
+                        SurrogatePredictor, circuit_features,
+                        feature_matrix, fit_surrogate,
+                        surrogate_components, train_subset)

@@ -23,17 +23,19 @@ multiplier per layer (prediction from per-layer component models +
 layer-wise Pareto pruning + beam composition, then exact batched
 verification of the shortlist through ``policy_bank_eval``), filling
 ``ExploreResult``'s ``heterogeneous`` axis with points that carry full
-per-layer assignments (DESIGN.md §2.5).  The port's predict stage is the
-exact per-layer sweep; the learned surrogate (``predictor="surrogate"``)
-is not ported yet (``SURROGATE_ITEM``).
+per-layer assignments (DESIGN.md §2.5).  Its predict stage is the
+exact per-layer sweep or, with ``predictor="surrogate"``, the learned
+QoR surrogate of ``approx.surrogate`` (DESIGN.md §2.11).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from ..device import DeviceLike
 from . import objectives as objectives_mod
 from .layers import ApproxPolicy, policy_bank_eval, policy_for_lane
 from .objectives import get_objective
@@ -44,9 +46,6 @@ from .resilience import (LayerComponents, ResilienceRow, _unstack_metrics,
                          all_layers_sweep, can_bank, per_layer_sweep)
 from .specs import BackendSpec, PolicyBank
 from .workload import Workload, as_workload
-
-#: The ROADMAP.md item that ports the learned predict stage, by title.
-SURROGATE_ITEM = 'ROADMAP.md Queue 1, "Surrogate-guided DSE"'
 
 DEFAULT_OBJECTIVES = ("accuracy", "power")
 
@@ -630,6 +629,8 @@ def explore_heterogeneous(
     predictor: str = "exact",
     train_fraction: float = 0.25,
     surrogate_config=None,
+    device: DeviceLike = None,
+    stage_walls: Optional[dict] = None,
 ) -> ExploreResult:
     """Two-stage heterogeneous DSE (autoAx-style, DESIGN.md §2.5).
 
@@ -644,10 +645,17 @@ def explore_heterogeneous(
     per-layer non-dominated multipliers, and a beam search composes up
     to ``top_k`` full assignments whose predicted (additive-drop)
     quality stays within ``quality_bound`` of the golden baseline,
-    optionally under a ``power_budget`` ceiling.  Only the exact
-    predictor is ported: ``predictor="surrogate"`` raises
-    ``NotImplementedError`` (``SURROGATE_ITEM``), and ``train_fraction``
-    / ``surrogate_config`` belong to it.
+    optionally under a ``power_budget`` ceiling.
+
+    ``predictor="surrogate"`` (DESIGN.md §2.11) replaces the full exact
+    sweep with the learned predict stage (``surrogate_components``): only
+    a deterministic power-spread ``train_fraction`` of the candidates is
+    measured exactly (those rows land on ``result.per_layer``), an MLP
+    fit on ``device`` (the GPU unless ``device="cpu"``) predicts the
+    rest, and the beam's quality threshold widens by the surrogate's
+    held-out calibration band; the un-widened beam's shortlist is
+    unioned in.  The training record rides on ``result.surrogate``.
+    Stage 2 and the final selection are exact either way.
 
     Stage 2 (verify): the shortlist — plus any ``extra_assignments`` —
     is measured exactly by ``verify_assignments`` (one
@@ -656,16 +664,17 @@ def explore_heterogeneous(
     ``result.selected`` is the lowest-power verified point within
     ``quality_bound`` (and ``power_budget`` when given).
 
+    ``stage_walls``, when given, receives the host-clock seconds of each
+    stage that ran: ``per_layer_sweep_s``, ``fit_s`` (surrogate only:
+    the fit and the prediction), ``beam_s`` and ``verification_s``;
+    every stage ends in values on the host.
+
     Returns an ``ExploreResult`` whose ``per_layer`` axis holds the
     stage-1 sweep (empty when ``components`` was supplied).
     """
     if predictor not in ("exact", "surrogate"):
         raise ValueError(
             f"predictor must be 'exact' or 'surrogate', got {predictor!r}")
-    if predictor == "surrogate":
-        raise NotImplementedError(
-            "explore_heterogeneous(predictor='surrogate') is not ported "
-            f"yet ({SURROGATE_ITEM}); use predictor='exact'")
     wl = as_workload(eval_fn)
     if library is None:
         from ..core.library import get_default_library
@@ -675,28 +684,67 @@ def explore_heterogeneous(
     cache = cache if cache is not None else {}
     run = wl.cached(cache)
 
+    walls = stage_walls if stage_walls is not None else {}
     golden = BackendSpec.golden().materialize()
     per_layer_points: list[DesignPoint] = []
     baseline_metrics: dict = {}
+    surrogate_record: Optional[dict] = None
+    beam_bound = quality_bound
     if components is None:
         baseline_metrics = run.measure(ApproxPolicy(default=golden))
         baseline = baseline_metrics[wl.primary]
         do_batch = batch and can_bank(wl, mode, variant)
-        rows = per_layer_sweep(wl if do_batch else run, layer_counts,
-                               multipliers, library, mode=mode,
-                               base=golden, variant=variant,
-                               batch=do_batch, rel_power=rel_power)
-        components = LayerComponents.from_rows(
-            rows, layer_counts, baseline, direction=wl.primary_direction)
+        if predictor == "surrogate":
+            from .surrogate import surrogate_components
+            components, sur, rows = surrogate_components(
+                wl if do_batch else run, layer_counts, multipliers,
+                library, baseline, direction=wl.primary_direction,
+                train_fraction=train_fraction, mode=mode,
+                variant=variant, base=golden, batch=do_batch,
+                rel_power=rel_power, config=surrogate_config,
+                device=device, stage_walls=walls)
+            # predict-then-verify: the beam screens on predictions, so
+            # its band absorbs the surrogate's held-out error; the exact
+            # verify stage still gates the selection on the un-widened
+            # bound
+            beam_bound = quality_bound + sur.calibration
+            surrogate_record = {**sur.summary(),
+                                "train_fraction": train_fraction,
+                                "beam_bound": beam_bound}
+        else:
+            t0 = time.perf_counter()
+            rows = per_layer_sweep(wl if do_batch else run, layer_counts,
+                                   multipliers, library, mode=mode,
+                                   base=golden, variant=variant,
+                                   batch=do_batch, rel_power=rel_power)
+            walls["per_layer_sweep_s"] = time.perf_counter() - t0
+            components = LayerComponents.from_rows(
+                rows, layer_counts, baseline,
+                direction=wl.primary_direction)
         if do_batch:
             _seed_cache(cache, rows, golden)
         per_layer_points = [DesignPoint.from_row(r) for r in rows]
     baseline = components.baseline
 
+    t0 = time.perf_counter()
     candidates = compose_assignments(components,
-                                     quality_bound=quality_bound,
+                                     quality_bound=beam_bound,
                                      power_budget=power_budget,
                                      beam_width=beam_width, top_k=top_k)
+    if beam_bound != quality_bound:
+        # the widened band admits cheaper-but-riskier compositions that
+        # can crowd the power-ordered shortlist; union in the un-widened
+        # beam's shortlist so conservative compositions stay verified
+        # (the one banked verification pass takes the extra rows)
+        seen_rows = {tuple(r.tolist()) for r in candidates}
+        for row in compose_assignments(components,
+                                       quality_bound=quality_bound,
+                                       power_budget=power_budget,
+                                       beam_width=beam_width,
+                                       top_k=top_k):
+            if tuple(row.tolist()) not in seen_rows:
+                seen_rows.add(tuple(row.tolist()))
+                candidates.append(row)
     assignments = [
         {l: components.multipliers[i]
          for l, i in zip(components.layers, row)}
@@ -705,17 +753,21 @@ def explore_heterogeneous(
         a = dict(extra)
         if a not in assignments:
             assignments.append(a)
+    walls["beam_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     hetero = verify_assignments(
         wl, assignments, layer_counts, library, mode=mode,
         variant=variant, batch=batch, cache=cache, rel_power=rel_power)
+    walls["verification_s"] = time.perf_counter() - t0
 
     result = ExploreResult(baseline_accuracy=baseline,
                            per_layer=per_layer_points,
                            heterogeneous=hetero,
                            baseline_metrics=baseline_metrics,
                            objectives=(wl.primary, "power"),
-                           primary=wl.primary)
+                           primary=wl.primary,
+                           surrogate=surrogate_record)
     constraints = {wl.primary: _budget(result, quality_bound)}
     if power_budget is not None:
         constraints["power"] = objectives_mod.AtMost(power_budget)

@@ -12,7 +12,8 @@ sweeps understand:
     axis.
 
 Shipped adapters: ``classification(cfg, model)`` — ResNet /
-synthetic-CIFAR top-1 accuracy, the paper's case study — and
+synthetic-CIFAR top-1 accuracy, the paper's case study (with
+``fidelity=True`` also the logit MAE against the golden int8 logits) — and
 ``logit_fidelity(forward, inputs)`` — mean |logit error| against a
 reference datapath, the wide-width study's fidelity axis.  The LM
 adapters wait for the model-zoo slice.
@@ -126,15 +127,25 @@ def as_workload(eval_fn) -> Workload:
 # ----------------------------------------------------------------------
 def classification(cfg, model, *, eval_n: int = 256, batch: int = 64,
                    name: Optional[str] = None,
+                   fidelity: bool = False,
                    device: DeviceLike = None) -> Workload:
     """ResNet / synthetic-CIFAR top-1 accuracy — the paper's case-study
     quality metric, as a bankable workload.  ``model`` (a
     ``repro_torch.models.resnet.ResNet``) is moved to ``device`` (the
     GPU unless ``device="cpu"``).  Evaluation runs batch by batch, as in
     the reference: BN statistics are per ``batch`` images, and the
-    accuracy is the mean of the per-batch accuracies."""
+    accuracy is the mean of the per-batch accuracies.
+
+    ``fidelity=True`` adds ``logit_mae`` (minimize, PRIMARY) against the
+    golden-int8 logits, computed once here: the mean over batches of the
+    per-batch mean |logits − golden|, the continuous quality axis the
+    surrogate predict stage trains and gates on (DESIGN.md §2.11).
+    Accuracy stays measured either way.  Under a banked policy every
+    float mean runs lane by lane (``per_lane``), so a banked lane equals
+    its sequential evaluation bit for bit."""
     from ..data.synthetic import CifarBatches
     from ..models import resnet
+    from .specs import BackendSpec
 
     dev = resolve_device(device)
     model = model.to(dev)
@@ -144,22 +155,40 @@ def classification(cfg, model, *, eval_n: int = 256, batch: int = 64,
     labels = torch.from_numpy(
         np.stack([b["labels"] for b in eval_batches])).to(dev)
 
+    ref = None
+    if fidelity:
+        golden = ApproxPolicy(default=BackendSpec.golden().materialize())
+        with torch.inference_mode():
+            ref = [resnet.forward(model, images[i], cfg, golden)
+                   for i in range(images.shape[0])]
+
     def traceable_metrics(policy):
-        accs = [resnet.accuracy(model, {"images": images[i],
-                                        "labels": labels[i]}, cfg, policy)
-                for i in range(images.shape[0])]
-        return {"accuracy": torch.mean(torch.stack(accs), dim=0)}
+        logits = [resnet.forward(model, images[i], cfg, policy)
+                  for i in range(images.shape[0])]
+        accs = [torch.mean((torch.argmax(l, dim=-1) == labels[i])
+                           .to(torch.float32), dim=-1)
+                for i, l in enumerate(logits)]
+        out = {"accuracy": torch.mean(torch.stack(accs), dim=0)}
+        if ref is not None:
+            lanes = logits[0].ndim == ref[0].ndim + 1
+            maes = [per_lane(lambda t, r=r: torch.mean(torch.abs(t - r)),
+                             l, lanes) for l, r in zip(logits, ref)]
+            out["logit_mae"] = per_lane(torch.mean, torch.stack(maes, -1),
+                                        lanes)
+        return out
 
     def fn(policy):
         with torch.inference_mode():
             out = traceable_metrics(policy)
         return {k: float(v) for k, v in out.items()}
 
+    directions = {"logit_mae": "min"} if fidelity else {}
+    directions["accuracy"] = "max"
     return Workload(
-        name=name or f"classification[resnet{getattr(cfg, 'depth', '')}]",
-        fn=fn, metrics=("accuracy",),
-        traceable_metrics=traceable_metrics,
-        directions={"accuracy": "max"},
+        name=name or (f"classification[resnet{getattr(cfg, 'depth', '')}]"
+                      + ("+fidelity" if fidelity else "")),
+        fn=fn, metrics=tuple(directions),
+        traceable_metrics=traceable_metrics, directions=directions,
         layer_counts=resnet.layer_mult_counts(cfg))
 
 

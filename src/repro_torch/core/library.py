@@ -591,12 +591,19 @@ def build_default_library(budget: str = "small",
 _default_library: Optional[ApproxLibrary] = None
 
 
+def load_default_library() -> ApproxLibrary:
+    """A new instance of the default library: the prebuilt artifact, or
+    a tiny library built on miss.  For callers that add entries, which
+    must not reach the process-wide ``get_default_library()``."""
+    if os.path.exists(DEFAULT_LIBRARY_PATH):
+        return ApproxLibrary.load(DEFAULT_LIBRARY_PATH)
+    return build_default_library("tiny")
+
+
 def get_default_library() -> ApproxLibrary:
-    """Load the prebuilt artifact, or build a tiny library on miss."""
+    """The default library (``load_default_library``), loaded once a
+    process and shared by every caller."""
     global _default_library
     if _default_library is None:
-        if os.path.exists(DEFAULT_LIBRARY_PATH):
-            _default_library = ApproxLibrary.load(DEFAULT_LIBRARY_PATH)
-        else:
-            _default_library = build_default_library("tiny")
+        _default_library = load_default_library()
     return _default_library

@@ -390,12 +390,8 @@ def test_explore_heterogeneous_equal_results(bound, budget, with_extras,
     assert (a is None and b is None) or a.assignment == b.assignment
 
 
-def test_explore_heterogeneous_surrogate_not_ported(libs):
+def test_explore_heterogeneous_unknown_predictor_raises(libs):
     _, port_lib, _ = libs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_dse.explore_heterogeneous(
-            _additive_accuracy(spec_of, port_lib), COUNTS, port_lib,
-            multipliers=MULTS, predictor="surrogate")
     with pytest.raises(ValueError, match="predictor"):
         port_dse.explore_heterogeneous(
             _additive_accuracy(spec_of, port_lib), COUNTS, port_lib,
