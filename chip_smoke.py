@@ -36,7 +36,10 @@ Phases (any failure exits nonzero):
      at rank 4 and at its auto rank, and a second call on the same
      inputs bit-equal to the first (its split K sums in a fixed order);
      K9's max |K9 - y64| / bound is recorded per case, with the shape,
-     regime, rank and the y64 and S of the worst element;
+     regime, rank and the y64 and S of the worst element; K2 and K4 at
+     the continuous serving step's shapes (``CONTINUOUS_*``: lanes
+     gathered from the serve-load benchmark's 8-table bank, P = 1 and 4,
+     M = 1 and 8, the three (K, N) of qwen1.5-0.5b's projections);
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
@@ -122,7 +125,24 @@ Phases (any failure exits nonzero):
      op a call) with their walk, level depth and depth floor (depth x
      one level's wait, ``bitsim.probe_round_ms``), and a CGP
      generation's wall split into host time and the time from its
-     operands on the card to its scores on the host.
+     operands on the card to its scores on the host;
+  6. the continuous-batching mixed-policy serving path, with the launch
+     counters zeroed just before each run and read just after (it runs
+     after the timing phase: with its ~2.5 million launches before them,
+     the timing phase's short profiler windows lost most of their kernel
+     records): ``repro_torch.launch.serve_load.run(quick=True)`` at the
+     full width of qwen1.5-0.5b under ``"pallas"`` (K2) and ``"fused"``
+     (K4): 3 levels of 1/2/4 policies, 8 Poisson-arriving requests
+     each, 4 slots, failing unless every request's tokens equal the
+     sequential ``Engine.generate`` replay (K1/K3), the banked kernel
+     launched exactly 7 x 24 times a prefill and a decode step and
+     nothing else, the bank was built once, the decode steps and
+     requests a level equal the reference's recorded ``benchmarks/
+     results/BENCH_serve.json`` and fused tokens equal pallas tokens;
+     then ``launch.serve.run(continuous=True)`` at the CLI defaults, K2
+     168 a prefill and a decode step; then one decode step with 4 slots
+     and 4 policies under ``torch.profiler`` (wall, device busy,
+     kernels beside the host's launch calls).
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -234,6 +254,20 @@ LOWRANK_SHAPES = {"prefill attn": (128, 1024, 1024),
                   "decode ffn.wi/wg": (4, 1024, 2816),
                   "decode ffn.wo": (4, 2816, 1024)}
 LOWRANK_RAGGED = ((129, 577, 65), (7, 130, 1), (1, 1, 1))
+# the continuous serving step's K2/K4 shapes: the serve-load benchmark's
+# 8-table bank, P lanes (1 at a prefill, up to 4 active slots at a decode
+# step), M rows a lane (1 at decode, a prompt at prefill), and (K, N) of
+# each projection of qwen1.5-0.5b
+CONTINUOUS_LANES = {1: (2,), 4: (0, 3, 5, 7)}
+CONTINUOUS_ROWS = (1, 8)
+CONTINUOUS_KN = ((1024, 1024), (1024, 2816), (2816, 1024))
+# the JAX reference's recorded serve-load run (--quick): decode steps and
+# requests a level, which the port's schedule must reproduce
+BENCH_SERVE = os.path.join(ROOT, "benchmarks", "results", "BENCH_serve.json")
+# the continuous engine's kernels under each variant: banked, single-table
+# (the sequential replay's)
+CONTINUOUS_KERNELS = {"pallas": ("lut_matmul_bank", "lut_matmul"),
+                      "fused": ("fused_matmul_bank", "fused_matmul")}
 # H100 SXM FP32 FMA lanes per SM (SIMT, no tensor cores)
 FP32_LANES_PER_SM = 128
 # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet, 700 W); K9's
@@ -391,6 +425,7 @@ def _tables(device) -> dict:
     import torch
     from repro_torch.approx.specs import bank_for
     from repro_torch.core.library import get_default_library
+    from repro_torch.launch import serve_load
     from repro_torch.launch.case_study import case_study_names
     from repro_torch.launch.wide_pareto import wide_names
     lib = get_default_library()
@@ -414,7 +449,8 @@ def _tables(device) -> dict:
                      mixed_reduce=True)
     out = {"case": u16(np.stack([lib.lut(n) for n in case])),
            "rand": u16(rand), "wide": lanes(wide), "mixed": lanes(mixed),
-           "wide_names": wide.names}
+           "wide_names": wide.names,
+           "serve": u16(bank_for(serve_load.MULTIPLIERS, lib).luts)}
     # the wide bank's lanes reordered: its wide lanes first, and narrow
     # and wide lanes alternating
     narrow = [i for i, m in enumerate(wide.lane_masks) if not m]
@@ -608,6 +644,27 @@ def phase_compare(shapes: dict, device) -> dict:
                   qa, qw, mixed["luts"].to(torch.int32), mixed["masks"],
                   mixed["codes"]), f"{what} mixed reduce")
         del qa, qw, qab, qwb
+    # the continuous serving step: a P-lane gather of the 8-table bank,
+    # per-lane codes (K2) or floats (K4), at its rows and projections
+    for p_, idx in CONTINUOUS_LANES.items():
+        # index_select: CUDA's advanced indexing has no uint16 kernel
+        luts = t["serve"].index_select(0, torch.tensor(idx, device=device))
+        for m in CONTINUOUS_ROWS:
+            for k, n in CONTINUOUS_KN:
+                what = f"continuous step P={p_} {(m, k, n)}"
+                qab = _codes((p_, m, k), gen, device)
+                qw = _codes((k, n), gen, device)
+                check("lut_matmul_bank",
+                      [ops.approx_matmul_lut_bank(qab, qw, luts)],
+                      [ref.approx_matmul_lut_bank_ref(
+                          qab, qw, luts.to(torch.int32))], what)
+                del qab, qw
+                xb = _floats((p_, m, k), gen, device)
+                w = _floats((k, n), gen, device, 0.2)
+                check_fused([("fused_matmul_bank", ops.fused_matmul_lut_bank,
+                              ref.fused_matmul_bank_ref, (xb, w, luts), (),
+                              8)], what, k)
+                del xb, w
     mult, factors = _served_factors(device)
     for label, (m, k, n) in list(LOWRANK_SHAPES.items()) + [
             (f"ragged{s_}", s_) for s_ in LOWRANK_RAGGED]:
@@ -1418,10 +1475,9 @@ def _checked_generate(engine, prompts, device) -> dict:
 
 
 def _profile_decode(engine, prompts, device) -> dict:
-    """One decode step under ``torch.profiler``: its wall, the device's
-    busy time (the kernels' own time) and the top kernels."""
+    """One decode step of the static engine under ``torch.profiler``
+    (``_profiled``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     cfg, fns, policy = engine.cfg, engine.fns, engine.policy
     b, s = prompts.shape
     with torch.inference_mode():
@@ -1433,13 +1489,22 @@ def _profile_decode(engine, prompts, device) -> dict:
         tok = torch.argmax(logits, -1).to(torch.int32)
         logits, cache = fns.forward_decode(engine.params, tok, cache, cfg,
                                            policy)        # warm-up step
+        return _profiled(lambda: fns.forward_decode(engine.params, tok,
+                                                    cache, cfg, policy))
+
+
+def _profiled(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: its wall, the device's busy
+    time (the kernels' own time), the kernels it ran and the top ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fns.forward_decode(engine.params, tok, cache, cfg, policy)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # the kernels themselves (device-side entries): a host op's own
     # device time repeats the kernels it launched
@@ -1542,6 +1607,130 @@ def phase_serve(device, log, launches_total: dict) -> dict:
                 "prefill_max_abs": d_pre, "decode_max_abs": d_dec,
                 "atol": atol, "token_agreement": agree},
             "decode_profile": prof}
+
+
+def _profile_continuous_step(device) -> dict:
+    """One decode step of the continuous engine with 4 active slots (4
+    requests at the serve CLI's defaults, 4 tables of the serve-load
+    bank, ``pallas``) under ``torch.profiler`` (``_profiled``)."""
+    import numpy as np
+    from repro_torch.approx.layers import ApproxPolicy
+    from repro_torch.approx.specs import BackendSpec
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch import serve, serve_load
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+    mults = serve_load.MULTIPLIERS[::2]
+    dev, cfg, params, prompts = serve.setup(
+        device, SERVE["arch"], batch=4, prompt_len=SERVE["prompt_len"])
+    engine = ContinuousEngine(
+        cfg, params, library=get_default_library(),
+        multipliers=serve_load.MULTIPLIERS, n_slots=4,
+        capacity=SERVE["prompt_len"] + SERVE["max_new"], variant="pallas")
+    for row, mult in zip(prompts, mults):
+        engine.submit(row, ServeConfig(
+            max_new_tokens=SERVE["max_new"], policy=ApproxPolicy(
+                default=BackendSpec(mode="lut", multiplier=mult,
+                                    ste=False)).to_json()))
+    engine.step()                       # 4 prefills + the first step
+    engine.step()                       # warm-up decode step
+    prof = _profiled(engine.step)
+    last = engine.step_log[-1]
+    prof.update(lanes=last["lanes"], launches=last["launches"],
+                distinct_policies=len(set(mults)))
+    if last["kind"] != "decode" or last["lanes"] != 4:
+        raise AssertionError(f"profiled continuous step malformed: {last}")
+    del engine, params
+    return prof
+
+
+def phase_serve_continuous(device, log, launches_total: dict) -> dict:
+    """Path E: continuous-batching mixed-policy serving at the full width
+    of qwen1.5-0.5b.  ``launch.serve_load.run(quick=True)`` under
+    ``pallas`` (K2) and ``fused`` (K4), each failing unless both of its
+    gates hold (every request's tokens equal the sequential
+    ``Engine.generate`` replay, which runs K1 (K3); the banked kernel
+    launched exactly 7 x 24 times a prefill and a decode step and
+    nothing else; one bank build), its decode steps and requests a level
+    equal the reference's recorded run, and fused tokens equal pallas
+    tokens for every request; then ``launch.serve.run(continuous=True)``
+    at the CLI defaults under ``pallas``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, serve_load
+    cfg = get_config(SERVE["arch"])
+    per_step = PROJECTIONS_PER_LAYER * cfg.n_layers
+    with open(BENCH_SERVE) as f:
+        bench = json.load(f)
+    want_levels = [(lv["n_policies"], lv["n_requests"], lv["decode_steps"])
+                   for lv in bench["levels"]]
+    out, tokens = {}, {}
+    for variant, kernels in CONTINUOUS_KERNELS.items():
+        record, wall, launches = _drive(
+            f"serve_load --quick ({variant})",
+            lambda: serve_load.run(device, quick=True, variant=variant,
+                                   log=log), kernels)
+        got_levels = [(lv["n_policies"], lv["n_requests"],
+                       lv["decode_steps"]) for lv in record["levels"]]
+        if (got_levels != want_levels
+                or record["banked_per_step_expected"] != per_step
+                or not record["bit_identity"]
+                or not record["banked_per_step_gate"]):
+            raise AssertionError(
+                f"serve_load ({variant}): levels {got_levels} (recorded "
+                f"{want_levels}), gates {record['bit_identity']} / "
+                f"{record['banked_per_step_gate']}")
+        log(f"serve_load ({variant}): decode steps {got_levels} equal the "
+            f"recorded run; {record['bit_identity_requests']} requests "
+            f"equal the sequential replay; {kernels[0]} {per_step} a "
+            f"prefill and a decode step ({record['steps']})")
+        tokens[variant] = record["tokens"]
+        for k, v in launches.items():
+            launches_total[k] += v
+        out[f"serve_load_{variant}"] = {**record, "main_path_s": wall,
+                                        "launches": launches}
+    if tokens["fused"] != tokens["pallas"]:
+        raise AssertionError("serve_load: fused tokens differ from pallas")
+    log(f"serve_load: fused tokens equal pallas for all "
+        f"{len(tokens['pallas'])} requests")
+    record, wall, launches = _drive(
+        "serve --continuous qwen1.5-0.5b (pallas)",
+        lambda: serve.run(device, arch=SERVE["arch"], batch=SERVE["batch"],
+                          prompt_len=SERVE["prompt_len"],
+                          max_new=SERVE["max_new"], variant="pallas",
+                          continuous=True, log=log), ("lut_matmul_bank",))
+    toks = np.asarray(list(record["tokens"].values()))
+    k2 = {"lut_matmul_bank": per_step}
+    if (toks.shape != (SERVE["batch"], SERVE["max_new"])
+            or toks.min() < 0 or toks.max() >= cfg.vocab
+            or record["bank_builds"] != 1
+            or record["steps"]["decode"]["launches"] != [k2]
+            or record["steps"]["prefill"]["launches"] != [k2]):
+        raise AssertionError(f"serve --continuous malformed: tokens "
+                             f"{toks.shape}, {record['steps']}")
+    for k, v in launches.items():
+        launches_total[k] += v
+    out["serve_continuous"] = {**record, "main_path_s": wall,
+                               "launches": launches}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_profile_continuous(device) -> dict:
+    """One continuous decode step profiled (``_profile_continuous_step``);
+    the host's ``cudaLaunchKernel`` calls in the window are printed
+    beside the device-side kernels it recorded."""
+    prof = _profile_continuous_step(device)
+    launches = sum(e["calls"] for e in prof["top_host"]
+                   if e["name"] == "cudaLaunchKernel")
+    print(f"[profile] continuous: one decode step (4 slots, "
+          f"{prof['distinct_policies']} policies) {prof['wall_ms']:.2f} ms "
+          f"under the profiler, device busy {prof['device_busy_ms']} ms "
+          f"(share {prof['busy_share']}, {prof['kernels']} kernels, "
+          f"{launches} cudaLaunchKernel calls, counted launches "
+          f"{prof['launches']}); top device {prof['top'][:5]}; top host "
+          f"{prof['top_host'][:5]}")
+    return prof
 
 
 def _time(fn, reps: int, warmup: int) -> float:
@@ -1987,6 +2176,13 @@ def main() -> int:
     details["compare"]["library"] = phase_compare_library(
         lib, device, details["compare"]["max_abs_err"])
     details["timing"] = phase_timing(shapes, device)
+    # after the timing phase: with this path's ~2.5 million launches
+    # before it, every short profiler window of the timing phase
+    # (``_device_ops``) lost most of its kernel records (two runs)
+    details["main"]["serve_continuous"] = phase_serve_continuous(
+        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
+    details["main"]["continuous_step_profile"] = phase_profile_continuous(
+        device)
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

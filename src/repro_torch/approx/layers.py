@@ -229,7 +229,8 @@ class AssignedBankBackend(MaterializedBackend):
 
 
 def bank_assignment_overrides(bank: LutBank, assign, layers, *,
-                              mode: str = "lut", variant: str = "ref"
+                              mode: str = "lut", variant: str = "ref",
+                              source: Optional[MaterializedBackend] = None
                               ) -> list[tuple[str, MaterializedBackend]]:
     """Per-layer policy overrides for every policy lane at once: layer
     ``layers[j]`` runs one banked backend whose lane ``p`` is table
@@ -238,8 +239,11 @@ def bank_assignment_overrides(bank: LutBank, assign, layers, *,
     one-vmap-lane-per-policy overrides: each layer is one banked
     datapath call whatever the number of policies — K2 (8-bit) or K6
     (wide lanes) under ``pallas``, K4 or K8 under ``fused``.  The
-    datapath choice and the mixed-reduce check are ``bank_backend``'s."""
-    src = bank_backend(bank, mode, variant)
+    datapath choice and the mixed-reduce check are ``bank_backend``'s.
+    ``source``: that banked backend, when the caller keeps one (its
+    tables then move to a device once for every call that shares it)."""
+    src = source if source is not None else bank_backend(bank, mode,
+                                                         variant)
     assign = np.asarray(assign, dtype=np.int64)
     return [(layer, AssignedBankBackend(
         spec=src.spec, datapath=src.datapath, consts=src.consts,

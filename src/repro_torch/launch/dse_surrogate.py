@@ -55,23 +55,13 @@ from ..device import DeviceLike, resolve_device
 from ..kernels import build, ops
 from ..models import resnet
 from ..models.weights import load_resnet8
+from . import GateError
 
 SPEEDUP_GATE = 3.0
 FIDELITY_GATE = 0.9
 #: the banked kernel under each variant: every per-layer sweep and
 #: verification launches it once a layer and eval batch
 BANK_KERNEL = {"pallas": "lut_matmul_bank", "fused": "fused_matmul_bank"}
-
-
-class GateError(RuntimeError):
-    """A gate of the study failed: ``gate`` names it (``"speedup"``,
-    ``"fidelity"`` or ``"front"``), ``record`` holds what was
-    measured."""
-
-    def __init__(self, message: str, gate: str, record: dict):
-        super().__init__(message)
-        self.gate = gate
-        self.record = record
 
 
 def widen_candidate_set(lib, n_circuits: int) -> list[str]:

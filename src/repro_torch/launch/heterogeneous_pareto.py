@@ -51,22 +51,12 @@ from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from ..models import resnet
 from ..models.weights import load_resnet8
+from . import GateError
 from .case_study import _timed, case_study_names
 
 #: Aggressive truncations: uniformly fatal, but the cheap lanes the
 #: heterogeneous search mixes into insensitive layers.
 TRUNCATION_EXTRAS = ("mul8u_trunc4", "mul8u_trunc3", "mul8u_trunc2")
-
-
-class GateError(RuntimeError):
-    """A gate of the study failed: ``gate`` names it (``"equal_assignment"``,
-    ``"verification"`` or ``"dominance"``), ``record`` holds what was
-    measured."""
-
-    def __init__(self, message: str, gate: str, record: dict):
-        super().__init__(message)
-        self.gate = gate
-        self.record = record
 
 
 def _point_dict(p: DesignPoint) -> dict:

@@ -15,8 +15,17 @@ As in the reference, a warm-up ``generate`` pair (the timed shapes and a
 prefill-only one) runs first, then the timed run reports the end-to-end
 rate and the steady-state decode rate (end-to-end minus a prefill-only
 ``generate``).  Nothing is compiled here, so the warm-up measures
-first-call costs only.  ``--continuous`` (the continuous-batching
-engine) is not ported yet; ``--compile-cache`` is JAX-only.
+first-call costs only.  ``--compile-cache`` is JAX-only.
+
+``--continuous`` serves the same prompts through the multi-tenant
+``ContinuousEngine`` instead (paged KV cache, mixed-policy banked
+decode, DESIGN.md §2.8): ``min(batch, 8)`` slots, a cache of
+``prompt_len + max_new`` rows a slot, ``mode="lut"`` with the engine's
+default ``mul8u_exact`` policy on ``--variant``'s datapath (K2 under
+``pallas``, K4 under ``fused``); a one-request warm-up, then the timed
+run:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous
 """
 from __future__ import annotations
 
@@ -32,11 +41,8 @@ from ..approx.layers import ApproxPolicy
 from ..configs import ARCHS, get_config
 from ..device import DeviceLike, resolve_device
 from ..models.registry import input_extras, model_fns
-from ..serve.engine import Engine, ServeConfig
+from ..serve.engine import ContinuousEngine, Engine, ServeConfig
 from .steps import pick_case_multiplier, serve_policy, train_policy
-
-CONTINUOUS_ITEM = ('ROADMAP.md Queue 1, "Continuous-batching serving": '
-                   "ContinuousEngine, scheduler.py, kv_cache.py")
 
 
 def setup(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
@@ -75,13 +81,19 @@ def run(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
         max_new: int = 16, mode: str = "lowrank", multiplier: str = "auto",
         rank: Optional[int] = 4, variant: str = "pallas",
         policy_json: Optional[str] = None, warmup: bool = True,
+        continuous: bool = False,
         log: Callable[[str], None] = print) -> dict:
     """Serve one static batch and return what was measured: the
     generated tokens, the warm-up, end-to-end and prefill-only wall
     times (s) and the end-to-end and steady-state decode rates
-    (tokens/s)."""
+    (tokens/s).  ``continuous``: serve the prompts through the
+    ``ContinuousEngine`` (``run_continuous``; the mode, multiplier, rank
+    and policy arguments do not apply)."""
     dev, cfg, params, prompts = setup(device, arch, reduced, batch,
                                       prompt_len)
+    if continuous:
+        return run_continuous(dev, cfg, params, prompts, arch, reduced,
+                              max_new, variant, warmup, log)
     if multiplier == "auto" and not policy_json and mode not in (
             "bf16", "int8"):
         multiplier = pick_case_multiplier()
@@ -124,6 +136,60 @@ def run(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
     return record
 
 
+def run_continuous(dev, cfg, params, prompts, arch: str, reduced: bool,
+                   max_new: int, variant: str, warmup: bool,
+                   log: Callable[[str], None]) -> dict:
+    """The reference's ``_serve_continuous``: every prompt a request of
+    one ``ContinuousEngine`` (``min(batch, 8)`` slots, capacity
+    ``prompt_len + max_new``, the default ``mul8u_exact`` lut policy).
+    Returns the tokens by request, the warm-up and end-to-end walls (s),
+    tokens/s, the decode steps, the bank builds and the timed run's
+    ``step_summary`` (matmul calls and kernel launches per prefill and
+    decode step)."""
+    batch, prompt_len = prompts.shape
+    n_slots = min(batch, 8)
+    engine = ContinuousEngine(cfg, params, n_slots=n_slots,
+                              capacity=prompt_len + max_new,
+                              variant=variant)
+    serve_cfg = ServeConfig(max_new_tokens=max_new)
+    warmup_s = None
+    if warmup:
+        t0 = time.perf_counter()
+        engine.submit(prompts[0], serve_cfg)
+        engine.run()
+        warmup_s = time.perf_counter() - t0
+        log(f"[serve] warmup {warmup_s:.2f}s")
+    start_step, start_log = engine.step_count, len(engine.step_log)
+    # run() returns host tokens, so the timed region ends on the
+    # device's last step
+    t0 = time.perf_counter()
+    rids = [engine.submit(row, serve_cfg) for row in prompts]
+    out = engine.run()
+    e2e = time.perf_counter() - t0
+    tokens = {r: out[r].tolist() for r in rids}  # drop the warm-up's
+    n_toks = sum(len(t) for t in tokens.values())
+    record = {
+        "arch": arch, "reduced": reduced, "device": str(dev),
+        "device_name": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"),
+        "continuous": True, "mode": engine.mode, "variant": variant,
+        "policy": engine.default_policy.to_json_dict(),
+        "batch": batch, "prompt_len": prompt_len, "max_new": max_new,
+        "n_slots": n_slots, "capacity": engine.capacity,
+        "tokens": tokens, "warmup_s": warmup_s, "e2e_s": e2e,
+        "tok_per_s": n_toks / e2e,
+        "decode_steps": engine.step_count - start_step,
+        "bank_builds": engine.trace_counts["bank_builds"],
+        "steps": engine.step_summary(start_log)}
+    log(f"[serve] {arch} continuous n_slots={n_slots} variant={variant} "
+        f"generated {n_toks} tokens; end-to-end {e2e:.2f}s "
+        f"({record['tok_per_s']:.1f} tok/s), decode steps="
+        f"{record['decode_steps']} bank_builds={record['bank_builds']} "
+        f"launches per decode step "
+        f"{record['steps']['decode']['launches']}")
+    return record
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
@@ -146,18 +212,18 @@ def main(argv=None) -> None:
                     help="path to a serialized ApproxPolicy (overrides "
                          "--mode/--multiplier/--rank/--variant)")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous-batching engine (not ported yet)")
+                    help="serve through the continuous-batching "
+                         "mixed-policy engine (forces --mode lut)")
     ap.add_argument("--no-warmup", action="store_true",
                     help="skip the warm-up generate pair")
     args = ap.parse_args(argv)
-    if args.continuous:
-        raise NotImplementedError(
-            f"--continuous is not ported yet ({CONTINUOUS_ITEM})")
     record = run(args.device, args.arch, args.reduced, args.batch,
                  args.prompt_len, args.max_new, args.mode, args.multiplier,
                  args.rank, args.variant, args.policy_json,
-                 warmup=not args.no_warmup)
-    print(np.asarray(record["tokens"])[:2])
+                 warmup=not args.no_warmup, continuous=args.continuous)
+    tokens = record["tokens"]
+    print(np.asarray(next(iter(tokens.values())) if args.continuous
+                     else tokens[:2]))
 
 
 if __name__ == "__main__":

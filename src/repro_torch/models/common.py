@@ -18,6 +18,12 @@ Differences from the reference, none of which changes a value:
     multiplied there: products of bf16 values are exact in f32, which is
     what the reference's ``preferred_element_type=f32`` computes.
 
+``lane_attention`` and ``lane_rms_norm`` serve the continuous engine's
+decode step, where each running request is a bank lane: the
+projections run once for all lanes, and every float reduction whose
+order may depend on the batch size or the cache length runs per lane at
+the shape a sequential B=1 decode gives it.
+
 Not ported yet, each raising where a config asks for it: the sharding
 hints (``hint_*``: no mesh on one card), ``layer_norm`` (encdec),
 ``_chunked_grouped_attention`` (``attn_impl="chunked"``) — ROADMAP.md
@@ -163,6 +169,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
     return (x32 * torch.rsqrt(var + eps) * gamma).to(x.dtype)
 
 
+def lane_rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
+                  ) -> torch.Tensor:
+    """``rms_norm`` of each leading-axis row alone, at that row's shape
+    with a batch axis of one: a reduction kernel may sum in another order
+    when it has more rows (on the GPU the threads a row gets depend on
+    the number of rows), and a request served in a batch must see the
+    bits it would see alone."""
+    return torch.cat([rms_norm(x[i:i + 1], gamma, eps)
+                      for i in range(x.shape[0])])
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)
@@ -257,57 +274,98 @@ def _grouped_attention(q, k, v, mask_bias) -> torch.Tensor:
     return out.reshape(b, s, h, d)
 
 
-def attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
-              positions: torch.Tensor, cache: Optional[dict] = None,
-              layer_tag: str = "attn") -> tuple[torch.Tensor,
-                                                Optional[dict]]:
-    """x: (B,S,D).  cache: {"k": (B,T,Hkv,D), "v": ..., "pos": int} —
-    the new keys and values are written into the cache at ``pos`` (in
-    place) and the queries attend over the whole cache, later slots
-    masked by a -1e30 bias as in the reference.  Without a cache, causal
-    self-attention over x."""
-    if cfg.attn_impl == "chunked":
-        raise NotImplementedError(
-            f"attn_impl='chunked' (_chunked_grouped_attention) is not "
-            f"ported yet ({ZOO_ITEM})")
+def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
+                 positions: torch.Tensor, layer_tag: str, lanes: bool):
+    """q (B,S,H,D), k/v (B,S,Hkv,D) in the working dtype: the three
+    projections, bias, qk-norm and RoPE.  ``lanes``: each batch row is a
+    bank lane of the policy's banked backends (calibrated on its own)
+    and qk-norm reduces each row alone."""
     b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = policy.matmul(f"{layer_tag}.wq", x, params["wq"])
-    k = policy.matmul(f"{layer_tag}.wk", x, params["wk"])
-    v = policy.matmul(f"{layer_tag}.wv", x, params["wv"])
+    q = policy.matmul(f"{layer_tag}.wq", x, params["wq"], lanes=lanes)
+    k = policy.matmul(f"{layer_tag}.wk", x, params["wk"], lanes=lanes)
+    v = policy.matmul(f"{layer_tag}.wv", x, params["wv"], lanes=lanes)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hk, hd)
     v = v.reshape(b, s, hk, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["qnorm"], cfg.norm_eps)
-        k = rms_norm(k, params["knorm"], cfg.norm_eps)
+        norm = lane_rms_norm if lanes else rms_norm
+        q = norm(q, params["qnorm"], cfg.norm_eps)
+        k = norm(k, params["knorm"], cfg.norm_eps)
     if cfg.use_rope:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    q, k, v = q.to(cfg.dtype), k.to(cfg.dtype), v.to(cfg.dtype)
+    return q.to(cfg.dtype), k.to(cfg.dtype), v.to(cfg.dtype)
 
+
+def _project_out(params, out, cfg: LMConfig, policy: ApproxPolicy,
+                 layer_tag: str, lanes: bool) -> torch.Tensor:
+    b, s = out.shape[:2]
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = policy.matmul(f"{layer_tag}.wo", out, params["wo"], lanes=lanes)
+    return out.to(cfg.dtype)
+
+
+def causal_bias(first: int, s: int, t: int, device) -> torch.Tensor:
+    """(s, t) mask of queries at rows first..first+s-1 over t keys: 0
+    where the key's position is at most the query's row, -1e30 after."""
+    keys = torch.arange(t, device=device)
+    rows = torch.arange(first, first + s, device=device)
+    return torch.where(keys[None, :] <= rows[:, None], 0.0, -1e30)
+
+
+def attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
+              positions: torch.Tensor, cache: Optional[dict] = None,
+              layer_tag: str = "attn", lanes: bool = False
+              ) -> tuple[torch.Tensor, Optional[dict]]:
+    """x: (B,S,D).  cache: {"k": (B,T,Hkv,D), "v": ..., "pos": int} —
+    the new keys and values are written into the cache at ``pos`` (in
+    place) and the queries attend over the whole cache, later slots
+    masked by a -1e30 bias as in the reference.  Without a cache, causal
+    self-attention over x.  ``lanes``: the batch axis is a bank lane
+    axis (``_project_qkv``)."""
+    if cfg.attn_impl == "chunked":
+        raise NotImplementedError(
+            f"attn_impl='chunked' (_chunked_grouped_attention) is not "
+            f"ported yet ({ZOO_ITEM})")
+    s = x.shape[1]
+    q, k, v = _project_qkv(params, x, cfg, policy, positions, layer_tag,
+                           lanes)
     if cache is None:
-        t = torch.arange(s, device=x.device)
-        bias = torch.where(t[None, :] <= t[:, None], 0.0, -1e30)
-        out = _grouped_attention(q, k, v, bias)
+        out = _grouped_attention(q, k, v, causal_bias(0, s, s, x.device))
         new_cache = None
     else:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
         ck[:, pos:pos + s] = k
         cv[:, pos:pos + s] = v
-        t = torch.arange(ck.shape[1], device=x.device)
-        rows = pos + torch.arange(s, device=x.device)
-        bias = torch.where(t[None, :] <= rows[:, None], 0.0, -1e30)
-        out = _grouped_attention(q, ck, cv, bias)
+        out = _grouped_attention(q, ck, cv, causal_bias(
+            pos, s, ck.shape[1], x.device))
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
+    return _project_out(params, out, cfg, policy, layer_tag,
+                        lanes), new_cache
 
-    out = out.reshape(b, s, h * hd)
-    out = policy.matmul(f"{layer_tag}.wo", out, params["wo"])
-    return out.to(cfg.dtype), new_cache
+
+def lane_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
+                   positions: torch.Tensor, kv, biases: list,
+                   layer_tag: str = "attn") -> torch.Tensor:
+    """One decode step of n requests, each a bank lane: x (n,1,D),
+    positions (n,1) (each lane's cache row).  The projections run once
+    for all lanes (``lanes=True``); ``kv(k, v)`` stores each lane's new
+    key and value rows (n,1,Hkv,D) and returns each lane's cache view
+    ``(k_i, v_i)``, (1,T_i,Hkv,D) with the new row at its position, and
+    ``biases[i]`` is lane i's (1,T_i) mask.  Attention runs lane by lane
+    at B=1 over exactly that view, so its float reductions see the
+    shapes a sequential B=1 decode with a T_i-row cache gives them."""
+    q, k, v = _project_qkv(params, x, cfg, policy, positions, layer_tag,
+                           True)
+    out = torch.cat([
+        _grouped_attention(q[i:i + 1].clone(), ki, vi, biases[i])
+        for i, (ki, vi) in enumerate(kv(k, v))])
+    return _project_out(params, out, cfg, policy, layer_tag, True)
 
 
 def init_attention_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -332,15 +390,17 @@ def init_ffn(gen: torch.Generator, cfg: LMConfig,
 
 
 def ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
-        layer_tag: str = "ffn") -> torch.Tensor:
-    hidden = policy.matmul(f"{layer_tag}.wi", x, params["wi"])
+        layer_tag: str = "ffn", lanes: bool = False) -> torch.Tensor:
+    """``lanes``: x's batch axis is a bank lane axis."""
+    hidden = policy.matmul(f"{layer_tag}.wi", x, params["wi"], lanes=lanes)
     if cfg.act == "silu":
-        gate = policy.matmul(f"{layer_tag}.wg", x, params["wg"])
+        gate = policy.matmul(f"{layer_tag}.wg", x, params["wg"],
+                             lanes=lanes)
         hidden = F.silu(gate) * hidden
     else:
         hidden = activation(hidden, cfg.act)
     return policy.matmul(f"{layer_tag}.wo", hidden.to(cfg.dtype),
-                         params["wo"]).to(cfg.dtype)
+                         params["wo"], lanes=lanes).to(cfg.dtype)
 
 
 def logits_from_hidden(hidden: torch.Tensor, w_unembed: torch.Tensor

@@ -20,7 +20,8 @@ import torch
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
 from .common import (TRAIN_ITEM, ZOO_ITEM, LMConfig, attention, dense_init,
                      ffn, init_attention, init_attention_cache, init_ffn,
-                     logits_from_hidden, rms_norm)
+                     lane_attention, lane_rms_norm, logits_from_hidden,
+                     rms_norm)
 
 
 def block_pattern(cfg: LMConfig) -> list[tuple[str, Optional[str]]]:
@@ -64,7 +65,7 @@ def _index(tree, g: int):
 
 
 def _group_body(h, positions, gparams, gcache, cfg: LMConfig,
-                policy: ApproxPolicy, pattern):
+                policy: ApproxPolicy, pattern, lanes: bool = False):
     """One layer group: (h, new_gcache)."""
     new_cache: dict[str, Any] = {}
     for j, (_mixer, _ffn) in enumerate(pattern):
@@ -72,17 +73,17 @@ def _group_body(h, positions, gparams, gcache, cfg: LMConfig,
         sub_cache = None if gcache is None else gcache[f"mixer_{j}"]
         y, nc = attention(gparams[f"mixer_{j}"], hin, cfg, policy,
                           positions=positions, cache=sub_cache,
-                          layer_tag="attn")
+                          layer_tag="attn", lanes=lanes)
         if nc is not None:
             new_cache[f"mixer_{j}"] = nc
         h = h + y
         hin = rms_norm(h, gparams[f"norm2_{j}"], cfg.norm_eps)
-        h = h + ffn(gparams[f"ffn_{j}"], hin, cfg, policy)
+        h = h + ffn(gparams[f"ffn_{j}"], hin, cfg, policy, lanes=lanes)
     return h, (new_cache or None)
 
 
 def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
-               caches=None):
+               caches=None, lanes: bool = False):
     """Run the layer groups in order.  ``caches``: the stacked cache
     (or None); each group writes its slice in place.  Returns (h,
     new_caches) — the same tensors with ``pos`` advanced."""
@@ -92,7 +93,7 @@ def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
     for g in range(n_groups):
         gcache = None if caches is None else _index(caches, g)
         h, nc = _group_body(h, positions, _index(params["blocks"], g),
-                            gcache, cfg, policy, pattern)
+                            gcache, cfg, policy, pattern, lanes)
         if nc is not None:
             new_caches = {name: {"k": caches[name]["k"],
                                  "v": caches[name]["v"],
@@ -129,11 +130,14 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
 
 
 def forward_prefill(params, batch, cache, cfg: LMConfig,
-                    policy: ApproxPolicy = EXACT_POLICY):
-    """Fill the cache from a prompt; returns (last_logits, new_cache)."""
+                    policy: ApproxPolicy = EXACT_POLICY,
+                    lanes: bool = False):
+    """Fill the cache from a prompt; returns (last_logits, new_cache).
+    ``lanes``: each prompt row is a lane of the policy's banked
+    backends (the continuous engine's B=1 prefill)."""
     h, positions = _embed_inputs(params, batch, cfg)
     h, new_caches = _run_stack(params, h, positions, cfg, policy,
-                               caches=cache)
+                               caches=cache, lanes=lanes)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(h[:, -1, :], params["unembed"]), new_caches
 
@@ -148,6 +152,38 @@ def forward_decode(params, token, cache, cfg: LMConfig,
                                caches=cache)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(h[:, 0, :], params["unembed"]), new_caches
+
+
+def forward_decode_lanes(params, tokens, positions, kv, biases,
+                         cfg: LMConfig, policy: ApproxPolicy) -> list:
+    """One decode step of n requests of a continuous batch, each a lane
+    of the policy's banked backends.  tokens (n,) int, positions (n,)
+    int (each lane's cache row); ``kv(mixer, g, k, v)`` stores each
+    lane's new key/value rows of layer group ``g`` and returns each
+    lane's cache view, and ``biases[i]`` is lane i's attention mask
+    (``common.lane_attention``).  The projections run once for all
+    lanes; the norms, attention and unembedding run lane by lane at the
+    shapes a sequential B=1 ``forward_decode`` gives them, so each
+    lane's logits equal that decode's bit for bit.  Returns the n
+    (1, vocab) logits rows."""
+    pattern = block_pattern(cfg)
+    n_groups = cfg.n_layers // len(pattern)
+    h = params["embed"][tokens.long()[:, None]].to(cfg.dtype)
+    positions = positions.to(torch.int32)[:, None]
+    for g in range(n_groups):
+        gparams = _index(params["blocks"], g)
+        for j, _ in enumerate(pattern):
+            mixer = f"mixer_{j}"
+            hin = lane_rms_norm(h, gparams[f"norm1_{j}"], cfg.norm_eps)
+            h = h + lane_attention(
+                gparams[mixer], hin, cfg, policy, positions=positions,
+                kv=lambda k, v, _m=mixer, _g=g: kv(_m, _g, k, v),
+                biases=biases, layer_tag="attn")
+            hin = lane_rms_norm(h, gparams[f"norm2_{j}"], cfg.norm_eps)
+            h = h + ffn(gparams[f"ffn_{j}"], hin, cfg, policy, lanes=True)
+    h = lane_rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return [logits_from_hidden(h[i:i + 1, 0, :], params["unembed"])
+            for i in range(h.shape[0])]
 
 
 def _cache_pos(cache, cfg: LMConfig) -> int:

@@ -1,16 +1,14 @@
 """Family dispatch (port of ``repro.models.registry``): maps
 ``LMConfig.family`` to the init/forward functions, plus the serving
-hooks the engine uses (``input_extras``, ``prompt_extra_len``).
-
-The port has the decoder only; ``probe_layer_tags`` waits for the
-continuous-batching engine (ROADMAP.md Queue 1, "Continuous-batching
-serving").
+hooks the engines use (``input_extras``, ``prompt_extra_len``,
+``probe_layer_tags``).  The port has the decoder only.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import decoder
 from .common import ZOO_ITEM, LMConfig
@@ -18,17 +16,18 @@ from .common import ZOO_ITEM, LMConfig
 
 class ModelFns:
     def __init__(self, init_params, forward_train, init_cache,
-                 forward_prefill, forward_decode):
+                 forward_prefill, forward_decode, forward_decode_lanes):
         self.init_params = init_params
         self.forward_train = forward_train
         self.init_cache = init_cache
         self.forward_prefill = forward_prefill
         self.forward_decode = forward_decode
+        self.forward_decode_lanes = forward_decode_lanes
 
 
 _DECODER = ModelFns(decoder.init_params, decoder.forward_train,
                     decoder.init_cache, decoder.forward_prefill,
-                    decoder.forward_decode)
+                    decoder.forward_decode, decoder.forward_decode_lanes)
 
 
 def model_fns(cfg: LMConfig) -> ModelFns:
@@ -59,3 +58,44 @@ def prompt_extra_len(cfg: LMConfig, extras: Optional[dict]) -> int:
     if cfg.family == "vlm" and extras and "img_embeds" in extras:
         return int(extras["img_embeds"].shape[1])
     return 0
+
+
+def probe_layer_tags(cfg: LMConfig, params) -> tuple[str, ...]:
+    """All ``policy.matmul`` call-site names one prefill step of this
+    model hits, in first-call order.  The prefill runs on the ``meta``
+    device (shapes only, no FLOPs) under a recording policy over an
+    ``f32`` spec.  Scanned blocks share tags, so the list is
+    per-layer-*type*, not per-depth.  This is the layer axis a serve
+    request's ``ApproxPolicy`` is resolved over (``policy_assignment``)."""
+    from ..approx.layers import ApproxPolicy
+    from ..approx.specs import BackendSpec
+
+    seen: list[str] = []
+
+    class _Recorder(ApproxPolicy):
+        def backend_for(self, name: str):
+            if name not in seen:
+                seen.append(name)
+            return super().backend_for(name)
+
+    probe = _Recorder(default=BackendSpec(mode="f32"))
+    fns = model_fns(cfg)
+    seq = 4
+    extras = input_extras(cfg, 1)
+    meta = torch.device("meta")
+    batch = {"tokens": torch.zeros((1, seq), dtype=torch.int32,
+                                   device=meta)}
+    batch.update({k: torch.from_numpy(v).to(meta)
+                  for k, v in extras.items()})
+    on_meta = _to_device(params, meta)
+    cache = fns.init_cache(cfg, 1, seq + prompt_extra_len(cfg, extras) + 1,
+                           meta)
+    with torch.inference_mode():
+        fns.forward_prefill(on_meta, batch, cache, cfg, probe)
+    return tuple(seen)
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -1,6 +1,10 @@
-"""Serving layer (port of ``repro.serve``): the static-batch ``Engine``.
-The continuous-batching stack (``ContinuousEngine``, ``scheduler``,
-``kv_cache``) is ROADMAP.md Queue 1, "Continuous-batching serving"."""
-from .engine import Engine, ServeConfig
+"""Serving layer (port of ``repro.serve``): the static-batch ``Engine``
+and the continuous-batching multi-tenant stack (``ContinuousEngine`` +
+``Scheduler`` + ``PagedKVCache``; DESIGN.md §2.8)."""
+from .engine import ContinuousEngine, Engine, ServeConfig
+from .kv_cache import CacheLayout, PagedKVCache, cache_layout
+from .scheduler import Request, RequestState, Scheduler
 
-__all__ = ["Engine", "ServeConfig"]
+__all__ = ["ContinuousEngine", "Engine", "ServeConfig", "CacheLayout",
+           "PagedKVCache", "cache_layout", "Request", "RequestState",
+           "Scheduler"]

@@ -1,6 +1,7 @@
 """The static-batch serving path of the port against the reference's:
 ``Engine.generate`` tokens, per-request policies in JSON across the two
-packages, temperature sampling and the serve CLI on the CPU.
+packages, temperature sampling and the serve CLI on the CPU (static and
+``--continuous``).
 
 Token parity.  Under ``f32`` the greedy tokens equal the reference
 ``Engine``'s.  Under the quantized policies a last-bit difference can
@@ -196,5 +197,19 @@ def test_serve_run_on_the_cpu(capsys):
                 "--prompt-len", "8", "--max-new", "2", "--no-warmup",
                 "--mode", "int8"])
     assert "mode=int8" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--device", "cpu", "--continuous"])
+    serve.main(["--device", "cpu", "--reduced", "--batch", "3",
+                "--prompt-len", "5", "--max-new", "3", "--continuous"])
+    out = capsys.readouterr().out
+    assert "continuous n_slots=3 variant=pallas generated 9 tokens" in out
+    assert "bank_builds=1" in out
+    record = serve.run(device="cpu", reduced=True, batch=2, prompt_len=4,
+                       max_new=3, variant="fused", continuous=True,
+                       log=print)
+    assert record["continuous"] and record["mode"] == "lut"
+    assert [len(t) for t in record["tokens"].values()] == [3, 3]
+    assert record["n_slots"] == 2 and record["capacity"] == 7
+    assert record["decode_steps"] == 3 and record["bank_builds"] == 1
+    for kind, n in (("prefill", 2), ("decode", 2)):
+        assert record["steps"][kind]["n"] == n
+        assert record["steps"][kind]["banked"] == [7 * 2]
+        assert record["steps"][kind]["single"] == [0]
