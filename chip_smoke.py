@@ -39,7 +39,10 @@ Phases (any failure exits nonzero):
      regime, rank and the y64 and S of the worst element; K2 and K4 at
      the continuous serving step's shapes (``CONTINUOUS_*``: lanes
      gathered from the serve-load benchmark's 8-table bank, P = 1 and 4,
-     M = 1 and 8, the three (K, N) of qwen1.5-0.5b's projections);
+     M = 1 and 8, the three (K, N) of qwen1.5-0.5b's projections); K1-K4
+     at the module-profile sweeps' full-width shapes (``PROFILE_STEP``:
+     P = 15 lanes of M = 4 capacity rows at qwen3-moe's expert
+     projections, P = 6 lanes of 16 rows at mamba2's in/out projections);
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
@@ -142,7 +145,26 @@ Phases (any failure exits nonzero):
      then ``launch.serve.run(continuous=True)`` at the CLI defaults, K2
      168 a prefill and a decode step; then one decode step with 4 slots
      and 4 policies under ``torch.profiler`` (wall, device busy,
-     kernels beside the host's launch calls).
+     kernels beside the host's launch calls);
+  7. the module-resilience profiles of the LM zoo, after the timing phase
+     too, each run with the launch counters zeroed just before it and
+     read just after: ``repro_torch.launch.arch_profiles.run(quick=
+     True)`` under ``"pallas"`` (K2, K1) and ``"fused"`` (K4, K3), failing
+     unless its four gates hold (coverage, selection, bit identity, and
+     the banked calls of the identity sweeps equal to the formula), each
+     profiled arch's modules, module shares and row count and the
+     multipliers equal the reference's recorded run (``benchmarks/
+     results/BENCH_profiles.json``; the selections are printed beside
+     the record's) and fused rows equal pallas rows; then, through the
+     library API, mamba2-780m at full width (48 layers) and
+     qwen3-moe-30b-a3b at full width with 4 of its 48 layers (bf16,
+     random weights on the card): each profile's stage walls, banked
+     launches a sweep, peak memory and selection, failing unless the
+     banked sweep of every row equals the sequential evaluation bit for
+     bit, the banked kernel launched exactly the formula's count (96 and
+     1 552 a sweep) and fused rows equal pallas rows, with one banked
+     sweep of each under ``torch.profiler`` (device busy, kernels); then
+     K2 and K4 timed at those sweeps' shapes beside their bounds.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -196,6 +218,10 @@ BENCH_HETEROGENEOUS = os.path.join(ROOT, "benchmarks", "results",
 # and the logit_mae tolerance against the reference that
 # tests/test_torch_dse_surrogate.py states (LOGIT_MAE_ATOL)
 DSE_KERNEL = {"pallas": "lut_matmul_bank", "fused": "fused_matmul_bank"}
+# the single-table kernel of each variant (the sequential evaluations)
+PROFILE_SINGLE = {"pallas": "lut_matmul", "fused": "fused_matmul"}
+PROFILE_STAGES = ("setup_s", "baseline_s", "sweep_s", "compose_s",
+                  "verify_s")
 BENCH_DSE = os.path.join(ROOT, "benchmarks", "results", "BENCH_dse.json")
 DSE_CIRCUITS = 108
 DSE_EVALS = (27 * 9, DSE_CIRCUITS * 9)
@@ -268,6 +294,19 @@ BENCH_SERVE = os.path.join(ROOT, "benchmarks", "results", "BENCH_serve.json")
 # (the sequential replay's)
 CONTINUOUS_KERNELS = {"pallas": ("lut_matmul_bank", "lut_matmul"),
                       "fused": ("fused_matmul_bank", "fused_matmul")}
+# the module-resilience profiles (``launch.arch_profiles``): the
+# reference's recorded ``--quick`` run, and the two families at full
+# width (qwen3-moe's depth cut from 48 to 4 layers: 48 layers of 128
+# experts are ~29 B parameters, more than one card holds in f32)
+BENCH_PROFILES = os.path.join(ROOT, "benchmarks", "results",
+                              "BENCH_profiles.json")
+PROFILE_FULL_WIDTH = (("mamba2-780m", "ssm", None),
+                      ("qwen3-moe-30b-a3b", "moe", 4))
+# the profile sweeps' K2/K4 shapes: (lanes, rows, K, N) of the MoE's
+# expert projections (5 families x 3 multipliers, capacity 4 rows) and of
+# mamba2's in/out projections (2 x 3 lanes, 2 x 8 tokens), full width
+PROFILE_STEP = ((15, 4, 2048, 768), (15, 4, 768, 2048),
+                (6, 16, 1536, 6448), (6, 16, 3072, 1536))
 # H100 SXM FP32 FMA lanes per SM (SIMT, no tensor cores)
 FP32_LANES_PER_SM = 128
 # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet, 700 W); K9's
@@ -425,7 +464,7 @@ def _tables(device) -> dict:
     import torch
     from repro_torch.approx.specs import bank_for
     from repro_torch.core.library import get_default_library
-    from repro_torch.launch import serve_load
+    from repro_torch.launch import arch_profiles, serve_load
     from repro_torch.launch.case_study import case_study_names
     from repro_torch.launch.wide_pareto import wide_names
     lib = get_default_library()
@@ -450,7 +489,9 @@ def _tables(device) -> dict:
     out = {"case": u16(np.stack([lib.lut(n) for n in case])),
            "rand": u16(rand), "wide": lanes(wide), "mixed": lanes(mixed),
            "wide_names": wide.names,
-           "serve": u16(bank_for(serve_load.MULTIPLIERS, lib).luts)}
+           "serve": u16(bank_for(serve_load.MULTIPLIERS, lib).luts),
+           "profile": u16(bank_for(arch_profiles._multipliers(lib, True),
+                                   lib).luts)}
     # the wide bank's lanes reordered: its wide lanes first, and narrow
     # and wide lanes alternating
     narrow = [i for i, m in enumerate(wide.lane_masks) if not m]
@@ -665,6 +706,36 @@ def phase_compare(shapes: dict, device) -> dict:
                               ref.fused_matmul_bank_ref, (xb, w, luts), (),
                               8)], what, k)
                 del xb, w
+    # the module-profile sweeps: P lanes gathered from the profile's
+    # 3-table bank (K2 on codes, K4 on floats), and the sequential
+    # evaluations' single tables (K1, K3), at the full-width shapes
+    for p_, m, k, n in PROFILE_STEP:
+        what = f"profile sweep P={p_} {(m, k, n)}"
+        idx = torch.arange(p_, device=device) % t["profile"].shape[0]
+        luts = t["profile"].index_select(0, idx)
+        qa = _codes((m, k), gen, device)
+        qab = _codes((p_, m, k), gen, device)
+        qw = _codes((k, n), gen, device)
+        check("lut_matmul", [ops.approx_matmul_lut(qa, qw, luts[2])],
+              [ref.approx_matmul_lut_ref(qa, qw, luts[2].to(torch.int32))],
+              what)
+        for a_ in (qa, qab):
+            check("lut_matmul_bank",
+                  [ops.approx_matmul_lut_bank(a_, qw, luts)],
+                  [ref.approx_matmul_lut_bank_ref(
+                      a_, qw, luts.to(torch.int32))], what)
+        del qa, qab, qw
+        x = _floats((m, k), gen, device)
+        xb = _floats((p_, m, k), gen, device)
+        w = _floats((k, n), gen, device, 0.2)
+        check_fused([("fused_matmul", ops.fused_matmul_lut,
+                      ref.fused_matmul_ref, (x, w, luts[2]), (), 8),
+                     ("fused_matmul_bank", ops.fused_matmul_lut_bank,
+                      ref.fused_matmul_bank_ref, (xb, w, luts), (), 8),
+                     ("fused_matmul_bank", ops.fused_matmul_lut_bank,
+                      ref.fused_matmul_bank_ref, (x, w, luts), (), 8)],
+                    what, k)
+        del x, xb, w
     mult, factors = _served_factors(device)
     for label, (m, k, n) in list(LOWRANK_SHAPES.items()) + [
             (f"ragged{s_}", s_) for s_ in LOWRANK_RAGGED]:
@@ -1733,6 +1804,263 @@ def phase_profile_continuous(device) -> dict:
     return prof
 
 
+def _profile_rows(prof) -> list:
+    return [(r.module, r.multiplier, r.metrics, r.network_rel_power)
+            for r in prof.rows]
+
+
+def _check_quick_profiles(record, bench, variant: str, log) -> None:
+    """``arch_profiles --quick``: its four gates hold, and what does not
+    depend on the weights equals the reference's recorded run: each
+    ported arch's modules (in order), module shares (exactly), row count,
+    and the multipliers; the selections are printed beside the
+    record's."""
+    failed = [g for g, ok in record["gates"].items() if not ok]
+    if failed:
+        raise AssertionError(f"arch_profiles --quick ({variant}): gates "
+                             f"failed {failed}")
+    if record["multipliers"] != bench["multipliers"]:
+        raise AssertionError(f"profile multipliers {record['multipliers']} "
+                             f"!= recorded {bench['multipliers']}")
+    for arch, got in record["zoo"]["archs"].items():
+        want = bench["zoo"]["archs"][arch]
+        if (got["modules"] != want["modules"]
+                or got["module_shares"] != want["module_shares"]
+                or len(got["rows"]) != len(want["rows"])):
+            raise AssertionError(f"{arch} ({variant}): modules, shares or "
+                                 "row count differ from the recorded run")
+        sel, rsel = got["selected"], want["selected"]
+        st = record["stats"][arch]
+        log(f"profiles {arch} ({variant}): stages "
+            f"{ {k: round(st[k], 4) for k in PROFILE_STAGES} }, banked "
+            f"launches {st['banked_calls']}, peak memory "
+            f"{st.get('peak_bytes', 0) / 2**30:.3f} GiB")
+        log(f"profiles {arch} ({variant}): modules, shares and "
+            f"{len(got['rows'])} rows equal the record; selected "
+            f"{sel['modules']} power {sel['power']:.4f} drop "
+            f"{sel['quality_drop']:.4f} (record: {rsel['modules']} power "
+            f"{rsel['power']:.4f} drop {rsel['quality_drop']:.4f})")
+    ported = set(record["zoo"]["archs"])
+    if ported | {n["arch"] for n in record["not_ported"]} != set(
+            bench["zoo"]["archs"]):
+        raise AssertionError("profiled + not ported archs differ from the "
+                             "recorded zoo")
+
+
+def _full_width_profile(cfg, family: str, variant: str, lib, mults,
+                        device, log) -> dict:
+    """One config at full width under one variant: the profile (stage
+    walls, banked calls, peak memory, selection) and the identity check
+    over every row (banked sweep vs sequential ``policy_for_lane``
+    evaluation bit for bit; the banked kernel launched exactly the
+    formula's count in the banked sweep, and nothing else)."""
+    import torch
+    from repro_torch.approx.dse import verify_assignments
+    from repro_torch.approx.modules import (FILL_EXACT,
+                                            module_sweep_assignments)
+    from repro_torch.launch import arch_profiles
+    from repro_torch.kernels import ops
+    kernel = DSE_KERNEL[variant]
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    prof, st, wl, mmap = arch_profiles.profile_config(
+        cfg, family, lib, mults, variant=variant, device=device)
+    before = ops.launch_counts()
+    ident = arch_profiles.identity_check(wl, mmap, lib, mults, cfg,
+                                         variant)
+    after = ops.launch_counts()
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
+    expected = ident["banked_calls_expected"]
+    label = f"{cfg.name} ({cfg.n_layers} layers, {variant})"
+    if not (ident["bit_identical"]
+            and ident["banked_calls_full"] == expected
+            and ident["banked_calls_truncated"] == expected
+            and prof.selected is not None
+            and prof.selected["quality_drop"] <= prof.max_drop + 1e-9):
+        raise AssertionError(f"{label}: identity {ident['bit_identical']} "
+                             f"({ident['mismatches']}), banked calls "
+                             f"{ident['banked_calls_full']} / "
+                             f"{ident['banked_calls_truncated']} != "
+                             f"{expected}, selected {prof.selected}")
+    spent = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    # the banked sweep, its 2-row truncation: K2 (K4) each; the
+    # sequential evaluations: K1 (K3) only
+    if spent.get(kernel) != 2 * expected or set(spent) - {
+            kernel, PROFILE_SINGLE[variant]}:
+        raise AssertionError(f"{label}: launches {spent}, expected "
+                             f"{2 * expected} {kernel} and the sequential "
+                             f"{PROFILE_SINGLE[variant]}")
+    walls = {k: st[k] for k in PROFILE_STAGES}
+    # one banked sweep of every row under the profiler: device busy and
+    # the kernels it ran
+    grid = module_sweep_assignments(mmap, mults)
+    lowered = [mmap.lower(a) for _f, _m, a in grid]
+    prof_sweep = _profiled(lambda: verify_assignments(
+        wl, lowered, mmap.layer_counts, lib, layers=mmap.layers,
+        fill=FILL_EXACT, variant=variant))
+    log(f"profile {label}: one banked sweep under the profiler "
+        f"{prof_sweep['wall_ms']:.1f} ms, device busy "
+        f"{prof_sweep['device_busy_ms']} ms (share "
+        f"{prof_sweep['busy_share']}, {prof_sweep['kernels']} kernels); "
+        f"top device {prof_sweep['top'][:3]}")
+    log(f"profile {label}: stages {walls}; banked launches a sweep "
+        f"{expected} ({kernel}, {len(prof.rows)} rows; the profile made "
+        f"{st['banked_calls']}); identity banked {ident['banked_s']:.3f} s "
+        f"vs sequential {ident['sequential_s']:.3f} s over "
+        f"{ident['rows']} rows, bit for bit; peak memory "
+        f"{peak / 2**30:.2f} GiB; selected {prof.selected['modules']} "
+        f"power {prof.selected['power']:.4f} drop "
+        f"{prof.selected['quality_drop']:.4g}")
+    return {"profile": prof.to_dict(), "walls": walls,
+            "banked_calls_profile": st["banked_calls"],
+            "banked_launches_sweep": expected, "launches_identity": spent,
+            "identity": {k: v for k, v in ident.items() if k != "metrics"},
+            "peak_bytes": peak, "sweep_profile": prof_sweep,
+            "rows": _profile_rows(prof),
+            "identity_metrics": ident["metrics"]}
+
+
+def _profile_step_timing(device) -> list:
+    """K2 and K4 at the profile sweeps' full-width shapes (``PROFILE_STEP``,
+    banked activations): ms a launch (CUDA events) beside its bound, the
+    largest of the lookups, the integer ops and the bytes (the int32 or
+    f32 operands once, P tables, the outputs)."""
+    import torch
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device).manual_seed(2)
+    t = _tables(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
+    lookup_rate = sms * LOOKUPS_PER_SM_CLOCK * clock_hz
+    int_rate = sms * INT32_OPS_PER_SM_CLOCK * clock_hz
+    rows = []
+    for p_, m, k, n in PROFILE_STEP:
+        idx = torch.arange(p_, device=device) % t["profile"].shape[0]
+        luts = t["profile"].index_select(0, idx)
+        qab, qw = _codes((p_, m, k), gen, device), _codes((k, n), gen, device)
+        xb, w = _floats((p_, m, k), gen, device), _floats((k, n), gen,
+                                                          device, 0.2)
+        sp = _scalars(xb, w, 8)
+        products = p_ * m * k * n
+        tables_b = p_ * 65536 * 2
+        for kernel, call, extra_b in (
+                ("lut_matmul_bank",
+                 lambda: ops.approx_matmul_lut_bank(qab, qw, luts), 0),
+                ("fused_matmul_bank",
+                 lambda: ops.fused_matmul_lut_bank(xb, w, luts, *sp,
+                                                   raw=True),
+                 p_ * (m + n) * 4)):
+            nbytes = (p_ * m * k + k * n + p_ * m * n) * 4 + tables_b \
+                + extra_b
+            rows.append({"kernel": kernel, "lanes": p_, "M": m, "K": k,
+                         "N": n, "ms": _time(call, reps=20, warmup=3),
+                         "items": fm.k_split(p_, m, k, n, sms).items,
+                         **_bounds(products / lookup_rate,
+                                   int_seconds(0, 2 * products, int_rate),
+                                   nbytes / HBM_BYTES_PER_S)})
+        del qab, qw, xb, w
+    for r in rows:
+        print(f"[main] profile step {r['kernel']} P={r['lanes']} "
+              f"{(r['M'], r['K'], r['N'])}: {r['ms']:.4f} ms a launch, "
+              f"bound {r['bound_ms']:.4f} ms ({r['limit']})")
+    return rows
+
+
+def phase_profiles(device, log, launches_total: dict) -> dict:
+    """Path F: the module-resilience profiles of the LM zoo.  (a)
+    ``launch.arch_profiles.run(quick=True)`` under ``pallas`` (K2, K1)
+    and ``fused`` (K4, K3): the four gates, and the record's
+    weight-independent fields against ``BENCH_profiles.json``; (b)
+    mamba2-780m at full width and qwen3-moe-30b-a3b at full width with 4
+    of its 48 layers, bf16, random weights on the card: each profile's
+    walls, banked launches, peak memory and selection, banked ==
+    sequential on every row, the launch count, and fused rows == pallas
+    rows."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch import arch_profiles
+    from repro_torch.models.registry import abstract_params
+    with open(BENCH_PROFILES) as f:
+        bench = json.load(f)
+    out, rows = {}, {}
+    for variant in ("pallas", "fused"):
+        torch.cuda.reset_peak_memory_stats(device)
+        record, wall, launches = _drive(
+            f"arch_profiles --quick ({variant})",
+            lambda: arch_profiles.run(device, quick=True, variant=variant,
+                                      log=log),
+            (DSE_KERNEL[variant], PROFILE_SINGLE[variant]))
+        _check_quick_profiles(record, bench, variant, log)
+        rows[("quick", variant)] = {a: [(r["module"], r["multiplier"],
+                                         r["metrics"])
+                                        for r in p["rows"]]
+                                    for a, p in record["zoo"]["archs"]
+                                    .items()}
+        for k, v in launches.items():
+            launches_total[k] += v
+        out[f"quick_{variant}"] = {
+            **record, "main_path_s": wall, "launches": launches,
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    if rows[("quick", "fused")] != rows[("quick", "pallas")]:
+        raise AssertionError("arch_profiles --quick: fused rows differ "
+                             "from pallas")
+    log("profiles --quick: fused rows equal pallas rows, metric for metric")
+
+    lib = get_default_library()
+    mults = arch_profiles._multipliers(lib, quick=True)
+    for arch, family, layers in PROFILE_FULL_WIDTH:
+        cfg = get_config(arch)
+        reduced = {}
+        if layers is not None:
+            reduced = {"n_layers": f"{layers} of {cfg.n_layers}"}
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        n_params = sum(v.numel() for v in _leaves(abstract_params(cfg)))
+        log(f"profile {arch} at full width (d_model {cfg.d_model}, "
+            f"{cfg.n_layers} layers, {cfg.dtype}): {n_params / 1e9:.3f} B "
+            f"f32 parameters, {n_params * 4 / 1e9:.2f} GB"
+            + (f"; reduced {reduced}" if reduced else ""))
+        got = {}
+        for variant in ("pallas", "fused"):
+            record, wall, launches = _drive(
+                f"profile {arch} at full width ({variant})",
+                lambda: _full_width_profile(cfg, family, variant, lib,
+                                            mults, device, log),
+                (DSE_KERNEL[variant], PROFILE_SINGLE[variant]))
+            got[variant] = {**record, "main_path_s": wall,
+                            "launches": launches}
+            for k, v in launches.items():
+                launches_total[k] += v
+            torch.cuda.empty_cache()
+        if (got["fused"]["rows"] != got["pallas"]["rows"]
+                or got["fused"]["identity_metrics"]
+                != got["pallas"]["identity_metrics"]):
+            raise AssertionError(f"{arch} at full width: fused rows differ "
+                                 "from pallas")
+        log(f"profile {arch} at full width: fused rows equal pallas rows")
+        for v in got.values():
+            v.pop("rows")
+            v.pop("identity_metrics")
+        out[f"full_{arch}"] = {"n_layers": cfg.n_layers,
+                               "params": n_params, "reduced": reduced,
+                               **got}
+    torch.cuda.empty_cache()
+    out["step_timing"] = _profile_step_timing(device)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif hasattr(tree, "numel"):
+        yield tree
+
+
 def _time(fn, reps: int, warmup: int) -> float:
     import torch
     for _ in range(warmup):
@@ -1939,12 +2267,13 @@ def _device_ops(call, reps: int = 1, attempts: int = 3) -> dict:
     """The device work of one call, under ``torch.profiler`` over
     ``reps`` calls: the count of device-side entries (kernels and
     memsets) a call queues, their names and their device time a call.
-    A window's last kernel record can arrive after the window closes, so
-    each window ends with two marker kernels (``torch.cuda._sleep``'s
-    spin kernel, which no call here queues), left out of the count; a
-    count that is still not a whole number of calls is profiled again,
-    up to ``attempts`` times, and fails then (the call's kernel at least
-    must show)."""
+    A window's last kernel record can arrive after the window closes, and
+    its first one can be lost while tracing starts (one run saw 9 of 10
+    calls in each of three windows), so each window starts and ends with
+    two marker kernels (``torch.cuda._sleep``'s spin kernel, which no
+    call here queues), left out of the count; a count that is still not
+    a whole number of calls is profiled again, up to ``attempts`` times,
+    and fails then (the call's kernel at least must show)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     call()                                      # warm: builds, caches
@@ -1953,6 +2282,8 @@ def _device_ops(call, reps: int = 1, attempts: int = 3) -> dict:
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                torch.cuda._sleep(1000)
             for _ in range(reps):
                 call()
             for _ in range(2):
@@ -2183,6 +2514,9 @@ def main() -> int:
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["main"]["continuous_step_profile"] = phase_profile_continuous(
         device)
+    # after the timing phase too (its profiler windows; ROADMAP.md Watch)
+    details["main"]["profiles"] = phase_profiles(
+        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

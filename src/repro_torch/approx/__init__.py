@@ -7,7 +7,7 @@ from .objectives import (AtLeast, AtMost, MaxDrop, Objective,
                          ensure_objective, get_objective,
                          register_objective, select, value_of)
 from .workload import (Workload, as_workload, classification,
-                       layer_mult_counts)
+                       layer_mult_counts, lm_fidelity)
 from .registry import (Datapath, available_datapaths, get_datapath,
                        register_datapath)
 from .specs import (BackendSpec, LutBank, MaterializedBackend, PolicyBank,
@@ -26,3 +26,8 @@ from .surrogate import (FEATURE_NAMES, SurrogateConfig,
                         SurrogatePredictor, circuit_features,
                         feature_matrix, fit_surrogate,
                         surrogate_components, train_subset)
+from .modules import (EXACT_FAMILIES, FILL_EXACT, MODULE_FAMILIES,
+                      ModuleMap, module_of, module_policy_bank,
+                      module_sweep_assignments)
+from .profiles import (ArchProfile, ModuleRow, profile_architecture,
+                       profile_zoo)

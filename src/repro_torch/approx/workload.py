@@ -13,15 +13,20 @@ sweeps understand:
 
 Shipped adapters: ``classification(cfg, model)`` — ResNet /
 synthetic-CIFAR top-1 accuracy, the paper's case study (with
-``fidelity=True`` also the logit MAE against the golden int8 logits) — and
+``fidelity=True`` also the logit MAE against the golden int8 logits);
 ``logit_fidelity(forward, inputs)`` — mean |logit error| against a
-reference datapath, the wide-width study's fidelity axis.  The LM
-adapters wait for the model-zoo slice.
+reference datapath, the wide-width study's fidelity axis; and
+``lm_fidelity(cfg)`` — the same metrics for any ported decoder config
+(dense, moe, ssm, hybrid).  ``layer_mult_counts`` is the one MAC
+accounting for ResNets and those LM families.  Not ported yet, each
+raising: the MLA and encoder-decoder counts and the vlm image positions
+(ROADMAP.md Queue 1, "LM zoo: MLA, encoder-decoder and VLM") and
+``lm_perplexity``, which needs ``forward_train`` (Queue 1, "Training").
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -273,12 +278,181 @@ def _resnet_mult_counts(cfg, batch: int) -> dict[str, int]:
     return counts
 
 
+def _merge_counts(dst: dict, src: Mapping[str, int], scale: int = 1):
+    for tag, c in src.items():
+        dst[tag] = dst.get(tag, 0) + int(c) * scale
+
+
+def _attn_counts(cfg, t: int, prefix: str = "attn") -> dict[str, int]:
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        f"{prefix}.wq": dense_mult_count((t, d), (d, h * hd)),
+        f"{prefix}.wk": dense_mult_count((t, d), (d, hk * hd)),
+        f"{prefix}.wv": dense_mult_count((t, d), (d, hk * hd)),
+        f"{prefix}.wo": dense_mult_count((t, h * hd), (h * hd, d)),
+    }
+
+
+def _ffn_counts(cfg, t: int, prefix: str = "ffn",
+                d_ff: Optional[int] = None) -> dict[str, int]:
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    counts = {
+        f"{prefix}.wi": dense_mult_count((t, d), (d, f)),
+        f"{prefix}.wo": dense_mult_count((t, f), (f, d)),
+    }
+    if cfg.act == "silu":
+        counts[f"{prefix}.wg"] = dense_mult_count((t, d), (d, f))
+    return counts
+
+
+def _moe_counts(cfg, t: int) -> dict[str, int]:
+    """Expert MACs mirror the sort-based dispatch exactly: every expert
+    processes its full capacity buffer (zero-padded slots multiply
+    too), so the per-projection cost is ``nb * E * C * d * f`` with the
+    same blocked/unblocked capacity arithmetic as ``models.moe``.  The
+    router stays exact (f32) and carries no approximate MACs."""
+    from ..models.moe import capacity
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    f = cfg.moe_d_ff or cfg.d_ff
+    nb = cfg.moe_blocks
+    if nb > 1 and t % nb == 0 and t // nb >= k:
+        tb = t // nb
+    else:
+        nb, tb = 1, t
+    per = nb * e * capacity(cfg, tb)
+    counts = {"moe.wi": per * d * f, "moe.wo": per * f * d}
+    if cfg.act == "silu":
+        counts["moe.wg"] = per * d * f
+    if cfg.n_shared_experts > 0:
+        counts.update(_ffn_counts(cfg, t, prefix="moe.shared",
+                                  d_ff=f * cfg.n_shared_experts))
+    return counts
+
+
+def _mamba_counts(cfg, t: int) -> dict[str, int]:
+    from ..models.mamba2 import ssm_dims
+    dd = ssm_dims(cfg)
+    d, di = cfg.d_model, dd["d_inner"]
+    d_proj = 2 * di + 2 * dd["n"] + dd["n_heads"]
+    return {
+        "mamba.in_proj": dense_mult_count((t, d), (d, d_proj)),
+        "mamba.out_proj": dense_mult_count((t, di), (di, d)),
+    }
+
+
 def layer_mult_counts(cfg, batch: int = 1,
                       seq_len: int = 16) -> dict[str, int]:
-    """Per-layer-tag multiplication counts.  ResNet configs only; the
-    LM families arrive with the model-zoo slice (ROADMAP.md Queue 1)."""
+    """Per-layer-tag multiplication counts for a ``ResNetConfig``
+    (``seq_len`` ignored) or a dense / moe / ssm / hybrid ``LMConfig``
+    — the one MAC accounting behind the ``Workload.layer_counts``
+    protocol (DESIGN.md §2.12).  Layer tags are shared across the
+    stacked blocks ("attn.wq", "moe.wi", ...), so each tag's count
+    aggregates over every block that uses it, slot by slot of
+    ``models.decoder.block_pattern``.  Exact einsums (norms, attention
+    scores, the MoE router, the SSM scan) carry no approximate MACs and
+    do not appear."""
     if hasattr(cfg, "widths"):          # ResNetConfig, without an import
         return _resnet_mult_counts(cfg, batch)
-    raise NotImplementedError(
-        "layer_mult_counts for LM configs is not ported yet (ROADMAP.md "
-        'Queue 1, "LM model zoo and module profiles")')
+    from ..models.common import MLA_ITEM
+    if cfg.family in ("encdec", "vlm") or cfg.use_mla:
+        what = "MLA" if cfg.use_mla else f"the {cfg.family!r} family"
+        raise NotImplementedError(f"layer_mult_counts for {what} is not "
+                                  f"ported yet ({MLA_ITEM})")
+    from ..models.decoder import block_pattern
+
+    t = batch * seq_len
+    pattern = block_pattern(cfg)
+    reps = cfg.n_layers // len(pattern)
+    per_group: dict[str, int] = {}
+    for mixer, ffn_kind in pattern:
+        _merge_counts(per_group, _attn_counts(cfg, t) if mixer == "attn"
+                      else _mamba_counts(cfg, t))
+        if ffn_kind == "ffn":
+            _merge_counts(per_group, _ffn_counts(cfg, t))
+        elif ffn_kind == "moe":
+            _merge_counts(per_group, _moe_counts(cfg, t))
+    return {tag: c * reps for tag, c in per_group.items()}
+
+
+def lm_layer_mult_counts(cfg, batch: int, seq_len: int) -> dict[str, int]:
+    """The reference's earlier name for ``layer_mult_counts`` on LM
+    configs."""
+    return layer_mult_counts(cfg, batch=batch, seq_len=seq_len)
+
+
+# ----------------------------------------------------------------------
+# LM adapters
+# ----------------------------------------------------------------------
+def _lm_setup(cfg, params, seed: int, device: DeviceLike):
+    """(cfg, params, model fns, device) for the LM adapters.  ``cfg`` may
+    be an ``LMConfig`` or a ported arch name (resolved through
+    ``configs.get_config(...).reduced()``, so adapters stay smoke-test
+    sized by default).  Without ``params`` the weights are drawn on the
+    device from a ``torch.Generator`` seeded ``seed`` (the reference
+    uses ``PRNGKey(seed)``; the streams differ)."""
+    from ..models.registry import model_fns
+
+    if isinstance(cfg, str):
+        from ..configs import get_config
+        cfg = get_config(cfg).reduced()
+    dev = resolve_device(device)
+    fns = model_fns(cfg)
+    if params is None:
+        params = fns.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+    return cfg, params, fns, dev
+
+
+def _lm_token_batches(cfg, batch: int, seq_len: int, n_batches: int,
+                      seed: int, device: torch.device) -> list:
+    """The reference's deterministic synthetic token batches (numpy,
+    ``data.synthetic.token_stream``), on ``device``, with the family's
+    non-token inputs (``registry.input_extras``)."""
+    from ..data.synthetic import token_stream
+    from ..models.registry import input_extras
+
+    extras = {k: torch.from_numpy(v).to(device)
+              for k, v in input_extras(cfg, batch).items()}
+    out = []
+    for i in range(n_batches):
+        tokens, targets = token_stream(cfg.vocab, batch, seq_len,
+                                       step=i, seed=seed)
+        out.append({"tokens": torch.from_numpy(tokens).to(device),
+                    "targets": torch.from_numpy(targets).to(device),
+                    **extras})
+    return out
+
+
+def lm_fidelity(cfg: Union[str, Any], params=None, *, batch: int = 2,
+                seq_len: int = 16, n_batches: int = 2, seed: int = 0,
+                device: DeviceLike = None) -> Workload:
+    """Decoder logit fidelity vs the f32 model: prefill the LM on the
+    deterministic synthetic token batches and compare the last-position
+    logits against the exact-datapath reference — ``logit_mae``
+    (minimize, primary) + ``top1_agreement`` (maximize), for any ported
+    decoder config.  Runs on ``device`` (the GPU unless ``"cpu"``);
+    ``params`` may be given, e.g. the reference's carried across with
+    ``models.weights.lm_params_from_numpy``.  Under a banked policy the
+    logits carry a bank lane axis and each lane equals its sequential
+    evaluation bit for bit (``logit_fidelity``)."""
+    from ..models.registry import prompt_extra_len
+
+    cfg, params, fns, dev = _lm_setup(cfg, params, seed, device)
+    batches = _lm_token_batches(cfg, batch, seq_len, n_batches, seed, dev)
+    max_len = seq_len + prompt_extra_len(cfg, batches[0])
+
+    def forward(policy, b):
+        cache = fns.init_cache(cfg, batch, max_len, dev)
+        logits, _ = fns.forward_prefill(params, b, cache, cfg, policy)
+        return logits
+
+    return logit_fidelity(
+        forward, batches, name=f"lm_fidelity[{cfg.name}]",
+        layer_counts=layer_mult_counts(cfg, batch, seq_len))
+
+
+def lm_perplexity(cfg, params=None, **kw) -> Workload:
+    """Loss/perplexity of a decoder LM: needs ``forward_train``."""
+    from ..models.common import TRAIN_ITEM
+    raise NotImplementedError(f"lm_perplexity needs forward_train, which "
+                              f"is not ported yet ({TRAIN_ITEM})")

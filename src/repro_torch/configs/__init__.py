@@ -2,13 +2,15 @@
 ``get_config(arch_id)`` for the architectures the port serves.
 
 ``ARCHS`` lists every architecture ID of the reference; the port has
-the dense decoder only, so the other IDs raise ``NotImplementedError``.
+the dense, MoE, SSM and hybrid decoders, so the MLA, encoder-decoder
+and VLM IDs raise ``NotImplementedError`` naming the ROADMAP.md item
+that ports them.
 """
 from __future__ import annotations
 
 import importlib
 
-from ..models.common import LMConfig
+from ..models.common import MLA_ITEM, LMConfig
 
 ARCHS = {
     "llava-next-34b": "llava_next_34b",
@@ -24,7 +26,8 @@ ARCHS = {
 }
 
 #: Architectures whose config module the port has.
-PORTED = ("qwen1.5-0.5b",)
+PORTED = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-780m",
+          "jamba-v0.1-52b", "qwen3-14b", "yi-34b", "nemotron-4-15b")
 
 
 def get_config(arch: str) -> LMConfig:
@@ -32,7 +35,6 @@ def get_config(arch: str) -> LMConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {list(ARCHS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md Queue 1, "
-            '"LM model zoo and module profiles")')
+            f"arch {arch!r} is not ported yet ({MLA_ITEM})")
     mod = importlib.import_module(f"{__name__}.{ARCHS[arch]}")
     return mod.config()

@@ -1,0 +1,18 @@
+"""nemotron-4-15b [dense] — GQA, squared-ReLU FFN (no gate)
+[arXiv:2402.16819; unverified]."""
+from ..models.common import LMConfig
+
+
+def config() -> LMConfig:
+    return LMConfig(
+        name="nemotron-4-15b",
+        family="dense",
+        n_layers=32,
+        d_model=6144,
+        n_heads=48,
+        n_kv_heads=8,
+        d_ff=24576,
+        vocab=256000,
+        head_dim=128,
+        act="relu2",
+    )

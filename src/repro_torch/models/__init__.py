@@ -1,2 +1,2 @@
 """Models of the port (``repro.models`` counterpart): the CIFAR ResNet
-and the dense decoder LM."""
+and the decoder LM's dense, MoE, SSM and hybrid patterns."""

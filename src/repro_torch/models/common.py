@@ -24,10 +24,17 @@ projections run once for all lanes, and every float reduction whose
 order may depend on the batch size or the cache length runs per lane at
 the shape a sequential B=1 decode gives it.
 
+The batched sweeps (``approx.layers.policy_bank_eval``) give the
+activations a *bank lane* axis in front instead: a banked backend turns
+(B,S,D) into (n,B,S,D).  ``attention`` and ``ffn`` take such inputs as
+they come — the projections run once for all lanes, and the attention
+products run lane by lane (``each_lane``) — so each lane equals its
+sequential evaluation bit for bit.
+
 Not ported yet, each raising where a config asks for it: the sharding
 hints (``hint_*``: no mesh on one card), ``layer_norm`` (encdec),
 ``_chunked_grouped_attention`` (``attn_impl="chunked"``) — ROADMAP.md
-Queue 1, "LM model zoo and module profiles" — and
+Queue 1, "LM zoo: MLA, encoder-decoder and VLM" — and
 ``chunked_cross_entropy`` (Queue 1, "Training").
 """
 from __future__ import annotations
@@ -44,9 +51,11 @@ import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
 
-#: The ROADMAP.md items that port what this module does not have yet,
+#: The ROADMAP.md items that port what the port does not have yet,
 #: named by title so that a renumbering leaves them true.
-ZOO_ITEM = 'ROADMAP.md Queue 1, "LM model zoo and module profiles"'
+MLA_ITEM = 'ROADMAP.md Queue 1, "LM zoo: MLA, encoder-decoder and VLM"'
+LANE_SERVE_ITEM = ('ROADMAP.md Queue 1, "Serving the MoE, SSM and hybrid '
+                   'families"')
 TRAIN_ITEM = 'ROADMAP.md Queue 1, "Training"'
 
 
@@ -148,6 +157,20 @@ class LMConfig:
 # ----------------------------------------------------------------------
 # Initialization
 # ----------------------------------------------------------------------
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes matter: the
+    init functions then draw every parameter on the ``meta`` device (no
+    memory, no values), as the reference's ``jax.eval_shape`` does."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """Standard normal f32 draws from ``gen`` on its device."""
+    meta = gen.device.type == "meta"
+    return torch.randn(shape, generator=None if meta else gen,
+                       dtype=torch.float32, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None
                ) -> torch.Tensor:
     """Normal f32 weights scaled by 1/sqrt(fan_in) (fan_in = shape[-2],
@@ -155,8 +178,33 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None
     the generator's device."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device) * s
+    return randn(gen, shape) * s
+
+
+# ----------------------------------------------------------------------
+# Bank lanes of the batched sweeps
+# ----------------------------------------------------------------------
+def each_lane(fn, n: Optional[int], ndim: int, *xs):
+    """``fn(*xs)`` when ``n`` is None; else ``fn`` over each of ``n``
+    bank lanes alone, stacked on a new leading axis.  An ``x`` with
+    ``ndim + 1`` dims carries the lane axis in front, one with ``ndim``
+    dims is shared by every lane.  Each lane's slice is copied, so its
+    float reductions run at the sequential evaluation's shapes on a
+    fresh allocation and agree with it bit for bit."""
+    if n is None:
+        return fn(*xs)
+    return torch.stack([
+        fn(*(x[i].clone() if x.ndim == ndim + 1 else x for x in xs))
+        for i in range(n)])
+
+
+def lanes_of(ndim: int, *xs) -> Optional[int]:
+    """The bank lane count of the first ``x`` with ``ndim + 1`` dims
+    (None when none carries a lane axis)."""
+    for x in xs:
+        if x.ndim == ndim + 1:
+            return x.shape[0]
+    return None
 
 
 # ----------------------------------------------------------------------
@@ -280,20 +328,24 @@ def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
     projections, bias, qk-norm and RoPE.  ``lanes``: each batch row is a
     bank lane of the policy's banked backends (calibrated on its own)
     and qk-norm reduces each row alone."""
-    b, s, _ = x.shape
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = policy.matmul(f"{layer_tag}.wq", x, params["wq"], lanes=lanes)
-    k = policy.matmul(f"{layer_tag}.wk", x, params["wk"], lanes=lanes)
-    v = policy.matmul(f"{layer_tag}.wv", x, params["wv"], lanes=lanes)
+    mm_lanes = lanes or x.ndim == 4          # a bank lane axis in front
+    q = policy.matmul(f"{layer_tag}.wq", x, params["wq"], lanes=mm_lanes)
+    k = policy.matmul(f"{layer_tag}.wk", x, params["wk"], lanes=mm_lanes)
+    v = policy.matmul(f"{layer_tag}.wv", x, params["wv"], lanes=mm_lanes)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, hk, hd)
-    v = v.reshape(b, s, hk, hd)
+    q = q.reshape(*q.shape[:-1], h, hd)
+    k = k.reshape(*k.shape[:-1], hk, hd)
+    v = v.reshape(*v.shape[:-1], hk, hd)
     if cfg.qk_norm:
-        norm = lane_rms_norm if lanes else rms_norm
-        q = norm(q, params["qnorm"], cfg.norm_eps)
-        k = norm(k, params["knorm"], cfg.norm_eps)
+        def norm(t, gamma):
+            if lanes:
+                return lane_rms_norm(t, gamma, cfg.norm_eps)
+            return each_lane(lambda u: rms_norm(u, gamma, cfg.norm_eps),
+                             lanes_of(4, t), 4, t)
+        q = norm(q, params["qnorm"])
+        k = norm(k, params["knorm"])
     if cfg.use_rope:
         cos, sin = rope_tables(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -303,8 +355,8 @@ def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
 
 def _project_out(params, out, cfg: LMConfig, policy: ApproxPolicy,
                  layer_tag: str, lanes: bool) -> torch.Tensor:
-    b, s = out.shape[:2]
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    lanes = lanes or out.ndim == 5
+    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
     out = policy.matmul(f"{layer_tag}.wo", out, params["wo"], lanes=lanes)
     return out.to(cfg.dtype)
 
@@ -326,25 +378,34 @@ def attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     place) and the queries attend over the whole cache, later slots
     masked by a -1e30 bias as in the reference.  Without a cache, causal
     self-attention over x.  ``lanes``: the batch axis is a bank lane
-    axis (``_project_qkv``)."""
+    axis (``_project_qkv``).  Under a banked backend q/k/v gain a bank
+    lane axis in front: the cache then takes one too (a copy, each lane
+    writing its own keys and values) and attention runs lane by lane
+    (``each_lane``)."""
     if cfg.attn_impl == "chunked":
         raise NotImplementedError(
             f"attn_impl='chunked' (_chunked_grouped_attention) is not "
-            f"ported yet ({ZOO_ITEM})")
-    s = x.shape[1]
+            f"ported yet ({MLA_ITEM})")
+    s = x.shape[-2]
     q, k, v = _project_qkv(params, x, cfg, policy, positions, layer_tag,
                            lanes)
+    n = lanes_of(4, q, k, v)
     if cache is None:
-        out = _grouped_attention(q, k, v, causal_bias(0, s, s, x.device))
+        bias = causal_bias(0, s, s, x.device)
         new_cache = None
     else:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
-        ck[:, pos:pos + s] = k
-        cv[:, pos:pos + s] = v
-        out = _grouped_attention(q, ck, cv, causal_bias(
-            pos, s, ck.shape[1], x.device))
+        if n is not None and ck.ndim == 4:
+            ck = ck.expand(n, *ck.shape).clone()
+            cv = cv.expand(n, *cv.shape).clone()
+        ck[..., pos:pos + s, :, :] = k
+        cv[..., pos:pos + s, :, :] = v
+        k, v = ck, cv
+        bias = causal_bias(pos, s, ck.shape[-3], x.device)
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
+    out = each_lane(lambda q_, k_, v_: _grouped_attention(q_, k_, v_, bias),
+                    n, 4, q, k, v)
     return _project_out(params, out, cfg, policy, layer_tag,
                         lanes), new_cache
 
@@ -391,7 +452,8 @@ def init_ffn(gen: torch.Generator, cfg: LMConfig,
 
 def ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
         layer_tag: str = "ffn", lanes: bool = False) -> torch.Tensor:
-    """``lanes``: x's batch axis is a bank lane axis."""
+    """``lanes``: x's leading axis is a bank lane axis.  A banked
+    backend gives the hidden activations one when x has none."""
     hidden = policy.matmul(f"{layer_tag}.wi", x, params["wi"], lanes=lanes)
     if cfg.act == "silu":
         gate = policy.matmul(f"{layer_tag}.wg", x, params["wg"],
@@ -400,7 +462,9 @@ def ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
     else:
         hidden = activation(hidden, cfg.act)
     return policy.matmul(f"{layer_tag}.wo", hidden.to(cfg.dtype),
-                         params["wo"], lanes=lanes).to(cfg.dtype)
+                         params["wo"],
+                         lanes=lanes or hidden.ndim > x.ndim
+                         ).to(cfg.dtype)
 
 
 def logits_from_hidden(hidden: torch.Tensor, w_unembed: torch.Tensor

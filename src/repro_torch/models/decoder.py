@@ -1,15 +1,28 @@
-"""Decoder-only LM (port of ``repro.models.decoder``), dense pattern.
+"""Decoder-only LM (port of ``repro.models.decoder``) covering the
+dense / moe / ssm / hybrid families via a per-period block pattern.
 
-The reference covers the dense / moe / ssm / hybrid / vlm families with
-one per-period block pattern; the port has the dense one,
-``[attn + ffn]`` with period 1.  Parameters keep the reference's layout:
-``params["blocks"]`` holds every layer's weights stacked on a leading
-``(n_groups, ...)`` axis, so the two parameter trees map one to one
-(``models.weights.lm_params_from_numpy``), and ``_run_stack`` loops over
-that axis where the reference scans it.
+Block pattern per family:
+  dense  : period 1,  [attn + ffn]
+  moe    : period 1,  [attn + moe]
+  ssm    : period 1,  [mamba]
+  hybrid : period = attn_period (jamba: 8), attention at slot
+           ``period//2``, MoE on odd slots (1:7 attn:mamba, alternating
+           MoE, per the Jamba paper)
 
-The other families, MLA and ``forward_train`` raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Parameters keep the reference's layout: ``params["blocks"]`` holds every
+slot's weights stacked on a leading ``(n_groups, ...)`` axis, so the two
+parameter trees map one to one (``models.weights.lm_params_from_numpy``),
+and ``_run_stack`` loops over that axis where the reference scans it.
+
+Under a banked policy (``approx.layers.policy_bank_eval``) the hidden
+state gains a bank lane axis, (n,B,S,D), at the first banked projection;
+the norms, the unembedding and every mixer's exact part then run lane by
+lane (``common.each_lane``), so each lane equals its sequential
+evaluation bit for bit.
+
+MLA, the vlm pattern and ``forward_train`` raise ``NotImplementedError``
+naming their ROADMAP.md item, and so does the continuous engine's lane
+decode step for any family but the dense one.
 """
 from __future__ import annotations
 
@@ -18,23 +31,53 @@ from typing import Any, Optional
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
-from .common import (TRAIN_ITEM, ZOO_ITEM, LMConfig, attention, dense_init,
-                     ffn, init_attention, init_attention_cache, init_ffn,
-                     lane_attention, lane_rms_norm, logits_from_hidden,
-                     rms_norm)
+from .common import (LANE_SERVE_ITEM, MLA_ITEM, TRAIN_ITEM, LMConfig,
+                     attention, dense_init, each_lane, ffn, init_attention,
+                     init_attention_cache, init_ffn, lane_attention,
+                     lane_rms_norm, lanes_of, logits_from_hidden, rms_norm)
+from .mamba2 import init_mamba, init_mamba_cache, mamba_block
+from .moe import init_moe, moe_ffn
 
 
 def block_pattern(cfg: LMConfig) -> list[tuple[str, Optional[str]]]:
     """Returns [(mixer, ffn_kind)] per period slot."""
-    if cfg.family != "dense" or cfg.use_mla:
+    if cfg.use_mla or cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         what = "MLA" if cfg.use_mla else f"the {cfg.family!r} family"
-        raise NotImplementedError(f"{what} is not ported yet ({ZOO_ITEM})")
-    return [("attn", "ffn")]
+        raise NotImplementedError(f"{what} is not ported yet ({MLA_ITEM})")
+    if cfg.family == "ssm":
+        return [("mamba", None)]
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        return [("attn" if j == period // 2 else "mamba",
+                 "moe" if (j % 2 == 1 and cfg.n_experts > 0) else "ffn")
+                for j in range(period)]
+    return [("attn", "moe" if cfg.family == "moe" else "ffn")]
+
+
+def _init_mixer(gen, kind: str, cfg: LMConfig, lead: tuple) -> dict:
+    if kind == "attn":
+        return init_attention(gen, cfg, lead)
+    if kind == "mamba":
+        return init_mamba(gen, cfg, lead)
+    raise ValueError(kind)
+
+
+def _init_ffn(gen, kind: Optional[str], cfg: LMConfig, lead: tuple
+              ) -> Optional[dict]:
+    if kind is None:
+        return None
+    if kind == "ffn":
+        return init_ffn(gen, cfg, lead=lead)
+    if kind == "moe":
+        return init_moe(gen, cfg, lead)
+    raise ValueError(kind)
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     """Random f32 parameters from ``gen`` on its device, in the
-    reference's tree layout (stacked layer groups)."""
+    reference's tree layout (stacked layer groups; an ``ssm`` slot has
+    no ``ffn_j``/``norm2_j``).  A ``common.MetaGenerator`` gives the
+    shapes only, on the ``meta`` device."""
     pattern = block_pattern(cfg)
     period = len(pattern)
     if cfg.n_layers % period:
@@ -47,13 +90,24 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
         "unembed": dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
     }
     blocks = {}
-    for j, _ in enumerate(pattern):
-        blocks[f"mixer_{j}"] = init_attention(gen, cfg, lead)
+    for j, (mixer, ffn_kind) in enumerate(pattern):
+        blocks[f"mixer_{j}"] = _init_mixer(gen, mixer, cfg, lead)
         blocks[f"norm1_{j}"] = torch.ones((*lead, cfg.d_model), device=dev)
-        blocks[f"ffn_{j}"] = init_ffn(gen, cfg, lead=lead)
-        blocks[f"norm2_{j}"] = torch.ones((*lead, cfg.d_model), device=dev)
+        f = _init_ffn(gen, ffn_kind, cfg, lead)
+        if f is not None:
+            blocks[f"ffn_{j}"] = f
+            blocks[f"norm2_{j}"] = torch.ones((*lead, cfg.d_model),
+                                              device=dev)
     params["blocks"] = blocks
     return params
+
+
+def _norm(h: torch.Tensor, gamma: torch.Tensor, eps: float
+          ) -> torch.Tensor:
+    """``rms_norm`` of the hidden state (B,S,D), lane by lane when it
+    carries a bank lane axis."""
+    return each_lane(lambda x: rms_norm(x, gamma, eps), lanes_of(3, h), 3,
+                     h)
 
 
 def _index(tree, g: int):
@@ -66,40 +120,72 @@ def _index(tree, g: int):
 
 def _group_body(h, positions, gparams, gcache, cfg: LMConfig,
                 policy: ApproxPolicy, pattern, lanes: bool = False):
-    """One layer group: (h, new_gcache)."""
+    """One layer group: (h, aux, new_gcache); aux is the MoE layers'
+    load-balance loss (0.0 without one).  ``lanes``: the batch axis is a
+    bank lane axis (the continuous engine's prefill)."""
+    aux = 0.0
     new_cache: dict[str, Any] = {}
-    for j, (_mixer, _ffn) in enumerate(pattern):
-        hin = rms_norm(h, gparams[f"norm1_{j}"], cfg.norm_eps)
+    for j, (mixer, ffn_kind) in enumerate(pattern):
+        hin = _norm(h, gparams[f"norm1_{j}"], cfg.norm_eps)
         sub_cache = None if gcache is None else gcache[f"mixer_{j}"]
-        y, nc = attention(gparams[f"mixer_{j}"], hin, cfg, policy,
-                          positions=positions, cache=sub_cache,
-                          layer_tag="attn", lanes=lanes)
+        if mixer == "attn":
+            y, nc = attention(gparams[f"mixer_{j}"], hin, cfg, policy,
+                              positions=positions, cache=sub_cache,
+                              layer_tag="attn", lanes=lanes)
+        else:
+            y, nc = mamba_block(gparams[f"mixer_{j}"], hin, cfg, policy,
+                                cache=sub_cache, layer_tag="mamba")
         if nc is not None:
             new_cache[f"mixer_{j}"] = nc
         h = h + y
-        hin = rms_norm(h, gparams[f"norm2_{j}"], cfg.norm_eps)
-        h = h + ffn(gparams[f"ffn_{j}"], hin, cfg, policy, lanes=lanes)
-    return h, (new_cache or None)
+        if ffn_kind is not None:
+            hin = _norm(h, gparams[f"norm2_{j}"], cfg.norm_eps)
+            if ffn_kind == "moe":
+                y, a = moe_ffn(gparams[f"ffn_{j}"], hin, cfg, policy)
+                aux = aux + a
+            else:
+                y = ffn(gparams[f"ffn_{j}"], hin, cfg, policy,
+                        lanes=lanes or hin.ndim == 4)
+            h = h + y
+    return h, aux, (new_cache or None)
+
+
+def _restack(old, groups: list):
+    """The layer groups' new caches as one stacked tree.  A leaf every
+    group wrote in place into its slice of ``old`` stays ``old``; any
+    other (a mamba state, a cache that gained a bank lane axis) is
+    stacked anew.  Host ints (``pos``) are shared."""
+    first = groups[0]
+    if isinstance(first, dict):
+        return {k: _restack(None if old is None else old.get(k),
+                            [g[k] for g in groups]) for k in first}
+    if not isinstance(first, torch.Tensor):
+        return first
+    if (old is not None and old.shape[1:] == first.shape
+            and old.device.type != "meta"
+            and all(t.data_ptr() == old[g].data_ptr()
+                    for g, t in enumerate(groups))):
+        return old
+    return torch.stack(groups)
 
 
 def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
                caches=None, lanes: bool = False):
     """Run the layer groups in order.  ``caches``: the stacked cache
-    (or None); each group writes its slice in place.  Returns (h,
-    new_caches) — the same tensors with ``pos`` advanced."""
+    (or None); attention writes each group's slice in place.  Returns
+    (h, aux_total, new_caches)."""
     pattern = block_pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
-    new_caches = None
+    aux = 0.0
+    new = []
     for g in range(n_groups):
         gcache = None if caches is None else _index(caches, g)
-        h, nc = _group_body(h, positions, _index(params["blocks"], g),
-                            gcache, cfg, policy, pattern, lanes)
-        if nc is not None:
-            new_caches = {name: {"k": caches[name]["k"],
-                                 "v": caches[name]["v"],
-                                 "pos": sub["pos"]}
-                          for name, sub in nc.items()}
-    return h, new_caches
+        h, a, nc = _group_body(h, positions, _index(params["blocks"], g),
+                               gcache, cfg, policy, pattern, lanes)
+        aux = aux + a
+        new.append(nc)
+    new_caches = None if new[0] is None else _restack(caches, new)
+    return h, aux, new_caches
 
 
 def _embed_inputs(params, batch, cfg: LMConfig):
@@ -121,12 +207,25 @@ def forward_train(params, batch, cfg: LMConfig,
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
-    """Stacked (n_groups, ...) cache tree; ``pos`` is a host int."""
+    """Stacked (n_groups, ...) cache tree per mixer slot: attention
+    {"k", "v", "pos"} (``pos`` a host int), mamba {"conv", "state"}."""
     pattern = block_pattern(cfg)
     lead = (cfg.n_layers // len(pattern),)
-    return {f"mixer_{j}": init_attention_cache(cfg, batch, max_len,
-                                               device, lead)
-            for j, _ in enumerate(pattern)}
+    return {f"mixer_{j}": (
+        init_attention_cache(cfg, batch, max_len, device, lead)
+        if mixer == "attn" else
+        init_mamba_cache(cfg, batch, device, lead))
+        for j, (mixer, _f) in enumerate(pattern)}
+
+
+def _logits(params, h: torch.Tensor, row: int, cfg: LMConfig
+            ) -> torch.Tensor:
+    """Final norm and unembedding of position ``row``, lane by lane
+    when h carries a bank lane axis."""
+    def one(x):
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return logits_from_hidden(x[:, row, :], params["unembed"])
+    return each_lane(one, lanes_of(3, h), 3, h)
 
 
 def forward_prefill(params, batch, cache, cfg: LMConfig,
@@ -134,12 +233,12 @@ def forward_prefill(params, batch, cache, cfg: LMConfig,
                     lanes: bool = False):
     """Fill the cache from a prompt; returns (last_logits, new_cache).
     ``lanes``: each prompt row is a lane of the policy's banked
-    backends (the continuous engine's B=1 prefill)."""
+    backends (the continuous engine's B=1 prefill).  The MoE aux loss
+    is discarded, as in the reference."""
     h, positions = _embed_inputs(params, batch, cfg)
-    h, new_caches = _run_stack(params, h, positions, cfg, policy,
-                               caches=cache, lanes=lanes)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(h[:, -1, :], params["unembed"]), new_caches
+    h, _aux, new_caches = _run_stack(params, h, positions, cfg, policy,
+                                     caches=cache, lanes=lanes)
+    return _logits(params, h, -1, cfg), new_caches
 
 
 def forward_decode(params, token, cache, cfg: LMConfig,
@@ -148,10 +247,18 @@ def forward_decode(params, token, cache, cfg: LMConfig,
     pos = _cache_pos(cache, cfg)
     h = params["embed"][token.long()[:, None]].to(cfg.dtype)
     positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
-    h, new_caches = _run_stack(params, h, positions, cfg, policy,
-                               caches=cache)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(h[:, 0, :], params["unembed"]), new_caches
+    h, _aux, new_caches = _run_stack(params, h, positions, cfg, policy,
+                                     caches=cache)
+    return _logits(params, h, 0, cfg), new_caches
+
+
+def require_lane_decode(cfg: LMConfig) -> None:
+    """The continuous engine's lane decode step serves the dense
+    pattern only; raises for any other."""
+    if block_pattern(cfg) != [("attn", "ffn")]:
+        raise NotImplementedError(
+            f"continuous serving of the {cfg.family!r} family is not "
+            f"ported yet ({LANE_SERVE_ITEM})")
 
 
 def forward_decode_lanes(params, tokens, positions, kv, biases,
@@ -166,6 +273,7 @@ def forward_decode_lanes(params, tokens, positions, kv, biases,
     shapes a sequential B=1 ``forward_decode`` gives them, so each
     lane's logits equal that decode's bit for bit.  Returns the n
     (1, vocab) logits rows."""
+    require_lane_decode(cfg)
     pattern = block_pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
     h = params["embed"][tokens.long()[:, None]].to(cfg.dtype)
@@ -187,7 +295,8 @@ def forward_decode_lanes(params, tokens, positions, kv, biases,
 
 
 def _cache_pos(cache, cfg: LMConfig) -> int:
-    """Current position (a host int) from the first attention cache."""
+    """Current position (a host int) from the first attention cache; 0
+    for pure SSM (no RoPE, the position does not matter)."""
     for j, (mixer, _f) in enumerate(block_pattern(cfg)):
         if mixer == "attn":
             return cache[f"mixer_{j}"]["pos"]

@@ -1,7 +1,8 @@
 """Family dispatch (port of ``repro.models.registry``): maps
 ``LMConfig.family`` to the init/forward functions, plus the serving
 hooks the engines use (``input_extras``, ``prompt_extra_len``,
-``probe_layer_tags``).  The port has the decoder only.
+``probe_layer_tags``).  The port has the decoder (dense, moe, ssm and
+hybrid patterns); the encoder-decoder family raises.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from . import decoder
-from .common import ZOO_ITEM, LMConfig
+from .common import MLA_ITEM, LMConfig, MetaGenerator
 
 
 class ModelFns:
@@ -33,7 +34,7 @@ _DECODER = ModelFns(decoder.init_params, decoder.forward_train,
 def model_fns(cfg: LMConfig) -> ModelFns:
     if cfg.family == "encdec":
         raise NotImplementedError(f"the encoder-decoder family is not "
-                                  f"ported yet ({ZOO_ITEM})")
+                                  f"ported yet ({MLA_ITEM})")
     return _DECODER
 
 
@@ -93,6 +94,13 @@ def probe_layer_tags(cfg: LMConfig, params) -> tuple[str, ...]:
     with torch.inference_mode():
         fns.forward_prefill(on_meta, batch, cache, cfg, probe)
     return tuple(seen)
+
+
+def abstract_params(cfg: LMConfig) -> dict:
+    """The model's parameter tree on the ``meta`` device: shapes and
+    dtypes, no memory (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return model_fns(cfg).init_params(MetaGenerator(), cfg)
 
 
 def _to_device(tree, device: torch.device):

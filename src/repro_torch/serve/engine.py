@@ -40,6 +40,7 @@ from ..approx.layers import (EXACT_POLICY, ApproxPolicy,
 from ..approx.specs import BackendSpec, bank_for, policy_assignment
 from ..kernels import ops
 from ..models.common import LMConfig, causal_bias
+from ..models.decoder import require_lane_decode
 from ..models.registry import (input_extras, model_fns, probe_layer_tags,
                                prompt_extra_len)
 from .kv_cache import PagedKVCache
@@ -176,6 +177,7 @@ class ContinuousEngine:
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  mode: str = "lut", variant: str = "ref",
                  block_m: int = 512, base: Optional[BackendSpec] = None):
+        require_lane_decode(cfg)
         self.cfg = cfg
         self.params = params
         self.fns = model_fns(cfg)
