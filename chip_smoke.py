@@ -42,7 +42,9 @@ Phases (any failure exits nonzero):
      M = 1 and 8, the three (K, N) of qwen1.5-0.5b's projections); K1-K4
      at the module-profile sweeps' full-width shapes (``PROFILE_STEP``:
      P = 15 lanes of M = 4 capacity rows at qwen3-moe's expert
-     projections, P = 6 lanes of 16 rows at mamba2's in/out projections);
+     projections, P = 6 lanes of 16 rows at mamba2's in/out projections;
+     ``PROFILE_STEP_CHECK``: M = 3 000 rows a lane at whisper's encoder
+     projections, P = 24 lanes of 4 rows at deepseek's experts);
   3. main paths, each with the launch counters zeroed just before it and
      read just after: the full-width ResNet-8 case study under
      ``variant="pallas"`` (K1/K2) and ``variant="fused"`` (K3/K4), whose
@@ -151,20 +153,35 @@ Phases (any failure exits nonzero):
      read just after: ``repro_torch.launch.arch_profiles.run(quick=
      True)`` under ``"pallas"`` (K2, K1) and ``"fused"`` (K4, K3), failing
      unless its four gates hold (coverage, selection, bit identity, and
-     the banked calls of the identity sweeps equal to the formula), each
-     profiled arch's modules, module shares and row count and the
-     multipliers equal the reference's recorded run (``benchmarks/
-     results/BENCH_profiles.json``; the selections are printed beside
-     the record's) and fused rows equal pallas rows; then, through the
-     library API, mamba2-780m at full width (48 layers) and
-     qwen3-moe-30b-a3b at full width with 4 of its 48 layers (bf16,
-     random weights on the card): each profile's stage walls, banked
-     launches a sweep, peak memory and selection, failing unless the
-     banked sweep of every row equals the sequential evaluation bit for
-     bit, the banked kernel launched exactly the formula's count (96 and
-     1 552 a sweep) and fused rows equal pallas rows, with one banked
-     sweep of each under ``torch.profiler`` (device busy, kernels); then
-     K2 and K4 timed at those sweeps' shapes beside their bounds.
+     the banked calls of the identity sweeps equal to the formula), its
+     five archs (whisper-large-v3's encoder-decoder among them), each
+     one's modules, module shares and row count and the multipliers
+     equal the reference's recorded run (``benchmarks/results/
+     BENCH_profiles.json``; the selections are printed beside the
+     record's) and fused rows equal pallas rows; then ``run(quick=False)``
+     under ``"pallas"``, the eight reduced archs (deepseek-v2-236b's MLA
+     and llava-next-34b's image path among them) and ResNet-8, failing
+     unless its four gates hold; then, through the library API, at full
+     width with random weights on the card at the configs' dtype:
+     mamba2-780m (48 layers), qwen3-moe-30b-a3b (4 of 48 layers),
+     whisper-large-v3 (4 + 4 of 32 + 32 layers, all 1 500 frames) and
+     deepseek-v2-236b (1 of 60 layers): each profile's stage walls,
+     banked launches a sweep, peak memory and selection, failing unless
+     the banked sweep of every row equals the sequential evaluation bit
+     for bit, the banked kernel launched exactly the formula's count
+     (96, 1 552, 64 and 491 a sweep) and fused rows equal pallas rows,
+     with one banked sweep of each under ``torch.profiler`` (device
+     busy, kernels); then K2 and K4 timed at those sweeps' shapes beside
+     their bounds;
+  8. the encoder-decoder serve path, last: ``launch.serve.run(arch=
+     "whisper-large-v3")``, the whole model (32 + 32 layers, 1 500 stub
+     audio frames) at full width under the serve path's settings, which
+     must launch K9 512 times a prefill and 256 a decode step (9 728 in
+     the run), keep every K9 call of one prefill and one decode step
+     within the bound of its plain version, and agree with the same
+     model under ``variant="ref"`` within the logit tolerance
+     (teacher-forced); its prefill and decode rates, one profiled decode
+     step and the model's bytes are printed.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -295,18 +312,39 @@ BENCH_SERVE = os.path.join(ROOT, "benchmarks", "results", "BENCH_serve.json")
 CONTINUOUS_KERNELS = {"pallas": ("lut_matmul_bank", "lut_matmul"),
                       "fused": ("fused_matmul_bank", "fused_matmul")}
 # the module-resilience profiles (``launch.arch_profiles``): the
-# reference's recorded ``--quick`` run, and the two families at full
-# width (qwen3-moe's depth cut from 48 to 4 layers: 48 layers of 128
-# experts are ~29 B parameters, more than one card holds in f32)
+# reference's recorded ``--quick`` run, and four families at full width,
+# each with the depth cuts it needs (qwen3-moe: 48 layers of 128 experts
+# are ~29 B parameters, more than one card holds in f32; deepseek: one
+# layer of its 160 experts is already ~3.8 B; whisper: 4 + 4 of its
+# 32 + 32 layers keep the run's time, at all 1 500 encoder frames)
 BENCH_PROFILES = os.path.join(ROOT, "benchmarks", "results",
                               "BENCH_profiles.json")
-PROFILE_FULL_WIDTH = (("mamba2-780m", "ssm", None),
-                      ("qwen3-moe-30b-a3b", "moe", 4))
+PROFILE_FULL_WIDTH = (("mamba2-780m", "ssm", {}),
+                      ("qwen3-moe-30b-a3b", "moe", {"n_layers": 4}),
+                      ("whisper-large-v3", "encdec",
+                       {"n_enc_layers": 4, "n_layers": 4}),
+                      ("deepseek-v2-236b", "moe", {"n_layers": 1}))
 # the profile sweeps' K2/K4 shapes: (lanes, rows, K, N) of the MoE's
 # expert projections (5 families x 3 multipliers, capacity 4 rows) and of
-# mamba2's in/out projections (2 x 3 lanes, 2 x 8 tokens), full width
+# mamba2's in/out projections (2 x 3 lanes, 2 x 8 tokens), full width;
+# then whisper's encoder projections (7 x 3 lanes of 2 x 1 500 frames:
+# attention, FFN up, FFN down) and deepseek's expert projections (8 x 3
+# lanes, capacity 4 rows), timed with fewer repetitions
 PROFILE_STEP = ((15, 4, 2048, 768), (15, 4, 768, 2048),
                 (6, 16, 1536, 6448), (6, 16, 3072, 1536))
+PROFILE_STEP_LARGE = ((21, 3000, 1280, 1280), (21, 3000, 1280, 5120),
+                      (21, 3000, 5120, 1280), (24, 4, 5120, 1536),
+                      (24, 4, 1536, 5120))
+# the same sweeps' shapes held against the plain versions: whisper's
+# 3 000 rows a lane at 2 lanes (the plain gather's time), deepseek's
+# expert projections at all 24
+PROFILE_STEP_CHECK = ((2, 3000, 1280, 1280), (24, 4, 5120, 1536),
+                      (24, 4, 1536, 5120))
+# the encoder-decoder serve path: whisper-large-v3 whole (32 encoder and
+# 32 decoder layers, 1 500 frames) at the serve path's settings; K9 a
+# prefill: 6 a layer in the encoder, the cross-KV's 2 and 8 a layer in
+# the decoder; a decode step: the decoder's 8 a layer
+SERVE_ENCDEC = {**SERVE, "arch": "whisper-large-v3"}
 # H100 SXM FP32 FMA lanes per SM (SIMT, no tensor cores)
 FP32_LANES_PER_SM = 128
 # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet, 700 W); K9's
@@ -709,15 +747,15 @@ def phase_compare(shapes: dict, device) -> dict:
     # the module-profile sweeps: P lanes gathered from the profile's
     # 3-table bank (K2 on codes, K4 on floats), and the sequential
     # evaluations' single tables (K1, K3), at the full-width shapes
-    for p_, m, k, n in PROFILE_STEP:
+    for p_, m, k, n in PROFILE_STEP + PROFILE_STEP_CHECK:
         what = f"profile sweep P={p_} {(m, k, n)}"
         idx = torch.arange(p_, device=device) % t["profile"].shape[0]
         luts = t["profile"].index_select(0, idx)
         qa = _codes((m, k), gen, device)
         qab = _codes((p_, m, k), gen, device)
         qw = _codes((k, n), gen, device)
-        check("lut_matmul", [ops.approx_matmul_lut(qa, qw, luts[2])],
-              [ref.approx_matmul_lut_ref(qa, qw, luts[2].to(torch.int32))],
+        check("lut_matmul", [ops.approx_matmul_lut(qa, qw, luts[-1])],
+              [ref.approx_matmul_lut_ref(qa, qw, luts[-1].to(torch.int32))],
               what)
         for a_ in (qa, qab):
             check("lut_matmul_bank",
@@ -729,7 +767,7 @@ def phase_compare(shapes: dict, device) -> dict:
         xb = _floats((p_, m, k), gen, device)
         w = _floats((k, n), gen, device, 0.2)
         check_fused([("fused_matmul", ops.fused_matmul_lut,
-                      ref.fused_matmul_ref, (x, w, luts[2]), (), 8),
+                      ref.fused_matmul_ref, (x, w, luts[-1]), (), 8),
                      ("fused_matmul_bank", ops.fused_matmul_lut_bank,
                       ref.fused_matmul_bank_ref, (xb, w, luts), (), 8),
                      ("fused_matmul_bank", ops.fused_matmul_lut_bank,
@@ -1491,18 +1529,29 @@ def phase_library(device, log, launches_total: dict):
     return lib, record
 
 
-def _teacher_forced(cfg, params, prompts, tokens, policy, device):
+def _prefill_batch(prompts, extras, device) -> dict:
+    """The prefill's batch on ``device``: the prompts and the family's
+    non-token inputs (``registry.input_extras``), if any."""
+    import torch
+    return {"tokens": torch.as_tensor(prompts, device=device),
+            **{k: torch.as_tensor(v, device=device)
+               for k, v in (extras or {}).items()}}
+
+
+def _teacher_forced(cfg, params, prompts, tokens, policy, device,
+                    extras=None):
     """Prefill logits, then the decode logits with ``tokens`` fed back
     (so two policies see the same stream): (max_new, B, V) f32."""
     import torch
-    from repro_torch.models.registry import model_fns
+    from repro_torch.models.registry import model_fns, prompt_extra_len
     fns = model_fns(cfg)
     b, s = prompts.shape
+    rows = s + tokens.shape[1] + prompt_extra_len(cfg, extras)
     with torch.inference_mode():
-        cache = fns.init_cache(cfg, b, s + tokens.shape[1], device)
+        cache = fns.init_cache(cfg, b, rows, device)
         logits, cache = fns.forward_prefill(
-            params, {"tokens": torch.as_tensor(prompts, device=device)},
-            cache, cfg, policy)
+            params, _prefill_batch(prompts, extras, device), cache, cfg,
+            policy)
         out = [logits]
         for i in range(tokens.shape[1] - 1):
             logits, cache = fns.forward_decode(
@@ -1512,10 +1561,13 @@ def _teacher_forced(cfg, params, prompts, tokens, policy, device):
         return torch.stack(out).float()
 
 
-def _checked_generate(engine, prompts, device) -> dict:
+def _checked_generate(engine, prompts, per_step: tuple, rows: list,
+                      extras=None) -> dict:
     """One prefill and one decode step through ``engine`` with every K9
     call's output re-checked against the plain version on the same
-    codes, within the bound (``_check_lowrank``)."""
+    codes, within the bound (``_check_lowrank``); fails unless the
+    prefill and the step made ``per_step`` K9 calls at the ``rows``
+    given."""
     from repro_torch.kernels import datapaths, ref
     from repro_torch.serve import ServeConfig
     real = datapaths.lowrank_matmul
@@ -1531,32 +1583,34 @@ def _checked_generate(engine, prompts, device) -> dict:
 
     datapaths.lowrank_matmul = checked
     try:
-        engine.generate(prompts, ServeConfig(max_new_tokens=2))
+        engine.generate(prompts, ServeConfig(max_new_tokens=2),
+                        extras=extras)
     finally:
         datapaths.lowrank_matmul = real
-    per_forward = PROJECTIONS_PER_LAYER * engine.cfg.n_layers
-    rows = sorted({m for m, _, _ in seen})
-    if len(seen) != 2 * per_forward or len(rows) != 2:
+    got_rows = sorted({m for m, _, _ in seen})
+    if len(seen) != sum(per_step) or got_rows != sorted(rows):
         raise AssertionError(f"checked serve run made {len(seen)} K9 calls "
-                             f"at rows {rows}, expected {2 * per_forward} "
-                             "over one prefill and one decode step")
-    return {"calls": len(seen), "rows": rows,
+                             f"at rows {got_rows}, expected {per_step} at "
+                             f"rows {sorted(rows)} over one prefill and one "
+                             "decode step")
+    return {"calls": len(seen), "rows": got_rows,
             "max_abs_err": max(e for _, e, _ in seen),
             "max_err_over_bound": max(q for _, _, q in seen)}
 
 
-def _profile_decode(engine, prompts, device) -> dict:
+def _profile_decode(engine, prompts, device, extras=None) -> dict:
     """One decode step of the static engine under ``torch.profiler``
     (``_profiled``)."""
     import torch
+    from repro_torch.models.registry import prompt_extra_len
     cfg, fns, policy = engine.cfg, engine.fns, engine.policy
     b, s = prompts.shape
     with torch.inference_mode():
-        cache = fns.init_cache(cfg, b, s + 3, device)
+        rows = s + 3 + prompt_extra_len(cfg, extras)
+        cache = fns.init_cache(cfg, b, rows, device)
         logits, cache = fns.forward_prefill(
-            engine.params, {"tokens": torch.as_tensor(prompts,
-                                                      device=device)},
-            cache, cfg, policy)
+            engine.params, _prefill_batch(prompts, extras, device), cache,
+            cfg, policy)
         tok = torch.argmax(logits, -1).to(torch.int32)
         logits, cache = fns.forward_decode(engine.params, tok, cache, cfg,
                                            policy)        # warm-up step
@@ -1600,56 +1654,69 @@ def _profiled(fn) -> dict:
                          for e in host]}
 
 
-def phase_serve(device, log, launches_total: dict) -> dict:
-    """Path D: ``launch.serve.run`` at the full width of qwen1.5-0.5b
-    under ``lowrank``/``pallas`` (K9 in every projection of every layer,
-    prefill and decode), then its gates: K9 launched 7 x 24 times per
-    forward; every K9 call of one prefill and one decode step within the
-    bound of the plain version on the same codes; the same model under
-    ``variant="ref"`` (plain PyTorch) within the CPU tests' logit
-    tolerance, teacher-forced; one decode step profiled."""
+def _serve_path(device, log, launches_total: dict, settings: dict,
+                k9_calls) -> dict:
+    """``launch.serve.run`` at ``settings`` under ``lowrank``/``pallas``
+    (K9 in every projection of every layer, prefill and decode), then its
+    gates: K9 launched exactly ``k9_calls(cfg, batch, prompt)`` = (a
+    prefill's, a decode step's, the rows of the prefill's and the step's
+    calls) times a forward; every K9 call of one prefill and one decode
+    step within the bound of the plain version on the same codes; the
+    same model under ``variant="ref"`` (plain PyTorch) within
+    ``QUANT_RTOL``, teacher-forced; the model's bytes and one profiled
+    decode step printed."""
     import numpy as np
     import torch
     from repro_torch.launch import serve
+    from repro_torch.models.registry import input_extras
     from repro_torch.serve import Engine, ServeConfig
+    arch = settings["arch"]
     record, wall, launches = _drive(
-        "serve qwen1.5-0.5b (lowrank, pallas)",
-        lambda: serve.run(device, **SERVE, variant="pallas", log=log),
+        f"serve {arch} (lowrank, pallas)",
+        lambda: serve.run(device, **settings, variant="pallas", log=log),
         ("lowrank_matmul",))
     for k, v in launches.items():
         launches_total[k] += v
     dev, cfg, params, prompts = serve.setup(
-        device, SERVE["arch"], batch=SERVE["batch"],
-        prompt_len=SERVE["prompt_len"])
-    per_forward = PROJECTIONS_PER_LAYER * cfg.n_layers
-    per_generate = per_forward * SERVE["max_new"]
+        device, arch, batch=settings["batch"],
+        prompt_len=settings["prompt_len"])
+    extras = input_extras(cfg, settings["batch"]) or None
+    n_params = sum(v.numel() for v in _leaves(params))
+    per_prefill, per_decode, rows = k9_calls(cfg, *prompts.shape)
+    per_generate = per_prefill + (settings["max_new"] - 1) * per_decode
     # warm-up and timed runs: a full generate and a prefill-only one each
-    expected = 2 * (per_generate + per_forward)
+    expected = 2 * (per_generate + per_prefill)
     tokens = np.asarray(record["tokens"])
     if (launches["lowrank_matmul"] != expected
-            or tokens.shape != (SERVE["batch"], SERVE["max_new"])
+            or tokens.shape != (settings["batch"], settings["max_new"])
             or tokens.min() < 0 or tokens.max() >= cfg.vocab):
-        raise AssertionError(f"serve run malformed: K9 launches "
+        raise AssertionError(f"serve {arch} run malformed: K9 launches "
                              f"{launches['lowrank_matmul']} (expected "
                              f"{expected}), tokens {tokens.shape}")
-    log(f"serve: K9 launched {per_forward} times per forward, "
-        f"{per_generate} per generate ({expected} in the run); end-to-end "
-        f"{record['e2e_s']:.3f} s, prefill-only generate "
-        f"{record['prefill_s']:.3f} s, warm-up pair {record['warmup_s']:.2f} s")
-    pols = {v: serve.make_policy(SERVE["mode"], record["multiplier"],
-                                 SERVE["rank"], v)
+    log(f"serve {arch}: {n_params / 1e9:.3f} B f32 parameters, "
+        f"{n_params * 4 / 1e9:.2f} GB; K9 launched {per_prefill} times a "
+        f"prefill and {per_decode} a decode step, {per_generate} a "
+        f"generate ({expected} in the run); end-to-end "
+        f"{record['e2e_s']:.3f} s ({record['tok_per_s']:.2f} tok/s), "
+        f"prefill-only generate {record['prefill_s']:.3f} s, steady-state "
+        f"decode {record['decode_tok_per_s']:.2f} tok/s, warm-up pair "
+        f"{record['warmup_s']:.2f} s")
+    pols = {v: serve.make_policy(settings["mode"], record["multiplier"],
+                                 settings["rank"], v)
             for v in ("pallas", "ref")}
     engines = {v: Engine(cfg, params, p) for v, p in pols.items()}
-    checked = _checked_generate(engines["pallas"], prompts, dev)
-    log(f"serve: {checked['calls']} K9 calls of a prefill and a decode "
-        f"step (rows {checked['rows']}) within the bound of the plain "
-        f"version on the same codes; max |K9 - plain| "
+    checked = _checked_generate(engines["pallas"], prompts,
+                                (per_prefill, per_decode), rows, extras)
+    log(f"serve {arch}: {checked['calls']} K9 calls of a prefill and a "
+        f"decode step (rows {checked['rows']}) within the bound of the "
+        f"plain version on the same codes; max |K9 - plain| "
         f"{checked['max_abs_err']:.3g}, max |K9 - y64| / bound "
         f"{checked['max_err_over_bound']:.3g}")
-    cfg_new = ServeConfig(max_new_tokens=SERVE["max_new"])
-    greedy = {v: e.generate(prompts, cfg_new) for v, e in engines.items()}
+    cfg_new = ServeConfig(max_new_tokens=settings["max_new"])
+    greedy = {v: e.generate(prompts, cfg_new, extras=extras)
+              for v, e in engines.items()}
     logits = {v: _teacher_forced(cfg, params, prompts, greedy["pallas"],
-                                 p, dev) for v, p in pols.items()}
+                                 p, dev, extras) for v, p in pols.items()}
     d_pre = float((logits["pallas"][0] - logits["ref"][0]).abs().max())
     d_dec = float((logits["pallas"][1:] - logits["ref"][1:]).abs().max())
     agree = float((greedy["pallas"] == greedy["ref"]).mean())
@@ -1657,27 +1724,49 @@ def phase_serve(device, log, launches_total: dict) -> dict:
         raise AssertionError("the checked engine's greedy tokens differ "
                              "from the served run's")
     atol = QUANT_RTOL * float(logits["ref"].abs().max())
-    log(f"serve: pallas vs ref on the card: max |d logits| prefill "
+    log(f"serve {arch}: pallas vs ref on the card: max |d logits| prefill "
         f"{d_pre:.4g}, teacher-forced decode {d_dec:.4g} (tolerance "
         f"{atol:.4g} = {QUANT_RTOL} x the largest |logit|); greedy tokens "
         f"agree {agree:.1%}")
     if not (bool(torch.isfinite(logits["pallas"]).all())
             and d_pre <= atol and d_dec <= atol):
-        raise AssertionError(f"pallas serve logits differ from ref beyond "
-                             f"{atol}: {d_pre}, {d_dec}")
-    prof = _profile_decode(engines["pallas"], prompts, dev)
-    log(f"serve: one decode step {prof['wall_ms']:.2f} ms under the "
-        f"profiler, device busy {prof['device_busy_ms']} ms "
-        f"(share {prof['busy_share']}, {prof['kernels']} kernels); top "
-        f"device {prof['top'][:5]}; top host {prof['top_host'][:5]}")
+        raise AssertionError(f"{arch} pallas serve logits differ from ref "
+                             f"beyond {atol}: {d_pre}, {d_dec}")
+    prof = _profile_decode(engines["pallas"], prompts, dev, extras)
+    log(f"serve {arch}: one decode step {prof['wall_ms']:.2f} ms under the "
+        f"profiler, device busy {prof['device_busy_ms']} ms (share "
+        f"{prof['busy_share']}, {prof['kernels']} kernels); top device "
+        f"{prof['top'][:5]}; top host {prof['top_host'][:5]}")
     del engines, params, logits
     torch.cuda.empty_cache()
     return {**record, "main_path_s": wall, "launches": launches,
-            "k9_per_forward": per_forward, "k9_per_generate": per_generate,
+            "params": n_params, "k9_per_prefill": per_prefill,
+            "k9_per_decode": per_decode, "k9_per_generate": per_generate,
             "checked": checked, "pallas_vs_ref": {
                 "prefill_max_abs": d_pre, "decode_max_abs": d_dec,
                 "atol": atol, "token_agreement": agree},
             "decode_profile": prof}
+
+
+def phase_serve(device, log, launches_total: dict) -> dict:
+    """Path D: qwen1.5-0.5b at full width (``_serve_path``): K9 7 x 24
+    times a prefill and a decode step."""
+    def k9_calls(cfg, b, s):
+        per_forward = PROJECTIONS_PER_LAYER * cfg.n_layers
+        return per_forward, per_forward, [b * s, b]
+    return _serve_path(device, log, launches_total, SERVE, k9_calls)
+
+
+def phase_serve_encdec(device, log, launches_total: dict) -> dict:
+    """Path G: whisper-large-v3 whole (32 encoder and 32 decoder layers,
+    1 500 frames of stub audio embeddings) at full width
+    (``_serve_path``): K9 32 x 6 + 32 x 2 + 32 x 8 = 512 times a prefill
+    (encoder, cross-KV, decoder) at 1 500 and S rows a sequence, and
+    32 x 8 = 256 a decode step."""
+    def k9_calls(cfg, b, s):
+        return (cfg.n_enc_layers * 6 + cfg.n_layers * (2 + 8),
+                cfg.n_layers * 8, [b * cfg.enc_frames, b * s, b])
+    return _serve_path(device, log, launches_total, SERVE_ENCDEC, k9_calls)
 
 
 def _profile_continuous_step(device) -> dict:
@@ -1811,14 +1900,17 @@ def _profile_rows(prof) -> list:
 
 def _check_quick_profiles(record, bench, variant: str, log) -> None:
     """``arch_profiles --quick``: its four gates hold, and what does not
-    depend on the weights equals the reference's recorded run: each
-    ported arch's modules (in order), module shares (exactly), row count,
-    and the multipliers; the selections are printed beside the
-    record's."""
+    depend on the weights equals the reference's recorded run: the five
+    archs, each one's modules (in order), module shares (exactly) and
+    row count, and the multipliers; the selections are printed beside
+    the record's."""
     failed = [g for g, ok in record["gates"].items() if not ok]
     if failed:
         raise AssertionError(f"arch_profiles --quick ({variant}): gates "
                              f"failed {failed}")
+    archs, want = list(record["zoo"]["archs"]), list(bench["zoo"]["archs"])
+    if archs != want:
+        raise AssertionError(f"profiled archs {archs} != recorded {want}")
     if record["multipliers"] != bench["multipliers"]:
         raise AssertionError(f"profile multipliers {record['multipliers']} "
                              f"!= recorded {bench['multipliers']}")
@@ -1840,11 +1932,6 @@ def _check_quick_profiles(record, bench, variant: str, log) -> None:
             f"{sel['modules']} power {sel['power']:.4f} drop "
             f"{sel['quality_drop']:.4f} (record: {rsel['modules']} power "
             f"{rsel['power']:.4f} drop {rsel['quality_drop']:.4f})")
-    ported = set(record["zoo"]["archs"])
-    if ported | {n["arch"] for n in record["not_ported"]} != set(
-            bench["zoo"]["archs"]):
-        raise AssertionError("profiled + not ported archs differ from the "
-                             "recorded zoo")
 
 
 def _full_width_profile(cfg, family: str, variant: str, lib, mults,
@@ -1872,7 +1959,8 @@ def _full_width_profile(cfg, family: str, variant: str, lib, mults,
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device)
     expected = ident["banked_calls_expected"]
-    label = f"{cfg.name} ({cfg.n_layers} layers, {variant})"
+    enc = f"{cfg.n_enc_layers} + " if cfg.n_enc_layers else ""
+    label = f"{cfg.name} ({enc}{cfg.n_layers} layers, {variant})"
     if not (ident["bit_identical"]
             and ident["banked_calls_full"] == expected
             and ident["banked_calls_truncated"] == expected
@@ -1936,7 +2024,9 @@ def _profile_step_timing(device) -> list:
     lookup_rate = sms * LOOKUPS_PER_SM_CLOCK * clock_hz
     int_rate = sms * INT32_OPS_PER_SM_CLOCK * clock_hz
     rows = []
-    for p_, m, k, n in PROFILE_STEP:
+    steps = [(*shape, 20, 3) for shape in PROFILE_STEP] + [
+        (*shape, 3, 1) for shape in PROFILE_STEP_LARGE]
+    for p_, m, k, n, reps, warmup in steps:
         idx = torch.arange(p_, device=device) % t["profile"].shape[0]
         luts = t["profile"].index_select(0, idx)
         qab, qw = _codes((p_, m, k), gen, device), _codes((k, n), gen, device)
@@ -1955,7 +2045,8 @@ def _profile_step_timing(device) -> list:
             nbytes = (p_ * m * k + k * n + p_ * m * n) * 4 + tables_b \
                 + extra_b
             rows.append({"kernel": kernel, "lanes": p_, "M": m, "K": k,
-                         "N": n, "ms": _time(call, reps=20, warmup=3),
+                         "N": n, "ms": _time(call, reps=reps,
+                                             warmup=warmup),
                          "items": fm.k_split(p_, m, k, n, sms).items,
                          **_bounds(products / lookup_rate,
                                    int_seconds(0, 2 * products, int_rate),
@@ -1972,12 +2063,16 @@ def phase_profiles(device, log, launches_total: dict) -> dict:
     """Path F: the module-resilience profiles of the LM zoo.  (a)
     ``launch.arch_profiles.run(quick=True)`` under ``pallas`` (K2, K1)
     and ``fused`` (K4, K3): the four gates, and the record's
-    weight-independent fields against ``BENCH_profiles.json``; (b)
-    mamba2-780m at full width and qwen3-moe-30b-a3b at full width with 4
-    of its 48 layers, bf16, random weights on the card: each profile's
-    walls, banked launches, peak memory and selection, banked ==
-    sequential on every row, the launch count, and fused rows == pallas
-    rows."""
+    weight-independent fields against ``BENCH_profiles.json`` for all
+    five archs; (b) ``run(quick=False)`` under ``pallas``: the eight
+    reduced archs and ResNet-8, the four gates; (c) at full width
+    (``PROFILE_FULL_WIDTH``: mamba2-780m; qwen3-moe-30b-a3b with 4 of its
+    48 layers; whisper-large-v3 with 4 + 4 of its 32 + 32 layers and all
+    1 500 frames; deepseek-v2-236b with 1 of its 60 layers), the configs'
+    dtype, random weights on the card: each profile's walls, banked
+    launches, peak memory and selection, banked == sequential on every
+    row, the launch count, and fused rows == pallas rows; (d) K2 and K4
+    timed at those sweeps' shapes."""
     import dataclasses
 
     import torch
@@ -2011,14 +2106,35 @@ def phase_profiles(device, log, launches_total: dict) -> dict:
                              "from pallas")
     log("profiles --quick: fused rows equal pallas rows, metric for metric")
 
+    # full mode: the eight reduced archs (llava-next-34b's vlm path among
+    # them) and ResNet-8; a failed gate raises
+    torch.cuda.reset_peak_memory_stats(device)
+    record, wall, launches = _drive(
+        "arch_profiles full (pallas)",
+        lambda: arch_profiles.run(device, quick=False, variant="pallas",
+                                  log=log),
+        (DSE_KERNEL["pallas"], PROFILE_SINGLE["pallas"]))
+    for k, v in launches.items():
+        launches_total[k] += v
+    archs = list(record["zoo"]["archs"])
+    expected = [a for a, _f in arch_profiles.QUICK_ARCHS
+                + arch_profiles.FULL_EXTRA_ARCHS] + ["resnet8-cifar"]
+    if archs != expected:
+        raise AssertionError(f"arch_profiles full profiled {archs}, "
+                             f"expected {expected}")
+    log(f"profiles full (pallas): {len(archs)} profiles in {wall:.2f} s, "
+        f"gates {record['gates']}, multipliers {record['multipliers']}")
+    out["full_pallas"] = {**record, "main_path_s": wall,
+                          "launches": launches,
+                          "peak_bytes": torch.cuda.max_memory_allocated(
+                              device)}
+
     lib = get_default_library()
     mults = arch_profiles._multipliers(lib, quick=True)
-    for arch, family, layers in PROFILE_FULL_WIDTH:
+    for arch, family, cuts in PROFILE_FULL_WIDTH:
         cfg = get_config(arch)
-        reduced = {}
-        if layers is not None:
-            reduced = {"n_layers": f"{layers} of {cfg.n_layers}"}
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        reduced = {k: f"{v} of {getattr(cfg, k)}" for k, v in cuts.items()}
+        cfg = dataclasses.replace(cfg, **cuts)
         n_params = sum(v.numel() for v in _leaves(abstract_params(cfg)))
         log(f"profile {arch} at full width (d_model {cfg.d_model}, "
             f"{cfg.n_layers} layers, {cfg.dtype}): {n_params / 1e9:.3f} B "
@@ -2046,6 +2162,7 @@ def phase_profiles(device, log, launches_total: dict) -> dict:
             v.pop("rows")
             v.pop("identity_metrics")
         out[f"full_{arch}"] = {"n_layers": cfg.n_layers,
+                               "n_enc_layers": cfg.n_enc_layers,
                                "params": n_params, "reduced": reduced,
                                **got}
     torch.cuda.empty_cache()
@@ -2516,6 +2633,8 @@ def main() -> int:
         device)
     # after the timing phase too (its profiler windows; ROADMAP.md Watch)
     details["main"]["profiles"] = phase_profiles(
+        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
+    details["main"]["serve_encdec"] = phase_serve_encdec(
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)

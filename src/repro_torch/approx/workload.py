@@ -16,12 +16,12 @@ synthetic-CIFAR top-1 accuracy, the paper's case study (with
 ``fidelity=True`` also the logit MAE against the golden int8 logits);
 ``logit_fidelity(forward, inputs)`` — mean |logit error| against a
 reference datapath, the wide-width study's fidelity axis; and
-``lm_fidelity(cfg)`` — the same metrics for any ported decoder config
-(dense, moe, ssm, hybrid).  ``layer_mult_counts`` is the one MAC
-accounting for ResNets and those LM families.  Not ported yet, each
-raising: the MLA and encoder-decoder counts and the vlm image positions
-(ROADMAP.md Queue 1, "LM zoo: MLA, encoder-decoder and VLM") and
-``lm_perplexity``, which needs ``forward_train`` (Queue 1, "Training").
+``lm_fidelity(cfg)`` — the same metrics for any LM config of the zoo
+(dense, moe, ssm, hybrid, MLA, vlm with its image embeddings, encdec
+with its audio frames).  ``layer_mult_counts`` is the one MAC accounting
+for ResNets and those LM families.  Not ported yet, raising:
+``lm_perplexity``, which needs ``forward_train`` (ROADMAP.md Queue 1,
+"Training").
 """
 from __future__ import annotations
 
@@ -293,6 +293,22 @@ def _attn_counts(cfg, t: int, prefix: str = "attn") -> dict[str, int]:
     }
 
 
+def _mla_counts(cfg, t: int) -> dict[str, int]:
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    ql, kl = cfg.q_lora, cfg.kv_lora
+    return {
+        "mla.wdq": dense_mult_count((t, d), (d, ql)),
+        "mla.wuq": dense_mult_count((t, ql), (ql, h * dn)),
+        "mla.wqr": dense_mult_count((t, ql), (ql, h * dr)),
+        "mla.wdkv": dense_mult_count((t, d), (d, kl)),
+        "mla.wuk": dense_mult_count((t, kl), (kl, h * dn)),
+        "mla.wuv": dense_mult_count((t, kl), (kl, h * dv)),
+        "mla.wkr": dense_mult_count((t, d), (d, dr)),
+        "mla.wo": dense_mult_count((t, h * dv), (h * dv, d)),
+    }
+
+
 def _ffn_counts(cfg, t: int, prefix: str = "ffn",
                 d_ff: Optional[int] = None) -> dict[str, int]:
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
@@ -340,38 +356,72 @@ def _mamba_counts(cfg, t: int) -> dict[str, int]:
     }
 
 
+def _encdec_mult_counts(cfg, batch: int, seq_len: int) -> dict[str, int]:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    t_enc = batch * cfg.enc_frames
+    t_dec = batch * seq_len
+    counts: dict[str, int] = {}
+    _merge_counts(counts, _attn_counts(cfg, t_enc, prefix="enc.attn"),
+                  cfg.n_enc_layers)
+    _merge_counts(counts, _ffn_counts(cfg, t_enc, prefix="enc.ffn"),
+                  cfg.n_enc_layers)
+    _merge_counts(counts, _attn_counts(cfg, t_dec, prefix="dec.attn"),
+                  cfg.n_layers)
+    _merge_counts(counts, _ffn_counts(cfg, t_dec, prefix="dec.ffn"),
+                  cfg.n_layers)
+    # cross-attention: queries/output over the decoder positions, the
+    # cross-KV over the encoder frames, once a decoder layer
+    _merge_counts(counts, {
+        "xattn.wq": dense_mult_count((t_dec, d), (d, h * hd)),
+        "xattn.wk": dense_mult_count((t_enc, d), (d, h * hd)),
+        "xattn.wv": dense_mult_count((t_enc, d), (d, h * hd)),
+        "xattn.wo": dense_mult_count((t_dec, h * hd), (h * hd, d)),
+    }, cfg.n_layers)
+    return counts
+
+
 def layer_mult_counts(cfg, batch: int = 1,
                       seq_len: int = 16) -> dict[str, int]:
     """Per-layer-tag multiplication counts for a ``ResNetConfig``
-    (``seq_len`` ignored) or a dense / moe / ssm / hybrid ``LMConfig``
-    — the one MAC accounting behind the ``Workload.layer_counts``
-    protocol (DESIGN.md §2.12).  Layer tags are shared across the
-    stacked blocks ("attn.wq", "moe.wi", ...), so each tag's count
-    aggregates over every block that uses it, slot by slot of
-    ``models.decoder.block_pattern``.  Exact einsums (norms, attention
-    scores, the MoE router, the SSM scan) carry no approximate MACs and
-    do not appear."""
+    (``seq_len`` ignored) or any ``LMConfig`` family (dense / moe / ssm
+    / hybrid / vlm / encdec) — the one MAC accounting behind the
+    ``Workload.layer_counts`` protocol (DESIGN.md §2.12).  Layer tags
+    are shared across the stacked blocks ("attn.wq", "moe.wi", ...), so
+    each tag's count aggregates over every block that uses it, slot by
+    slot of ``models.decoder.block_pattern``; non-token inputs count the
+    way the adapters feed them (``registry.input_extras``): a vlm
+    prepends ``n_img_tokens`` image positions (plus the ``img_proj``
+    projection itself), an encdec runs its encoder over ``enc_frames``
+    per batch element.  Exact einsums (norms, attention scores, the MoE
+    router, the SSM scan) carry no approximate MACs and do not
+    appear."""
     if hasattr(cfg, "widths"):          # ResNetConfig, without an import
         return _resnet_mult_counts(cfg, batch)
-    from ..models.common import MLA_ITEM
-    if cfg.family in ("encdec", "vlm") or cfg.use_mla:
-        what = "MLA" if cfg.use_mla else f"the {cfg.family!r} family"
-        raise NotImplementedError(f"layer_mult_counts for {what} is not "
-                                  f"ported yet ({MLA_ITEM})")
+    if cfg.family == "encdec":
+        return _encdec_mult_counts(cfg, batch, seq_len)
     from ..models.decoder import block_pattern
 
-    t = batch * seq_len
+    # vlm image embeddings are prepended to the tokens, so every decoder
+    # projection also runs over those positions
+    extra = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    t = batch * (seq_len + extra)
     pattern = block_pattern(cfg)
     reps = cfg.n_layers // len(pattern)
     per_group: dict[str, int] = {}
+    mixers = {"attn": _attn_counts, "mla": _mla_counts,
+              "mamba": _mamba_counts}
     for mixer, ffn_kind in pattern:
-        _merge_counts(per_group, _attn_counts(cfg, t) if mixer == "attn"
-                      else _mamba_counts(cfg, t))
+        _merge_counts(per_group, mixers[mixer](cfg, t))
         if ffn_kind == "ffn":
             _merge_counts(per_group, _ffn_counts(cfg, t))
         elif ffn_kind == "moe":
             _merge_counts(per_group, _moe_counts(cfg, t))
-    return {tag: c * reps for tag, c in per_group.items()}
+    counts = {tag: c * reps for tag, c in per_group.items()}
+    if cfg.family == "vlm" and cfg.n_img_tokens > 0:
+        counts["img_proj"] = dense_mult_count(
+            (batch * cfg.n_img_tokens, cfg.d_model),
+            (cfg.d_model, cfg.d_model))
+    return counts
 
 
 def lm_layer_mult_counts(cfg, batch: int, seq_len: int) -> dict[str, int]:
@@ -429,9 +479,10 @@ def lm_fidelity(cfg: Union[str, Any], params=None, *, batch: int = 2,
     """Decoder logit fidelity vs the f32 model: prefill the LM on the
     deterministic synthetic token batches and compare the last-position
     logits against the exact-datapath reference — ``logit_mae``
-    (minimize, primary) + ``top1_agreement`` (maximize), for any ported
-    decoder config.  Runs on ``device`` (the GPU unless ``"cpu"``);
-    ``params`` may be given, e.g. the reference's carried across with
+    (minimize, primary) + ``top1_agreement`` (maximize), for any LM
+    config, with the family's non-token inputs (``input_extras``) and a
+    cache of ``seq_len + prompt_extra_len`` rows.  Runs on ``device``
+    (the GPU unless ``"cpu"``); ``params`` may be given, e.g. the reference's carried across with
     ``models.weights.lm_params_from_numpy``.  Under a banked policy the
     logits carry a bank lane axis and each lane equals its sequential
     evaluation bit for bit (``logit_fidelity``)."""

@@ -1,16 +1,16 @@
 """Architecture registry (port of ``repro.configs``):
-``get_config(arch_id)`` for the architectures the port serves.
+``get_config(arch_id)`` for every architecture ID of the reference
+(``ARCHS``), field for field.
 
-``ARCHS`` lists every architecture ID of the reference; the port has
-the dense, MoE, SSM and hybrid decoders, so the MLA, encoder-decoder
-and VLM IDs raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+The reference's dry-run shapes (``configs/shapes.py``, ``all_cells``)
+and its ``TUNED_OVERRIDES`` wait for ROADMAP.md Queue 1, "Launch tooling
+and multi-device".
 """
 from __future__ import annotations
 
 import importlib
 
-from ..models.common import MLA_ITEM, LMConfig
+from ..models.common import LMConfig
 
 ARCHS = {
     "llava-next-34b": "llava_next_34b",
@@ -25,16 +25,9 @@ ARCHS = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
-#: Architectures whose config module the port has.
-PORTED = ("qwen1.5-0.5b", "qwen3-moe-30b-a3b", "mamba2-780m",
-          "jamba-v0.1-52b", "qwen3-14b", "yi-34b", "nemotron-4-15b")
-
 
 def get_config(arch: str) -> LMConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; available: {list(ARCHS)}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet ({MLA_ITEM})")
     mod = importlib.import_module(f"{__name__}.{ARCHS[arch]}")
     return mod.config()

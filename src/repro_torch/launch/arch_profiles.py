@@ -4,9 +4,10 @@
 For each architecture it runs ``approx.profiles.profile_architecture``:
 a single-family sweep of the library's multipliers over every module
 family (attention q/k/v/o, MLP up/gate/down, MoE experts, SSM
-projections) as ONE banked pass of the model, a most-to-least-tolerant
-family ranking, and a per-module policy selected under a ``MaxDrop``
-bound on ``lm_fidelity``'s logit MAE.  Its record holds the zoo, the
+projections, cross-attention, the image projection) as ONE banked pass
+of the model, a most-to-least-tolerant family ranking, and a per-module
+policy selected under a ``MaxDrop`` bound on ``lm_fidelity``'s logit
+MAE.  Its record holds the zoo, the
 identity checks and four gates; a failed gate raises ``GateError``
 once the record is complete (``main`` writes ``--out`` first):
 
@@ -25,11 +26,11 @@ once the record is complete (``main`` writes ``--out`` first):
     full identity sweep and a 2-row truncated one must make equally
     many, and exactly the sum over the forward's call sites of E for a
     routed-expert projection (one call an expert) and 1 for any other,
-    times the eval batches — the same whatever the number of rows.
+    times the eval batches — the same whatever the number of rows
+    (``banked_calls_per_forward``).
 
-Architectures the port does not have yet (``--quick``'s
-whisper-large-v3; deepseek-v2-236b and llava-next-34b in full mode) are
-listed under ``not_ported`` with the ROADMAP.md item that ports them.
+Every architecture of both modes is profiled: ``--quick``'s five
+(whisper-large-v3 included) and full mode's eight and ResNet-8.
 
 Run (GPU; reduced configs, random weights from seed 0):
 ``PYTHONPATH=src python -m repro_torch.launch.arch_profiles --quick
@@ -50,12 +51,11 @@ from ..approx.dse import verify_assignments
 from ..approx.modules import FILL_EXACT, ModuleMap, module_sweep_assignments
 from ..approx.profiles import profile_architecture, profile_zoo
 from ..approx.workload import classification, lm_fidelity
-from ..configs import PORTED, get_config
+from ..configs import get_config
 from ..core.library import get_default_library
 from ..device import DeviceLike, resolve_device
 from ..kernels import datapaths
 from ..models import resnet
-from ..models.common import MLA_ITEM
 from ..models.decoder import block_pattern
 from . import GateError
 from .case_study import case_study_names
@@ -122,21 +122,35 @@ def counting_banked_calls():
             setattr(datapaths, name, fn)
 
 
+#: Projections of each mixer slot (``mla``: wdq, wuq, wqr, wdkv, wkr,
+#: wuk, wuv, wo; ``mamba``: in_proj, out_proj).
+MIXER_CALLS = {"attn": 4, "mla": 8, "mamba": 2}
+
+
 def banked_calls_per_forward(cfg) -> int:
     """Banked datapath calls one banked prefill makes when every call
-    site is banked: per layer, 1 a projection and E for each routed-
-    expert projection (``moe.wi``/``wg``/``wo``: one call an expert)."""
-    gated = 3 if cfg.act == "silu" else 2
+    site is banked: 1 a projection and E for each routed-expert
+    projection (``moe.wi``/``wg``/``wo``: one call an expert; the shared
+    experts are one FFN).  An FFN is 3 projections when gated (silu), 2
+    else.  A vlm adds its ``img_proj``; an encdec makes ``n_enc_layers x
+    (4 + ffn)`` in the encoder and ``n_layers x (4 + 4 + ffn)`` in the
+    decoder (self-attention, then cross-attention's wk/wv over the
+    frames and wq/wo over the tokens)."""
+    ffn = 3 if cfg.act == "silu" else 2
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers * (4 + ffn) + cfg.n_layers * (8 + ffn)
+    pattern = block_pattern(cfg)
     per_group = 0
-    for mixer, ffn_kind in block_pattern(cfg):
-        per_group += 4 if mixer == "attn" else 2
+    for mixer, ffn_kind in pattern:
+        per_group += MIXER_CALLS[mixer]
         if ffn_kind == "ffn":
-            per_group += gated
+            per_group += ffn
         elif ffn_kind == "moe":
-            per_group += gated * cfg.n_experts
+            per_group += ffn * cfg.n_experts
             if cfg.n_shared_experts > 0:
-                per_group += gated
-    return per_group * (cfg.n_layers // len(block_pattern(cfg)))
+                per_group += ffn
+    return (per_group * (cfg.n_layers // len(pattern))
+            + (1 if cfg.family == "vlm" else 0))
 
 
 def _lm_workload(cfg, device: DeviceLike = None, seed: int = 0):
@@ -236,15 +250,8 @@ def run(device: DeviceLike = None, quick: bool = False,
         lib.lut(n)              # LUT packing outside the timers
 
     zoo = QUICK_ARCHS + ([] if quick else FULL_EXTRA_ARCHS)
-    ported = [(a, f) for a, f in zoo if a in PORTED]
-    not_ported = [{"arch": a, "family": f, "item": MLA_ITEM}
-                  for a, f in zoo if a not in PORTED]
-    for np_ in not_ported:
-        log(f"[arch_profiles] {np_['arch']} ({np_['family']}): not ported "
-            f"yet ({MLA_ITEM})")
-
     profiles, stats, workloads = {}, {}, {}
-    for arch, family in ported:
+    for arch, family in zoo:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -306,7 +313,7 @@ def run(device: DeviceLike = None, quick: bool = False,
         "identity_checks": {a: {k: v for k, v in c.items()
                                 if k != "metrics"}
                             for a, c in identity.items()},
-        "not_ported": not_ported, "gates": gates,
+        "gates": gates,
     }
     failed = sorted(g for g, ok in gates.items() if not ok)
     log(f"[arch_profiles] gates {gates}")
@@ -321,8 +328,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first GPU)")
     ap.add_argument("--quick", action="store_true",
-                    help="the reference's CI slice: 5 reduced archs (4 "
-                         "ported), 3 multipliers")
+                    help="the reference's CI slice: 5 reduced archs, 3 "
+                         "multipliers")
     ap.add_argument("--variant", default="pallas",
                     choices=sorted(BANKED),
                     help="datapath: pallas = K2 (K1 sequential), fused = "

@@ -31,10 +31,8 @@ they come — the projections run once for all lanes, and the attention
 products run lane by lane (``each_lane``) — so each lane equals its
 sequential evaluation bit for bit.
 
-Not ported yet, each raising where a config asks for it: the sharding
-hints (``hint_*``: no mesh on one card), ``layer_norm`` (encdec),
-``_chunked_grouped_attention`` (``attn_impl="chunked"``) — ROADMAP.md
-Queue 1, "LM zoo: MLA, encoder-decoder and VLM" — and
+Not ported yet: the sharding hints (``hint_*``: no mesh on one card;
+ROADMAP.md Queue 1, "Launch tooling and multi-device") and
 ``chunked_cross_entropy`` (Queue 1, "Training").
 """
 from __future__ import annotations
@@ -53,9 +51,8 @@ from ..approx.layers import ApproxPolicy
 
 #: The ROADMAP.md items that port what the port does not have yet,
 #: named by title so that a renumbering leaves them true.
-MLA_ITEM = 'ROADMAP.md Queue 1, "LM zoo: MLA, encoder-decoder and VLM"'
-LANE_SERVE_ITEM = ('ROADMAP.md Queue 1, "Serving the MoE, SSM and hybrid '
-                   'families"')
+LANE_SERVE_ITEM = ('ROADMAP.md Queue 1, "Serving the MoE, SSM, hybrid, '
+                   'MLA, encoder-decoder and VLM families"')
 TRAIN_ITEM = 'ROADMAP.md Queue 1, "Training"'
 
 
@@ -76,7 +73,7 @@ class LMConfig:
     qk_norm: bool = False
     act: str = "silu"        # silu | relu2 | gelu
     use_rope: bool = True
-    attn_impl: str = "vanilla"   # vanilla | chunked (not ported)
+    attn_impl: str = "vanilla"   # vanilla | chunked (flash-style)
     kv_chunk: int = 1024
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -217,6 +214,14 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
     return (x32 * torch.rsqrt(var + eps) * gamma).to(x.dtype)
 
 
+def rms_norm_lanes(h: torch.Tensor, gamma: torch.Tensor, eps: float
+                   ) -> torch.Tensor:
+    """``rms_norm`` of a (B,S,D) activation, lane by lane when it carries
+    a bank lane axis in front (``each_lane``)."""
+    return each_lane(lambda x: rms_norm(x, gamma, eps), lanes_of(3, h), 3,
+                     h)
+
+
 def lane_rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
                   ) -> torch.Tensor:
     """``rms_norm`` of each leading-axis row alone, at that row's shape
@@ -226,6 +231,17 @@ def lane_rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float
     bits it would see alone."""
     return torch.cat([rms_norm(x[i:i + 1], gamma, eps)
                       for i in range(x.shape[0])])
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in f32.  Nothing in the reference
+    calls it (its encoder-decoder uses ``rms_norm``); it is ported with
+    its parity test all the same."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -322,6 +338,47 @@ def _grouped_attention(q, k, v, mask_bias) -> torch.Tensor:
     return out.reshape(b, s, h, d)
 
 
+def _chunked_grouped_attention(q, k, v, q_pos0: int, t_valid: int,
+                               kv_chunk: int) -> torch.Tensor:
+    """Flash-style online-softmax attention over KV chunks (the
+    reference's ``lax.scan`` as a loop).  q: (B,S,H,D); k/v: (B,T,Hkv,D);
+    ``q_pos0`` is the position of q[0] (causal mask: key_pos <= q_pos0 +
+    i) and ``t_valid`` the number of real keys (the rest, and the pad of
+    the last chunk, masked).  Never builds the (S,T) scores: the working
+    set is (S, kv_chunk) a step.  Returns (B,S,H,D) f32."""
+    b, s, h, d = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    f32 = torch.float32
+    qg = (q.reshape(b, s, hk, g, d) / math.sqrt(d)).to(q.dtype).to(f32)
+    c = min(kv_chunk, t)
+    pad = (-t) % c
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_pos = q_pos0 + torch.arange(s, device=q.device)
+    m = torch.full((b, hk, g, s), -1e30, dtype=f32, device=q.device)
+    l = torch.zeros((b, hk, g, s), dtype=f32, device=q.device)
+    acc = torch.zeros((b, hk, g, s, d), dtype=f32, device=q.device)
+    for i0 in range(0, k.shape[1], c):
+        kc, vc = k[:, i0:i0 + c].to(f32), v[:, i0:i0 + c]
+        scores = torch.einsum("bskgd,bckd->bkgsc", qg, kc)
+        key_pos = i0 + torch.arange(c, device=q.device)
+        valid = ((key_pos[None, :] <= q_pos[:, None])
+                 & (key_pos[None, :] < t_valid))
+        scores = torch.where(valid, scores, -1e30)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.where(valid, torch.exp(scores - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgsc,bckd->bkgsd", p.to(vc.dtype).to(f32),
+                          vc.to(f32))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (b,hk,g,s,d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
 def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
                  positions: torch.Tensor, layer_tag: str, lanes: bool):
     """q (B,S,H,D), k/v (B,S,Hkv,D) in the working dtype: the three
@@ -381,17 +438,14 @@ def attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     axis (``_project_qkv``).  Under a banked backend q/k/v gain a bank
     lane axis in front: the cache then takes one too (a copy, each lane
     writing its own keys and values) and attention runs lane by lane
-    (``each_lane``)."""
-    if cfg.attn_impl == "chunked":
-        raise NotImplementedError(
-            f"attn_impl='chunked' (_chunked_grouped_attention) is not "
-            f"ported yet ({MLA_ITEM})")
+    (``each_lane``).  ``cfg.attn_impl == "chunked"`` runs the
+    flash-style ``_chunked_grouped_attention`` over the same keys."""
     s = x.shape[-2]
     q, k, v = _project_qkv(params, x, cfg, policy, positions, layer_tag,
                            lanes)
     n = lanes_of(4, q, k, v)
+    first, t_valid = 0, s
     if cache is None:
-        bias = causal_bias(0, s, s, x.device)
         new_cache = None
     else:
         pos = cache["pos"]
@@ -402,10 +456,18 @@ def attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
         ck[..., pos:pos + s, :, :] = k
         cv[..., pos:pos + s, :, :] = v
         k, v = ck, cv
-        bias = causal_bias(pos, s, ck.shape[-3], x.device)
+        first, t_valid = pos, pos + s
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
-    out = each_lane(lambda q_, k_, v_: _grouped_attention(q_, k_, v_, bias),
-                    n, 4, q, k, v)
+    if cfg.attn_impl == "chunked":
+        def core(q_, k_, v_):
+            return _chunked_grouped_attention(q_, k_, v_, first, t_valid,
+                                              cfg.kv_chunk)
+    else:
+        bias = causal_bias(first, s, k.shape[-3], x.device)
+
+        def core(q_, k_, v_):
+            return _grouped_attention(q_, k_, v_, bias)
+    out = each_lane(core, n, 4, q, k, v)
     return _project_out(params, out, cfg, policy, layer_tag,
                         lanes), new_cache
 

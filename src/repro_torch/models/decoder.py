@@ -1,13 +1,17 @@
 """Decoder-only LM (port of ``repro.models.decoder``) covering the
-dense / moe / ssm / hybrid families via a per-period block pattern.
+dense / moe / ssm / hybrid / vlm families via a per-period block pattern.
 
 Block pattern per family:
-  dense  : period 1,  [attn + ffn]
-  moe    : period 1,  [attn + moe]
+  dense  : period 1,  [attn + ffn]   (``mla`` in place of ``attn`` with
+           ``use_mla``: DeepSeek-V2's latent attention)
+  moe    : period 1,  [attn + moe]   (likewise)
   ssm    : period 1,  [mamba]
   hybrid : period = attn_period (jamba: 8), attention at slot
            ``period//2``, MoE on odd slots (1:7 attn:mamba, alternating
            MoE, per the Jamba paper)
+  vlm    : dense pattern; image patch embeddings (stub frontend) are
+           projected (``img_proj``) and prepended to the token
+           embeddings, and the positions cover both.
 
 Parameters keep the reference's layout: ``params["blocks"]`` holds every
 slot's weights stacked on a leading ``(n_groups, ...)`` axis, so the two
@@ -20,9 +24,9 @@ the norms, the unembedding and every mixer's exact part then run lane by
 lane (``common.each_lane``), so each lane equals its sequential
 evaluation bit for bit.
 
-MLA, the vlm pattern and ``forward_train`` raise ``NotImplementedError``
-naming their ROADMAP.md item, and so does the continuous engine's lane
-decode step for any family but the dense one.
+``forward_train`` raises ``NotImplementedError`` naming its ROADMAP.md
+item, and so does the continuous engine's lane decode step for any
+family but the dense one with vanilla attention.
 """
 from __future__ import annotations
 
@@ -31,19 +35,18 @@ from typing import Any, Optional
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
-from .common import (LANE_SERVE_ITEM, MLA_ITEM, TRAIN_ITEM, LMConfig,
+from .common import (LANE_SERVE_ITEM, TRAIN_ITEM, LMConfig,
                      attention, dense_init, each_lane, ffn, init_attention,
                      init_attention_cache, init_ffn, lane_attention,
-                     lane_rms_norm, lanes_of, logits_from_hidden, rms_norm)
+                     lane_rms_norm, lanes_of, logits_from_hidden, rms_norm,
+                     rms_norm_lanes)
 from .mamba2 import init_mamba, init_mamba_cache, mamba_block
+from .mla import init_mla, init_mla_cache, mla_attention
 from .moe import init_moe, moe_ffn
 
 
 def block_pattern(cfg: LMConfig) -> list[tuple[str, Optional[str]]]:
     """Returns [(mixer, ffn_kind)] per period slot."""
-    if cfg.use_mla or cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        what = "MLA" if cfg.use_mla else f"the {cfg.family!r} family"
-        raise NotImplementedError(f"{what} is not ported yet ({MLA_ITEM})")
     if cfg.family == "ssm":
         return [("mamba", None)]
     if cfg.family == "hybrid":
@@ -51,12 +54,16 @@ def block_pattern(cfg: LMConfig) -> list[tuple[str, Optional[str]]]:
         return [("attn" if j == period // 2 else "mamba",
                  "moe" if (j % 2 == 1 and cfg.n_experts > 0) else "ffn")
                 for j in range(period)]
-    return [("attn", "moe" if cfg.family == "moe" else "ffn")]
+    # dense / moe / vlm (and the decoder side of others)
+    return [("mla" if cfg.use_mla else "attn",
+             "moe" if cfg.family == "moe" else "ffn")]
 
 
 def _init_mixer(gen, kind: str, cfg: LMConfig, lead: tuple) -> dict:
     if kind == "attn":
         return init_attention(gen, cfg, lead)
+    if kind == "mla":
+        return init_mla(gen, cfg, lead)
     if kind == "mamba":
         return init_mamba(gen, cfg, lead)
     raise ValueError(kind)
@@ -76,8 +83,9 @@ def _init_ffn(gen, kind: Optional[str], cfg: LMConfig, lead: tuple
 def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     """Random f32 parameters from ``gen`` on its device, in the
     reference's tree layout (stacked layer groups; an ``ssm`` slot has
-    no ``ffn_j``/``norm2_j``).  A ``common.MetaGenerator`` gives the
-    shapes only, on the ``meta`` device."""
+    no ``ffn_j``/``norm2_j``; a vlm has ``img_proj``).  A
+    ``common.MetaGenerator`` gives the shapes only, on the ``meta``
+    device."""
     pattern = block_pattern(cfg)
     period = len(pattern)
     if cfg.n_layers % period:
@@ -89,6 +97,8 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
         "final_norm": torch.ones((cfg.d_model,), device=dev),
         "unembed": dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
     }
+    if cfg.family == "vlm":
+        params["img_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model))
     blocks = {}
     for j, (mixer, ffn_kind) in enumerate(pattern):
         blocks[f"mixer_{j}"] = _init_mixer(gen, mixer, cfg, lead)
@@ -100,14 +110,6 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
                                               device=dev)
     params["blocks"] = blocks
     return params
-
-
-def _norm(h: torch.Tensor, gamma: torch.Tensor, eps: float
-          ) -> torch.Tensor:
-    """``rms_norm`` of the hidden state (B,S,D), lane by lane when it
-    carries a bank lane axis."""
-    return each_lane(lambda x: rms_norm(x, gamma, eps), lanes_of(3, h), 3,
-                     h)
 
 
 def _index(tree, g: int):
@@ -126,12 +128,16 @@ def _group_body(h, positions, gparams, gcache, cfg: LMConfig,
     aux = 0.0
     new_cache: dict[str, Any] = {}
     for j, (mixer, ffn_kind) in enumerate(pattern):
-        hin = _norm(h, gparams[f"norm1_{j}"], cfg.norm_eps)
+        hin = rms_norm_lanes(h, gparams[f"norm1_{j}"], cfg.norm_eps)
         sub_cache = None if gcache is None else gcache[f"mixer_{j}"]
         if mixer == "attn":
             y, nc = attention(gparams[f"mixer_{j}"], hin, cfg, policy,
                               positions=positions, cache=sub_cache,
                               layer_tag="attn", lanes=lanes)
+        elif mixer == "mla":
+            y, nc = mla_attention(gparams[f"mixer_{j}"], hin, cfg, policy,
+                                  positions=positions, cache=sub_cache,
+                                  layer_tag="mla")
         else:
             y, nc = mamba_block(gparams[f"mixer_{j}"], hin, cfg, policy,
                                 cache=sub_cache, layer_tag="mamba")
@@ -139,7 +145,7 @@ def _group_body(h, positions, gparams, gcache, cfg: LMConfig,
             new_cache[f"mixer_{j}"] = nc
         h = h + y
         if ffn_kind is not None:
-            hin = _norm(h, gparams[f"norm2_{j}"], cfg.norm_eps)
+            hin = rms_norm_lanes(h, gparams[f"norm2_{j}"], cfg.norm_eps)
             if ffn_kind == "moe":
                 y, a = moe_ffn(gparams[f"ffn_{j}"], hin, cfg, policy)
                 aux = aux + a
@@ -188,11 +194,20 @@ def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
     return h, aux, new_caches
 
 
-def _embed_inputs(params, batch, cfg: LMConfig):
-    """Token embeddings and positions (token-only families)."""
+def _embed_inputs(params, batch, cfg: LMConfig, policy: ApproxPolicy):
+    """Token embeddings and positions.  A vlm's image embeddings
+    (``batch["img_embeds"]``, (B,S_img,D)) are projected through
+    ``img_proj`` and prepended, and the positions cover both; under a
+    banked ``img_proj`` the projection gains a bank lane axis, and the
+    token embeddings are copied to every lane."""
     tokens = batch["tokens"]
     h = params["embed"][tokens.long()].to(cfg.dtype)
-    positions = torch.arange(h.shape[1], dtype=torch.int32,
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        img = policy.matmul("img_proj", batch["img_embeds"].to(cfg.dtype),
+                            params["img_proj"]).to(cfg.dtype)
+        h = torch.cat([img, h.expand(*img.shape[:-2], *h.shape[-2:])],
+                      dim=-2)
+    positions = torch.arange(h.shape[-2], dtype=torch.int32,
                              device=h.device)
     return h, positions
 
@@ -208,14 +223,17 @@ def forward_train(params, batch, cfg: LMConfig,
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
     """Stacked (n_groups, ...) cache tree per mixer slot: attention
-    {"k", "v", "pos"} (``pos`` a host int), mamba {"conv", "state"}."""
+    {"k", "v", "pos"} (``pos`` a host int), MLA {"ckv", "kr", "pos"},
+    mamba {"conv", "state"}."""
     pattern = block_pattern(cfg)
     lead = (cfg.n_layers // len(pattern),)
-    return {f"mixer_{j}": (
-        init_attention_cache(cfg, batch, max_len, device, lead)
-        if mixer == "attn" else
-        init_mamba_cache(cfg, batch, device, lead))
-        for j, (mixer, _f) in enumerate(pattern)}
+    init = {"attn": lambda: init_attention_cache(cfg, batch, max_len,
+                                                 device, lead),
+            "mla": lambda: init_mla_cache(cfg, batch, max_len, device,
+                                          lead),
+            "mamba": lambda: init_mamba_cache(cfg, batch, device, lead)}
+    return {f"mixer_{j}": init[mixer]()
+            for j, (mixer, _f) in enumerate(pattern)}
 
 
 def _logits(params, h: torch.Tensor, row: int, cfg: LMConfig
@@ -235,7 +253,7 @@ def forward_prefill(params, batch, cache, cfg: LMConfig,
     ``lanes``: each prompt row is a lane of the policy's banked
     backends (the continuous engine's B=1 prefill).  The MoE aux loss
     is discarded, as in the reference."""
-    h, positions = _embed_inputs(params, batch, cfg)
+    h, positions = _embed_inputs(params, batch, cfg, policy)
     h, _aux, new_caches = _run_stack(params, h, positions, cfg, policy,
                                      caches=cache, lanes=lanes)
     return _logits(params, h, -1, cfg), new_caches
@@ -253,12 +271,16 @@ def forward_decode(params, token, cache, cfg: LMConfig,
 
 
 def require_lane_decode(cfg: LMConfig) -> None:
-    """The continuous engine's lane decode step serves the dense
-    pattern only; raises for any other."""
-    if block_pattern(cfg) != [("attn", "ffn")]:
-        raise NotImplementedError(
-            f"continuous serving of the {cfg.family!r} family is not "
-            f"ported yet ({LANE_SERVE_ITEM})")
+    """The continuous engine's lane decode step serves the dense family
+    with vanilla attention only; raises for any other (vlm and encdec
+    have the dense pattern too, but prefill inputs it does not take)."""
+    if (cfg.family != "dense" or block_pattern(cfg) != [("attn", "ffn")]
+            or cfg.attn_impl != "vanilla"):
+        what = ("MLA" if cfg.use_mla else "chunked attention"
+                if cfg.attn_impl != "vanilla" else
+                f"the {cfg.family!r} family")
+        raise NotImplementedError(f"continuous serving of {what} is not "
+                                  f"ported yet ({LANE_SERVE_ITEM})")
 
 
 def forward_decode_lanes(params, tokens, positions, kv, biases,
@@ -295,9 +317,9 @@ def forward_decode_lanes(params, tokens, positions, kv, biases,
 
 
 def _cache_pos(cache, cfg: LMConfig) -> int:
-    """Current position (a host int) from the first attention cache; 0
-    for pure SSM (no RoPE, the position does not matter)."""
+    """Current position (a host int) from the first attention or MLA
+    cache; 0 for pure SSM (no RoPE, the position does not matter)."""
     for j, (mixer, _f) in enumerate(block_pattern(cfg)):
-        if mixer == "attn":
+        if mixer in ("attn", "mla"):
             return cache[f"mixer_{j}"]["pos"]
     return 0

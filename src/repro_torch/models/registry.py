@@ -1,8 +1,8 @@
 """Family dispatch (port of ``repro.models.registry``): maps
 ``LMConfig.family`` to the init/forward functions, plus the serving
 hooks the engines use (``input_extras``, ``prompt_extra_len``,
-``probe_layer_tags``).  The port has the decoder (dense, moe, ssm and
-hybrid patterns); the encoder-decoder family raises.
+``probe_layer_tags``): the decoder (dense, moe, ssm, hybrid and vlm
+patterns, MLA or GQA attention) and the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import decoder
-from .common import MLA_ITEM, LMConfig, MetaGenerator
+from . import decoder, encdec
+from .common import LMConfig, MetaGenerator
 
 
 class ModelFns:
@@ -29,13 +29,13 @@ class ModelFns:
 _DECODER = ModelFns(decoder.init_params, decoder.forward_train,
                     decoder.init_cache, decoder.forward_prefill,
                     decoder.forward_decode, decoder.forward_decode_lanes)
+_ENCDEC = ModelFns(encdec.init_params, encdec.forward_train,
+                   encdec.init_cache, encdec.forward_prefill,
+                   encdec.forward_decode, encdec.forward_decode_lanes)
 
 
 def model_fns(cfg: LMConfig) -> ModelFns:
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"the encoder-decoder family is not "
-                                  f"ported yet ({MLA_ITEM})")
-    return _DECODER
+    return _ENCDEC if cfg.family == "encdec" else _DECODER
 
 
 def input_extras(cfg: LMConfig, batch: int,

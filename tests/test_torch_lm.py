@@ -52,7 +52,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.steps import pick_case_multiplier
 from repro_torch.models import common, decoder
 from repro_torch.models.common import LMConfig
-from repro_torch.models.registry import model_fns
+from repro_torch.models.registry import (input_extras, model_fns,
+                                         prompt_extra_len)
 from repro_torch.models.weights import lm_params_from_numpy
 
 F32_RTOL = 1e-5
@@ -282,19 +283,40 @@ def test_parameter_trees_map_one_to_one():
 
 
 def test_unported_configs_raise_with_roadmap_item():
+    """Only ``forward_train`` still raises naming its ROADMAP.md item;
+    MLA, the vlm pattern, chunked attention, deepseek-v2-236b and the
+    encoder-decoder family now build and prefill (their parity tests:
+    ``tests/test_torch_mla.py``, ``test_torch_encdec.py``,
+    ``test_torch_vlm.py``)."""
     cfg = get_config("qwen1.5-0.5b").reduced()
-    for bad in (dataclasses.replace(cfg, use_mla=True),
-                dataclasses.replace(cfg, family="vlm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            decoder.init_params(torch.Generator(), bad)
-    chunked = dataclasses.replace(cfg, attn_impl="chunked")
     params = decoder.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decoder.forward_prefill(params, {"tokens": torch.zeros(
-            (1, 2), dtype=torch.int32)}, None, chunked)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         decoder.forward_train(params, {}, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model_fns(dataclasses.replace(cfg, family="encdec"))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 5)).astype(np.int32))
+    with torch.inference_mode():
+        vanilla, _ = decoder.forward_prefill(params, {"tokens": tokens},
+                                             None, cfg)
+        # chunked attention over 2-key chunks: the same logits within f32
+        chunked, _ = decoder.forward_prefill(
+            params, {"tokens": tokens}, None,
+            dataclasses.replace(cfg, attn_impl="chunked", kv_chunk=2))
+    np.testing.assert_allclose(chunked.numpy(), vanilla.numpy(), rtol=0,
+                               atol=F32_RTOL * float(vanilla.abs().max()))
+    for bad in (dataclasses.replace(cfg, use_mla=True, kv_lora=32,
+                                    q_lora=32, rope_head_dim=8,
+                                    v_head_dim=16),
+                dataclasses.replace(cfg, family="vlm", n_img_tokens=3),
+                get_config("deepseek-v2-236b").reduced(),
+                get_config("whisper-large-v3").reduced()):
+        fns = model_fns(bad)
+        p = fns.init_params(torch.Generator().manual_seed(0), bad)
+        extras = {k: torch.from_numpy(v)
+                  for k, v in input_extras(bad, 2).items()}
+        with torch.inference_mode():
+            logits, cache = fns.forward_prefill(
+                p, {"tokens": tokens, **extras},
+                fns.init_cache(bad, 2, 5 + prompt_extra_len(bad, extras)),
+                bad)
+        assert logits.shape == (2, bad.vocab)
+        assert torch.isfinite(logits).all(), bad.name

@@ -5,9 +5,12 @@ banked module sweep of the port against its own sequential evaluation.
 What is held:
   * ``module_of`` gives the reference's family for every tag of the
     reference's test, and rejects the same unknown tag;
-  * ``layer_mult_counts`` equals the reference's exactly for the six
-    ported LM archs (reduced, batch 2, seq 8), at full size and with
-    ``capacity_factor=1.0`` / block-local dispatch, and for ResNet-8;
+  * ``layer_mult_counts`` equals the reference's exactly for seven LM
+    archs (reduced, batch 2, seq 8), at full size and with
+    ``capacity_factor=1.0`` / block-local dispatch, for the vlm, encdec
+    and MLA variants of a dense config, and for ResNet-8 (the MLA,
+    encdec and vlm archs themselves: ``tests/test_torch_mla.py``,
+    ``test_torch_encdec.py``, ``test_torch_vlm.py``);
   * ``ModuleMap.for_config(validate=True)`` (a prefill on the ``meta``
     device) gives the reference's map; its lowering, its errors and
     ``module_policy_bank``'s fill equal the reference's;
@@ -17,7 +20,9 @@ What is held:
     and mamba2, under ``pallas`` and ``fused`` (the kernels' plain
     versions on the CPU), with the banked calls
     ``launch.arch_profiles.banked_calls_per_forward`` counts (one an
-    expert for ``moe.*``), and a 2-row sweep makes as many.
+    expert for ``moe.*``), and a 2-row sweep makes as many;
+  * that count equals the banked calls of one banked pass on each of
+    the eight archs of ``arch_profiles``' full mode.
 """
 import dataclasses
 
@@ -45,7 +50,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.families import truncated_multiplier
 from repro_torch.core.library import ApproxLibrary
 from repro_torch.core.seeds import array_multiplier
-from repro_torch.launch.arch_profiles import (banked_calls_per_forward,
+from repro_torch.launch.arch_profiles import (FULL_EXTRA_ARCHS, QUICK_ARCHS,
+                                              banked_calls_per_forward,
                                               counting_banked_calls,
                                               _lm_workload)
 from repro_torch.models import resnet
@@ -110,12 +116,38 @@ def test_layer_mult_counts_match_reference(arch):
 
 
 def test_resnet_counts_and_unported_families():
+    """ResNet-8, and the vlm, encdec and MLA families on a dense config
+    (once unported, now counted as the reference counts them)."""
     assert layer_mult_counts(resnet.resnet_config(8), batch=32) \
         == ref_counts(ref_resnet.resnet_config(8), batch=32)
     cfg = get_config("qwen1.5-0.5b").reduced()
-    for kw in ({"family": "vlm"}, {"family": "encdec"}, {"use_mla": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            layer_mult_counts(dataclasses.replace(cfg, **kw), 2, 8)
+    ref_cfg = ref_get_config("qwen1.5-0.5b").reduced()
+    for kw in ({"family": "vlm", "n_img_tokens": 3},
+               {"family": "encdec", "n_enc_layers": 2, "enc_frames": 5},
+               {"use_mla": True, "kv_lora": 32, "q_lora": 16}):
+        got = layer_mult_counts(dataclasses.replace(cfg, **kw), 2, 8)
+        assert got == ref_counts(dataclasses.replace(ref_cfg, **kw), 2, 8)
+        assert got
+
+
+#: the full-mode zoo of ``launch.arch_profiles``
+FULL_ZOO = [a for a, _f in QUICK_ARCHS + FULL_EXTRA_ARCHS]
+
+
+@pytest.mark.parametrize("arch", FULL_ZOO)
+def test_banked_calls_formula_matches_counted_calls(arch, lib):
+    """``banked_calls_per_forward`` equals the banked datapath calls of
+    one banked pass (one row, every call site banked) on each arch of
+    the full-mode zoo."""
+    cfg = get_config(arch).reduced()
+    wl, mmap = _lm_workload(cfg, device="cpu")
+    row = mmap.lower({mmap.modules[0]: "mul8u_trunc6"})
+    with counting_banked_calls() as calls:
+        verify_assignments(wl, [row], mmap.layer_counts, lib,
+                           layers=mmap.layers, fill=FILL_EXACT,
+                           variant="pallas")
+    assert calls["approx_matmul_lut_bank"] == sum(calls.values()) \
+        == banked_calls_per_forward(cfg) > 0
 
 
 @pytest.fixture(scope="module")
