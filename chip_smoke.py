@@ -181,7 +181,35 @@ Phases (any failure exits nonzero):
      within the bound of its plain version, and agree with the same
      model under ``variant="ref"`` within the logit tolerance
      (teacher-forced); its prefill and decode rates, one profiled decode
-     step and the model's bytes are printed.
+     step and the model's bytes are printed;
+  9. training (``phase_train``), its checkpoints in a temporary
+     directory removed at the end: ``launch.train_resnet.train``, the
+     recipe of the committed ResNet-8 (320 f32 steps at batch 64 from a
+     seeded init), whose losses must be finite and fall, its float and
+     8-bit accuracy beside the committed checkpoint's; then
+     ``train_resnet.run(from_checkpoint=True)`` under ``"pallas"`` and
+     ``"fused"`` (Table II, Fig. 4, the heterogeneous DSE, the STE
+     fine-tune), failing unless the fine-tune launched K1 (K3) exactly
+     once an assigned layer a step and each evaluation once an assigned
+     layer a batch, and nothing else; one STE step under that policy
+     whose every matmul output equals its plain datapath's and whose
+     every weight gradient equals ``torch.matmul(x2d.T, g)`` bit for
+     bit; ``launch.train.run`` on qwen1.5-0.5b at full width (10 steps,
+     batch 8 x 128, remat on), whose losses must be finite and fall,
+     then a resume into fresh tensors equal to the saved parameters and
+     optimizer state bit for bit; a banked ``lm_perplexity`` sweep on
+     reduced qwen1.5-0.5b equal to the sequential one bit for bit, the
+     banked kernel launched once a projection a pass;
+ 10. the objectives study (``launch.objectives_pareto``) at ``--quick``
+     under both variants, against the reference's recorded
+     ``benchmarks/results/BENCH_objectives.json`` (candidates, the 2-D
+     gate, both fronts' members, accuracies within one image, the
+     selection), its launches equal to the call-site formula and the
+     fused rows to the pallas rows, then at 256 images;
+ 11. the evolve study (``launch.evolve_library``) at its default size
+     against ``benchmarks/results/BENCH_evolve.json`` (metric identity,
+     the ladder, the tiny builds' counts); its throughput ratio is
+     recorded, not gated.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -345,6 +373,14 @@ PROFILE_STEP_CHECK = ((2, 3000, 1280, 1280), (24, 4, 5120, 1536),
 # prefill: 6 a layer in the encoder, the cross-KV's 2 and 8 a layer in
 # the decoder; a decode step: the decoder's 8 a layer
 SERVE_ENCDEC = {**SERVE, "arch": "whisper-large-v3"}
+# training on the card: launch.train's run of qwen1.5-0.5b at full width
+# (remat on, loss chunks of 1 024 tokens, as the config has them), and
+# the reference's recorded runs of the objectives and evolve studies
+LM_TRAIN = {"arch": "qwen1.5-0.5b", "steps": 10, "batch": 8, "seq": 128}
+BENCH_OBJECTIVES = os.path.join(ROOT, "benchmarks", "results",
+                                "BENCH_objectives.json")
+BENCH_EVOLVE = os.path.join(ROOT, "benchmarks", "results",
+                            "BENCH_evolve.json")
 # H100 SXM FP32 FMA lanes per SM (SIMT, no tensor cores)
 FP32_LANES_PER_SM = 128
 # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet, 700 W); K9's
@@ -1769,6 +1805,418 @@ def phase_serve_encdec(device, log, launches_total: dict) -> dict:
     return _serve_path(device, log, launches_total, SERVE_ENCDEC, k9_calls)
 
 
+def _resnet_accuracies(model, device) -> dict:
+    """Float and golden 8-bit accuracy on the 256 eval images."""
+    from repro_torch.approx.layers import ApproxPolicy
+    from repro_torch.approx.specs import BackendSpec
+    from repro_torch.approx.workload import classification
+    from repro_torch.models import resnet
+    wl = classification(resnet.resnet_config(8), model, eval_n=EVAL_N,
+                        batch=BATCH, device=device)
+    return {"f32": wl(ApproxPolicy(default=BackendSpec.exact("f32"))),
+            "int8": wl(ApproxPolicy(default=BackendSpec.golden()))}
+
+
+def _conv_weights(model) -> list:
+    """ResNet-8's matmul weights in forward order (conv_init, each
+    block's conv1, conv2, proj, then the head)."""
+    ws = [model.conv_init.w]
+    for blk in model.blocks.values():
+        ws += [blk.conv1.w, blk.conv2.w]
+        if hasattr(blk, "proj"):
+            ws.append(blk.proj.w)
+    return ws + [model.head.w]
+
+
+def _check_ste_step(device, policy_json: dict, variant: str) -> dict:
+    """One STE step of the committed ResNet-8 under the fine-tune's
+    policy on the card: every matmul's output equals its plain datapath
+    (``variant="ref"``) on the same operands bit for bit, and every
+    weight gradient equals ``torch.matmul(x2d.T, g)`` of the operands
+    and the incoming gradient bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.approx import backend
+    from repro_torch.approx.layers import ApproxPolicy
+    from repro_torch.core.library import get_default_library
+    from repro_torch.data.synthetic import CifarBatches
+    from repro_torch.models import resnet
+    from repro_torch.models.weights import load_resnet8
+    lib = get_default_library()
+    policy = ApproxPolicy.from_json_dict(policy_json).materialize(lib)
+    model = load_resnet8().to(device)
+    b = next(CifarBatches("train", BATCH, BATCH).epoch())
+    batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    calls = []
+    real = backend._SteMatmul
+
+    class Spy:
+        @staticmethod
+        def apply(x2d, w, mb):
+            y = real.apply(x2d, w, mb)
+            call = {"x": x2d.detach(), "w": w.detach(), "mb": mb,
+                    "y": y.detach()}
+            y.register_hook(lambda g, c=call: c.__setitem__("g", g))
+            calls.append(call)
+            return y
+
+    backend._SteMatmul = Spy
+    try:
+        resnet.loss_fn(model, batch, resnet.resnet_config(8),
+                       policy).backward()
+        torch.cuda.synchronize()
+    finally:
+        backend._SteMatmul = real
+    weights = _conv_weights(model)
+    if len(calls) != len(weights):
+        raise AssertionError(f"STE step ({variant}): {len(calls)} matmuls, "
+                             f"want {len(weights)}")
+    approx = 0
+    for call, w in zip(calls, weights):
+        mb = call["mb"]
+        approx += mb.spec.variant == variant
+        plain = dataclasses.replace(mb.spec, variant="ref").materialize(lib)
+        want_y = backend._forward(call["x"], call["w"], plain, False)
+        g_w = w.grad if w.ndim == 2 else \
+            w.grad.permute(2, 0, 1, 3).reshape(-1, w.shape[-1])
+        want_g = torch.matmul(call["x"].to(torch.float32).T,
+                              call["g"].to(torch.float32))
+        if not (torch.equal(call["y"], want_y) and torch.equal(g_w, want_g)
+                and torch.isfinite(g_w).all()):
+            raise AssertionError(f"STE step ({variant}): layer output or "
+                                 f"weight gradient differs at {mb.spec}")
+    print(f"[train] STE step ({variant}): {len(calls)} matmuls, {approx} "
+          f"on the {variant} datapath: outputs equal the plain datapath's "
+          f"and weight gradients equal torch.matmul(x2d.T, g), bit for bit")
+    return {"matmuls": len(calls), "approximate": approx}
+
+
+def _train_resnet_phase(device, log, tmp: str, launches_total: dict
+                        ) -> dict:
+    """(a) ``train_resnet``'s recipe from a seeded init; (b) its
+    sweeps, heterogeneous DSE and STE fine-tune from the committed
+    checkpoint under each variant."""
+    import numpy as np
+    from repro_torch.launch import train_resnet
+    from repro_torch.models.weights import load_resnet8
+    out = {}
+    (cfg, model, hist, _), wall, launches = _drive(
+        "ResNet-8 training (320 steps, f32)",
+        lambda: train_resnet.train(device, 8, 320, BATCH, 4096,
+                                   ckpt_dir=os.path.join(tmp, "resnet"),
+                                   log=lambda s: None), ())
+    losses = [h["loss"] for h in hist]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (len(losses) == 320 and np.isfinite(losses).all()
+            and last < first):
+        raise AssertionError(f"ResNet-8 training: losses {first} -> {last}")
+    step_ms = float(np.median([h["ms"] for h in hist[1:]]))
+    accs = {"trained": _resnet_accuracies(model, device),
+            "committed": _resnet_accuracies(load_resnet8(), device)}
+    print(f"[train] ResNet-8 on {_smi('name,power.limit')}: 320 steps in "
+          f"{wall:.2f} s (median step {step_ms:.2f} ms), loss {first:.4f} "
+          f"-> {last:.4f}; accuracy float / 8-bit {accs['trained']} "
+          f"(committed checkpoint: {accs['committed']})")
+    out["resnet_train"] = {"wall_s": wall, "step_ms": step_ms,
+                           "losses": losses, "accuracy": accs}
+    for variant in ("pallas", "fused"):
+        single, bank = HETERO_KERNELS[variant]
+        record, wall, launches = _drive(
+            f"ResNet-8 sweeps + STE fine-tune ({variant})",
+            lambda: train_resnet.run(
+                device, steps=320, eval_n=EVAL_N, n_mult=6,
+                from_checkpoint=True, variant=variant,
+                ckpt_dir=os.path.join(tmp, f"ft_{variant}"), log=log),
+            (single, bank))
+        ft = record["fine_tune"]
+        if ft is None:
+            raise AssertionError(f"fine-tune ({variant}): no heterogeneous "
+                                 "point within the bound")
+        layers = len(ft["assignment"])
+        want = {single: layers * ft["steps"]}
+        want_eval = {single: layers * ft["eval_batches"]}
+        if (ft["launches"] != want or ft["eval_launches"] != want_eval
+                or ft["eval_launches_after"] != want_eval
+                or not np.isfinite(ft["losses"]).all()):
+            raise AssertionError(
+                f"fine-tune ({variant}): launches {ft['launches']} (want "
+                f"{want}), evaluations {ft['eval_launches']} / "
+                f"{ft['eval_launches_after']} (want {want_eval})")
+        step = _check_ste_step(device, ft["policy"], variant)
+        print(f"[train] fine-tune ({variant}): {ft['steps']} STE steps, "
+              f"{want} launches ({layers} layers a step), median step "
+              f"{ft['step_ms']:.2f} ms; accuracy under the policy "
+              f"{ft['accuracy_before']:.4f} -> {ft['accuracy_after']:.4f} "
+              f"(verified {ft['verified_accuracy']:.4f}, power "
+              f"{ft['network_rel_power']:.4f})")
+        out[f"resnet_fine_tune_{variant}"] = {
+            **record, "main_path_s": wall, "launches": launches,
+            "ste_step": step}
+        for k, v in launches.items():
+            launches_total[k] += v
+    return out
+
+
+def _lm_train_phase(device, tmp: str) -> dict:
+    """(c) ``launch.train`` on qwen1.5-0.5b at full width, then a resume
+    into fresh tensors, equal bit for bit to the trained state."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import tree_leaves
+    ckpt = os.path.join(tmp, "lm")
+    rec, wall, _ = _drive(
+        f"{LM_TRAIN['arch']} training",
+        lambda: train.run(device, ckpt_dir=ckpt, keep=1,
+                          log=lambda s: None, **LM_TRAIN), ())
+    losses = [h["loss"] for h in rec["history"]]
+    if not (len(losses) == LM_TRAIN["steps"] and np.isfinite(losses).all()
+            and rec["last_loss"] < rec["first_loss"]):
+        raise AssertionError(f"LM training: losses {losses}")
+    first = rec.pop("trainer")
+    cfg = get_config(LM_TRAIN["arch"])
+    t0 = time.perf_counter()
+    resumed = train.make_trainer(cfg, train.init_params(cfg, device, 1),
+                                 LM_TRAIN["steps"], 3e-4, 1, ckpt, keep=1)
+    if not resumed.maybe_resume() or resumed.step != LM_TRAIN["steps"]:
+        raise AssertionError("LM resume found no checkpoint")
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves((resumed.params, resumed.opt_state)),
+                     tree_leaves((first.params, first.opt_state))))
+    bad = [k for (k, a), (_, b) in pairs if not torch.equal(a, b)]
+    if bad or len(pairs) != 3 * len(tree_leaves(first.params)) + 1:
+        raise AssertionError(f"LM resume differs at {bad[:5]}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(ckpt) for f in fs)
+    del first, resumed
+    torch.cuda.empty_cache()
+    gib = rec["peak_bytes"] / 2 ** 30
+    print(f"[train] {LM_TRAIN['arch']} at full width on "
+          f"{_smi('name,power.limit')}: {rec['n_params'] / 1e9:.3f} B "
+          f"parameters, {LM_TRAIN['steps']} steps at batch "
+          f"{LM_TRAIN['batch']} x {LM_TRAIN['seq']}: loss "
+          f"{rec['first_loss']:.4f} -> {rec['last_loss']:.4f}; median step "
+          f"{rec['step_ms']:.1f} ms (max {rec['step_ms_max']:.1f}), "
+          f"{rec['tokens_per_s']:.0f} tokens/s at the median step, "
+          f"{rec['tokens_per_s_steps']:.0f} over all steps, "
+          f"{rec['tokens_per_s_run']:.0f} over the run with its saves, "
+          f"peak {gib:.2f} GiB; run {wall:.1f} s with its checkpoints; "
+          f"resume of {len(pairs)} leaves bit for bit in {resume_s:.1f} s "
+          f"({ckpt_bytes / 2 ** 30:.2f} GiB on disk)")
+    return {"lm_train": {**rec, "wall_s": wall, "resume_s": resume_s,
+                         "checkpoint_bytes": ckpt_bytes,
+                         "peak_gib": gib}}
+
+
+def _perplexity_phase(device, launches_total: dict) -> dict:
+    """(d) banked ``lm_perplexity`` sweeps on reduced qwen1.5-0.5b equal
+    to sequential ones bit for bit, one banked launch a projection a
+    pass."""
+    from repro_torch.approx.dse import explore
+    from repro_torch.approx.workload import lm_perplexity
+    from repro_torch.configs import get_config
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch.case_study import case_study_names
+    lib = get_default_library()
+    names = case_study_names(lib, 3)
+    n_batches = 2
+    wl = lm_perplexity(LM_TRAIN["arch"], batch=2, seq_len=16,
+                       n_batches=n_batches, device=device)
+    per_pass = (PROJECTIONS_PER_LAYER
+                * get_config(LM_TRAIN["arch"]).reduced().n_layers
+                * n_batches)
+    out, rows = {}, {}
+    for variant in ("pallas", "fused"):
+        single, bank = HETERO_KERNELS[variant]
+        kw = dict(workload=wl, library=lib, multipliers=names, mode="lut",
+                  variant=variant, per_layer=False)
+        banked, wall, launches = _drive(
+            f"lm_perplexity banked sweep ({variant})",
+            lambda: explore(batch=True, **kw), (bank,))
+        seq, seq_wall, seq_launches = _drive(
+            f"lm_perplexity sequential sweep ({variant})",
+            lambda: explore(batch=False, **kw), (single,))
+        rows[variant] = [p.metrics for p in banked.all_layers]
+        if (rows[variant] != [p.metrics for p in seq.all_layers]
+                or launches != {**{k: 0 for k in launches}, bank: per_pass}
+                or seq_launches[single] != per_pass * len(names)):
+            raise AssertionError(
+                f"lm_perplexity ({variant}): banked == sequential "
+                f"{rows[variant] == [p.metrics for p in seq.all_layers]}, "
+                f"launches {launches} / {seq_launches} (want {per_pass} a "
+                f"pass)")
+        for src in (launches, seq_launches):
+            for k, v in src.items():
+                launches_total[k] += v
+        out[variant] = {"rows": rows[variant], "banked_s": wall,
+                        "sequential_s": seq_wall, "launches": launches,
+                        "sequential_launches": seq_launches}
+    if rows["fused"] != rows["pallas"]:
+        raise AssertionError(f"lm_perplexity rows differ between "
+                             f"variants: {rows}")
+    print(f"[train] lm_perplexity ({len(names)} multipliers, reduced "
+          f"{LM_TRAIN['arch']}): banked == sequential bit for bit, "
+          f"{per_pass} banked launches a pass, fused rows == pallas rows; "
+          f"banked {out['pallas']['banked_s']:.3f} / "
+          f"{out['fused']['banked_s']:.3f} s, sequential "
+          f"{out['pallas']['sequential_s']:.3f} / "
+          f"{out['fused']['sequential_s']:.3f} s (pallas / fused)")
+    return {"lm_perplexity": out}
+
+
+def phase_train(device, log, launches_total: dict) -> dict:
+    """Path H: training on the card (``_train_resnet_phase``,
+    ``_lm_train_phase``, ``_perplexity_phase``), its checkpoints in a
+    temporary directory removed at the end."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        out = _train_resnet_phase(device, log, tmp, launches_total)
+        out.update(_lm_train_phase(device, tmp))
+        out.update(_perplexity_phase(device, launches_total))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _check_against_objectives_bench(record) -> None:
+    """The ResNet scenario's weight-independent fields against the
+    reference's recorded ``--quick`` run (``BENCH_OBJECTIVES``): the
+    candidates, the 2-D gate, the members of both fronts, every accuracy
+    within one image, the same ``select`` pick."""
+    with open(BENCH_OBJECTIVES) as f:
+        want = json.load(f)["resnet"]
+    got = record["resnet"]
+    tol = 1 / got["eval_n"]
+    bad = []
+    for key in ("candidates", "bit_identical_2d"):
+        if got[key] != want[key]:
+            bad.append(f"{key}: {got[key]} != {want[key]}")
+    for key in ("pareto_2d", "pareto_3d"):
+        names = [p["multiplier"] for p in got[key]]
+        if names != [p["multiplier"] for p in want[key]]:
+            bad.append(f"{key}: {names}")
+    for g, w in zip(got["sweep"], want["sweep"]):
+        if (g["multiplier"] != w["multiplier"]
+                or abs(g["accuracy"] - w["accuracy"]) > tol
+                or g["power"] != w["power"] or g["delay"] != w["delay"]):
+            bad.append(f"sweep: {g} != {w}")
+    if (got["selected"] or {}).get("multiplier") != \
+            (want["selected"] or {}).get("multiplier"):
+        bad.append(f"selected {got['selected']} != {want['selected']}")
+    if bad:
+        raise AssertionError("objectives --quick study differs from the "
+                             "reference's recorded run: " + "; ".join(bad))
+    print(f"[main] objectives (--quick, {record['variant']}) equals the "
+          f"reference's recorded run "
+          f"({os.path.relpath(BENCH_OBJECTIVES, ROOT)}): "
+          f"{len(want['candidates'])} candidates, fronts "
+          f"{[p['multiplier'] for p in want['pareto_2d']]}, selection "
+          f"{want['selected']['multiplier']}, accuracies within {tol}")
+
+
+def phase_objectives(device, log, launches_total: dict) -> dict:
+    """Path I: ``objectives_pareto.run`` at ``--quick`` under each
+    variant (its gates; the ResNet scenario against
+    ``BENCH_objectives.json``; each sweep's banked launches — 10 layers
+    x eval batches for the ResNet, 7 projections x 2 layers x 2 batches
+    for the decoder — and the sequential decoder sweep's; fused rows ==
+    pallas rows), then once at the default 256 images under
+    ``pallas``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import objectives_pareto
+    out, rows = {}, {}
+    per_lm_pass = (PROJECTIONS_PER_LAYER
+                   * get_config(objectives_pareto.DECODER_ARCH).reduced()
+                   .n_layers * 2)
+    runs = [("pallas", True), ("fused", True), ("pallas", False)]
+    for variant, quick in runs:
+        single, bank = HETERO_KERNELS[variant]
+        label = f"{variant}{' --quick' if quick else ''}"
+        record, wall, launches = _drive(
+            f"objectives study ({label})",
+            lambda: objectives_pareto.run(device, quick=quick,
+                                          variant=variant, log=log),
+            (single, bank))
+        rn, lm = record["resnet"], record["decoder"]
+        want_rn = {bank: 10 * (rn["eval_n"] // BATCH)}
+        want_seq = {single: per_lm_pass * len(lm["candidates"])}
+        if (rn["launches"] != want_rn
+                or lm["batched_launches"] != {bank: per_lm_pass}
+                or lm["sequential_launches"] != want_seq):
+            raise AssertionError(
+                f"objectives ({label}): launches {rn['launches']} / "
+                f"{lm['batched_launches']} / {lm['sequential_launches']} "
+                f"(want {want_rn} / {per_lm_pass} / {want_seq})")
+        if quick:
+            _check_against_objectives_bench(record)
+            rows[variant] = (rn["sweep"], lm["sweep"])
+        print(f"[main] objectives ({label}) on {_smi('name,power.limit')}: "
+              f"ResNet sweep {rn['sweep_s']:.3f} s, decoder banked "
+              f"{lm['batched_s']:.3f} s / sequential "
+              f"{lm['sequential_s']:.3f} s; selected "
+              f"{rn['selected']['multiplier']} / "
+              f"{lm['selected']['multiplier']}")
+        out[label.replace(" --", "_")] = {**record, "main_path_s": wall,
+                                          "launches": launches}
+        for k, v in launches.items():
+            launches_total[k] += v
+    if rows["fused"] != rows["pallas"]:
+        raise AssertionError(f"objectives rows differ between variants: "
+                             f"{rows}")
+    print("[main] objectives (--quick): fused rows == pallas rows")
+    return out
+
+
+def phase_evolve(device, log, launches_total: dict) -> dict:
+    """Path J: ``evolve_library.run`` at its default size against
+    ``BENCH_evolve.json``: metric identity, the ladder (rungs,
+    generations, circuits, candidate evaluations, archive sizes in
+    order), the ``tiny`` builds' entries and evolved counts; the
+    throughput ratio recorded, not gated."""
+    from repro_torch.launch import evolve_library
+    record, wall, launches = _drive(
+        "evolve study", lambda: evolve_library.run(device, log=log),
+        ("bitsim_pop", "bitsim"))
+    with open(BENCH_EVOLVE) as f:
+        want = json.load(f)
+    lad, wlad = record["ladder"], want["ladder"]
+    bad = []
+    if record["metric_identity"] != want["metric_identity"]:
+        bad.append(f"metric identity {record['metric_identity']}")
+    for key in ("rungs", "generations", "circuits", "candidate_evals"):
+        if lad[key] != wlad[key]:
+            bad.append(f"ladder {key} {lad[key]} != {wlad[key]}")
+    if ([p["archive_size"] for p in lad["archive_vs_wall_clock"]]
+            != [p["archive_size"] for p in wlad["archive_vs_wall_clock"]]):
+        bad.append("ladder archive sizes")
+    for engine in ("legacy", "device"):
+        for key in ("entries", "evolved"):
+            if (record["library_tiny"][engine][key]
+                    != want["library_tiny"][engine][key]):
+                bad.append(f"library_tiny {engine} {key}")
+    if bad:
+        raise AssertionError("evolve study differs from the reference's "
+                             "recorded run: " + "; ".join(bad))
+    tp = record["throughput"]
+    print(f"[main] evolve study on {_smi('name,power.limit')} equals the "
+          f"reference's recorded run ({os.path.relpath(BENCH_EVOLVE, ROOT)}"
+          f"): metric identity, ladder {lad['circuits']} circuits / "
+          f"{lad['candidate_evals']} evaluations in {lad['wall_s']:.3f} s, "
+          f"tiny builds {want['library_tiny']['legacy']['entries']} / "
+          f"{want['library_tiny']['device']['entries']} entries; "
+          f"throughput numpy {tp['evals_per_s_numpy']:.1f}/s, device "
+          f"{tp['evals_per_s_device']:.1f}/s, {tp['speedup']:.2f}x "
+          f"(the reference's 3x gate recorded: "
+          f"{'met' if tp['speedup_gate_met'] else 'missed'})")
+    for k, v in launches.items():
+        launches_total[k] += v
+    return {**record, "main_path_s": wall, "launches": launches}
+
+
 def _profile_continuous_step(device) -> dict:
     """One decode step of the continuous engine with 4 active slots (4
     requests at the serve CLI's defaults, 4 tables of the serve-load
@@ -2635,6 +3083,12 @@ def main() -> int:
     details["main"]["profiles"] = phase_profiles(
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["main"]["serve_encdec"] = phase_serve_encdec(
+        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
+    details["main"]["train"] = phase_train(
+        device, lambda s: print(f"[train] {s}"), details["main"]["launches"])
+    details["main"]["objectives"] = phase_objectives(
+        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
+    details["main"]["evolve"] = phase_evolve(
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -36,7 +36,7 @@ exactly as the reference's ``vmap`` lane does.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -128,6 +128,15 @@ def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
 
 def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
     return (q - qp.zero_point).to(torch.float32) * qp.scale
+
+
+def fake_quant(x: torch.Tensor, qp: Optional[QuantParams] = None,
+               bits: Bits = 8) -> torch.Tensor:
+    """Quantize-dequantize round trip (for QAT-style experiments):
+    ``calibrate`` (unless ``qp`` is given), ``quantize``,
+    ``dequantize``."""
+    qp = qp or calibrate(x, bits=bits)
+    return dequantize(quantize(x, qp), qp)
 
 
 def dequant_sums(s: torch.Tensor, row: torch.Tensor, col: torch.Tensor,

@@ -18,10 +18,9 @@ synthetic-CIFAR top-1 accuracy, the paper's case study (with
 reference datapath, the wide-width study's fidelity axis; and
 ``lm_fidelity(cfg)`` — the same metrics for any LM config of the zoo
 (dense, moe, ssm, hybrid, MLA, vlm with its image embeddings, encdec
-with its audio frames).  ``layer_mult_counts`` is the one MAC accounting
-for ResNets and those LM families.  Not ported yet, raising:
-``lm_perplexity``, which needs ``forward_train`` (ROADMAP.md Queue 1,
-"Training").
+with its audio frames); ``lm_perplexity(cfg)`` — the LM loss and its
+perplexity through ``forward_train``.  ``layer_mult_counts`` is the one
+MAC accounting for ResNets and those LM families.
 """
 from __future__ import annotations
 
@@ -502,8 +501,33 @@ def lm_fidelity(cfg: Union[str, Any], params=None, *, batch: int = 2,
         layer_counts=layer_mult_counts(cfg, batch, seq_len))
 
 
-def lm_perplexity(cfg, params=None, **kw) -> Workload:
-    """Loss/perplexity of a decoder LM: needs ``forward_train``."""
-    from ..models.common import TRAIN_ITEM
-    raise NotImplementedError(f"lm_perplexity needs forward_train, which "
-                              f"is not ported yet ({TRAIN_ITEM})")
+def lm_perplexity(cfg: Union[str, Any], params=None, *, batch: int = 2,
+                  seq_len: int = 16, n_batches: int = 2, seed: int = 0,
+                  device: DeviceLike = None) -> Workload:
+    """Decoder LM loss/perplexity on the deterministic synthetic token
+    batches: ``perplexity`` (minimize, primary) = exp(mean CE loss),
+    plus the raw ``loss``, through ``forward_train`` under
+    ``torch.inference_mode()``.  An untrained tiny config still yields a
+    meaningful *relative* axis — approximation error moves the loss.
+    Under a banked policy each batch's loss is one value a lane, and the
+    means run lane by lane (``per_lane``), so a banked lane equals its
+    sequential evaluation bit for bit."""
+    cfg, params, fns, dev = _lm_setup(cfg, params, seed, device)
+    batches = _lm_token_batches(cfg, batch, seq_len, n_batches, seed, dev)
+
+    def traceable_metrics(policy):
+        losses = torch.stack([fns.forward_train(params, b, cfg, policy)
+                              for b in batches], -1)
+        loss = per_lane(torch.mean, losses, losses.ndim == 2)
+        return {"perplexity": torch.exp(loss), "loss": loss}
+
+    def fn(policy):
+        with torch.inference_mode():
+            out = traceable_metrics(policy)
+        return {k: float(v) for k, v in out.items()}
+
+    return Workload(name=f"lm_perplexity[{cfg.name}]", fn=fn,
+                    metrics=("perplexity", "loss"), primary="perplexity",
+                    traceable_metrics=traceable_metrics,
+                    directions={"perplexity": "min", "loss": "min"},
+                    layer_counts=layer_mult_counts(cfg, batch, seq_len))

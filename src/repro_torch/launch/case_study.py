@@ -88,6 +88,13 @@ def _timed(fn: Callable, device: torch.device):
     return out, time.perf_counter() - t0
 
 
+def timed_launches(fn: Callable, device: torch.device):
+    """(``fn()``, its wall time in s, the kernel launches it made)."""
+    from ..kernels import ops
+    (out, launches), wall = _timed(lambda: ops.launches_during(fn), device)
+    return out, wall, launches
+
+
 def _setup(device: DeviceLike, eval_n: int, batch: int, n_mult: int):
     dev = resolve_device(device)
     lib = get_default_library()

@@ -31,9 +31,12 @@ they come — the projections run once for all lanes, and the attention
 products run lane by lane (``each_lane``) — so each lane equals its
 sequential evaluation bit for bit.
 
+``chunked_cross_entropy`` is the training loss: each chunk of the
+sequence goes through ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint``, so memory stays about ``B * chunk * V``.
+
 Not ported yet: the sharding hints (``hint_*``: no mesh on one card;
-ROADMAP.md Queue 1, "Launch tooling and multi-device") and
-``chunked_cross_entropy`` (Queue 1, "Training").
+ROADMAP.md Queue 1, "Launch tooling and multi-device").
 """
 from __future__ import annotations
 
@@ -49,11 +52,10 @@ import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
 
-#: The ROADMAP.md items that port what the port does not have yet,
-#: named by title so that a renumbering leaves them true.
+#: The ROADMAP.md item that ports what the port does not have yet,
+#: named by title so that a renumbering leaves it true.
 LANE_SERVE_ITEM = ('ROADMAP.md Queue 1, "Serving the MoE, SSM, hybrid, '
                    'MLA, encoder-decoder and VLM families"')
-TRAIN_ITEM = 'ROADMAP.md Queue 1, "Training"'
 
 
 @dataclass(frozen=True)
@@ -527,6 +529,53 @@ def ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
                          params["wo"],
                          lanes=lanes or hidden.ndim > x.ndim
                          ).to(cfg.dtype)
+
+
+# ----------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------
+def _chunk_loss(h, t, m, w_unembed):
+    """Summed masked CE of one (B, chunk) slice, and its mask count."""
+    logits = torch.matmul(h.to(torch.float32),
+                          w_unembed.to(torch.float32).T)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * m), torch.sum(m)
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, w_unembed: torch.Tensor,
+                          targets: torch.Tensor, chunk: int,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean CE over (B,S) without materializing (B,S,V) logits: the
+    sequence is padded to a multiple of ``chunk`` (pad rows masked out)
+    and processed chunk by chunk, each chunk's logits recomputed in the
+    backward pass (``torch.utils.checkpoint``) when gradients are
+    recorded.  The chunk sums add up in order, as the reference's
+    scan."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i0 in range(0, hidden.shape[1], chunk):
+        args = (hidden[:, i0:i0 + chunk], targets[:, i0:i0 + chunk],
+                mask[:, i0:i0 + chunk], w_unembed)
+        if torch.is_grad_enabled():
+            l, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            l, n = _chunk_loss(*args)
+        total = total + l
+        count = count + n
+    return total / torch.clamp_min(count, 1.0)
 
 
 def logits_from_hidden(hidden: torch.Tensor, w_unembed: torch.Tensor

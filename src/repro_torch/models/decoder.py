@@ -24,9 +24,15 @@ the norms, the unembedding and every mixer's exact part then run lane by
 lane (``common.each_lane``), so each lane equals its sequential
 evaluation bit for bit.
 
-``forward_train`` raises ``NotImplementedError`` naming its ROADMAP.md
-item, and so does the continuous engine's lane decode step for any
-family but the dense one with vanilla attention.
+``forward_train`` is the training loss of every pattern: chunked
+cross-entropy after the final norm, plus ``AUX_LOSS_COEF`` times the MoE
+layers' load-balance loss; ``cfg.remat`` recomputes each layer group in
+the backward pass (``torch.utils.checkpoint``).  Under a banked policy
+the loss is one value a lane, each reduced alone.
+
+The continuous engine's lane decode step raises ``NotImplementedError``
+naming its ROADMAP.md item for any family but the dense one with vanilla
+attention.
 """
 from __future__ import annotations
 
@@ -35,14 +41,17 @@ from typing import Any, Optional
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
-from .common import (LANE_SERVE_ITEM, TRAIN_ITEM, LMConfig,
-                     attention, dense_init, each_lane, ffn, init_attention,
-                     init_attention_cache, init_ffn, lane_attention,
+from .common import (LANE_SERVE_ITEM, LMConfig, attention,
+                     chunked_cross_entropy, dense_init, each_lane, ffn,
+                     init_attention, init_attention_cache, init_ffn,
+                     lane_attention,
                      lane_rms_norm, lanes_of, logits_from_hidden, rms_norm,
                      rms_norm_lanes)
 from .mamba2 import init_mamba, init_mamba_cache, mamba_block
 from .mla import init_mla, init_mla_cache, mla_attention
 from .moe import init_moe, moe_ffn
+
+AUX_LOSS_COEF = 0.01
 
 
 def block_pattern(cfg: LMConfig) -> list[tuple[str, Optional[str]]]:
@@ -176,18 +185,25 @@ def _restack(old, groups: list):
 
 
 def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
-               caches=None, lanes: bool = False):
+               caches=None, lanes: bool = False, remat: bool = False):
     """Run the layer groups in order.  ``caches``: the stacked cache
-    (or None); attention writes each group's slice in place.  Returns
-    (h, aux_total, new_caches)."""
+    (or None); attention writes each group's slice in place.  ``remat``
+    (training, no cache): each group's activations are recomputed in the
+    backward pass.  Returns (h, aux_total, new_caches)."""
+    from torch.utils.checkpoint import checkpoint
+
     pattern = block_pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
     aux = 0.0
     new = []
     for g in range(n_groups):
         gcache = None if caches is None else _index(caches, g)
-        h, a, nc = _group_body(h, positions, _index(params["blocks"], g),
-                               gcache, cfg, policy, pattern, lanes)
+        args = (h, positions, _index(params["blocks"], g), gcache, cfg,
+                policy, pattern, lanes)
+        if remat and caches is None and torch.is_grad_enabled():
+            h, a, nc = checkpoint(_group_body, *args, use_reentrant=False)
+        else:
+            h, a, nc = _group_body(*args)
         aux = aux + a
         new.append(nc)
     new_caches = None if new[0] is None else _restack(caches, new)
@@ -215,10 +231,37 @@ def _embed_inputs(params, batch, cfg: LMConfig, policy: ApproxPolicy):
 # ----------------------------------------------------------------------
 # Public steps
 # ----------------------------------------------------------------------
+def lm_loss(params, h, targets, cfg: LMConfig, n_img: int, norm: str
+            ) -> torch.Tensor:
+    """Final norm (``params[norm]``) and chunked cross-entropy of h
+    (B,S,D) against targets (B,S - n_img); the ``n_img`` image rows in
+    front carry mask 0 and front-padded targets.  One loss a lane when
+    h carries a bank lane axis, each lane reduced alone."""
+    mask = None
+    if n_img:
+        b, s = targets.shape
+        mask = torch.cat([torch.zeros((b, n_img), device=h.device),
+                          torch.ones((b, s), device=h.device)], dim=1)
+        targets = torch.nn.functional.pad(targets, (n_img, 0))
+
+    def one(x):
+        x = rms_norm(x, params[norm], cfg.norm_eps)
+        return chunked_cross_entropy(x, params["unembed"], targets,
+                                     cfg.loss_chunk, mask)
+    return each_lane(one, lanes_of(3, h), 3, h)
+
+
 def forward_train(params, batch, cfg: LMConfig,
-                  policy: ApproxPolicy = EXACT_POLICY):
-    raise NotImplementedError(f"forward_train is not ported yet "
-                              f"({TRAIN_ITEM})")
+                  policy: ApproxPolicy = EXACT_POLICY) -> torch.Tensor:
+    """batch: tokens (B,S), targets (B,S) (a vlm also ``img_embeds``,
+    whose rows carry no LM loss) -> scalar loss, or (n,) under a banked
+    policy."""
+    h, positions = _embed_inputs(params, batch, cfg, policy)
+    h, aux, _ = _run_stack(params, h, positions, cfg, policy,
+                           remat=cfg.remat)
+    n_img = h.shape[-2] - batch["tokens"].shape[-1]    # a vlm's image
+    loss = lm_loss(params, h, batch["targets"], cfg, n_img, "final_norm")
+    return loss + AUX_LOSS_COEF * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):

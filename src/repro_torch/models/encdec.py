@@ -31,12 +31,12 @@ from typing import Any
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
-from .common import (LANE_SERVE_ITEM, TRAIN_ITEM, LMConfig,
+from .common import (LANE_SERVE_ITEM, LMConfig,
                      _grouped_attention, _inv_freq_on, attention,
                      dense_init, each_lane, ffn, init_attention,
                      init_attention_cache, init_ffn, lanes_of,
                      logits_from_hidden, rms_norm_lanes)
-from .decoder import _index, _restack
+from .decoder import _index, _restack, lm_loss
 
 
 def sinusoidal_positions(seq: int, dim: int, offset: int = 0,
@@ -173,10 +173,42 @@ def _last_logits(params, h: torch.Tensor, row: int) -> torch.Tensor:
                      lanes_of(3, h), 3, h)
 
 
+def _train_layer(h, lp, xkv, positions, cfg: LMConfig,
+                 policy: ApproxPolicy) -> torch.Tensor:
+    """One decoder layer without a self cache (causal over h)."""
+    hin = rms_norm_lanes(h, lp["norm1"], cfg.norm_eps)
+    y, _ = attention(lp["attn"], hin, cfg, policy, positions=positions,
+                     layer_tag="dec.attn")
+    h = h + y
+    hin = rms_norm_lanes(h, lp["norm2"], cfg.norm_eps)
+    h = h + cross_attention(lp["xattn"], hin, xkv, cfg, policy)
+    hin = rms_norm_lanes(h, lp["norm3"], cfg.norm_eps)
+    return h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="dec.ffn",
+                   lanes=hin.ndim == 4)
+
+
 def forward_train(params, batch, cfg: LMConfig,
-                  policy: ApproxPolicy = EXACT_POLICY):
-    raise NotImplementedError(f"forward_train is not ported yet "
-                              f"({TRAIN_ITEM})")
+                  policy: ApproxPolicy = EXACT_POLICY) -> torch.Tensor:
+    """batch: frames (B,F,D), tokens (B,S), targets (B,S) -> scalar
+    loss, or (n,) under a banked policy: the (causal) encoder, one
+    cross-KV a decoder layer, the causal decoder without a cache, the
+    final norm and chunked cross-entropy.  ``cfg.remat`` recomputes each
+    decoder layer in the backward pass."""
+    from torch.utils.checkpoint import checkpoint
+
+    enc_out = encode(params, batch["frames"], cfg, policy)
+    h = _embed_tokens(params, batch["tokens"], cfg)
+    positions = torch.arange(h.shape[-2], dtype=torch.int32,
+                             device=h.device)
+    for layer in range(cfg.n_layers):
+        lp = _index(params["dec_blocks"], layer)
+        xkv = encode_cross_kv(lp["xattn"], enc_out, cfg, policy)
+        args = (h, lp, xkv, positions, cfg, policy)
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(_train_layer, *args, use_reentrant=False)
+        else:
+            h = _train_layer(*args)
+    return lm_loss(params, h, batch["targets"], cfg, 0, "dec_norm")
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None

@@ -103,6 +103,19 @@ class ResNet(nn.Module):
                 policy: ApproxPolicy = EXACT_POLICY) -> torch.Tensor:
         return forward(self, images, policy=policy)
 
+    def param_tree(self) -> dict:
+        """The parameters as the reference's nested param dict
+        (``conv_init``, ``s{s}_b{b}``, ``head``; the tensors are this
+        module's own), the tree the trainer and the checkpoints walk."""
+        tree: dict = {}
+        for name, p in self.named_parameters():
+            *parents, last = name.removeprefix("blocks.").split(".")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[last] = p
+        return tree
+
 
 def _bn(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         eps: float) -> torch.Tensor:

@@ -45,7 +45,11 @@ def test_port_has_the_main_path_modules():
                 "models/decoder.py", "models/registry.py",
                 "configs/__init__.py", "configs/qwen1_5_0_5b.py",
                 "launch/steps.py", "serve/__init__.py", "serve/engine.py",
-                "launch/serve.py"):
+                "launch/serve.py", "train/optimizer.py",
+                "train/compression.py", "train/checkpoint.py",
+                "train/loop.py", "launch/train.py",
+                "launch/train_resnet.py", "launch/objectives_pareto.py",
+                "launch/evolve_library.py"):
         assert mod in rel, mod
     from repro_torch.kernels.build import KERNELS
     from repro_torch.kernels.ops import launch_counts
@@ -124,6 +128,21 @@ def test_entry_points_without_cuda_raise(monkeypatch):
             (3, 2), dtype=torch.int32, device="meta"),
             *(torch.ones((4, 256), device="meta"),) * 2)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_and_study_entry_points_without_cuda_raise(monkeypatch):
+    from repro_torch.approx.workload import lm_perplexity
+    from repro_torch.launch import (evolve_library, objectives_pareto,
+                                    train, train_resnet)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (train.run, train_resnet.run, train_resnet.train,
+                 objectives_pareto.run, evolve_library.run,
+                 lambda: train.main([]), lambda: train_resnet.main([]),
+                 lambda: objectives_pareto.main([]),
+                 lambda: evolve_library.main([]),
+                 lambda: lm_perplexity("qwen1.5-0.5b")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

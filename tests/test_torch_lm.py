@@ -283,17 +283,19 @@ def test_parameter_trees_map_one_to_one():
 
 
 def test_unported_configs_raise_with_roadmap_item():
-    """Only ``forward_train`` still raises naming its ROADMAP.md item;
-    MLA, the vlm pattern, chunked attention, deepseek-v2-236b and the
-    encoder-decoder family now build and prefill (their parity tests:
-    ``tests/test_torch_mla.py``, ``test_torch_encdec.py``,
-    ``test_torch_vlm.py``)."""
+    """``forward_train`` now returns a finite scalar loss (its parity
+    tests: ``tests/test_torch_forward_train.py``); MLA, the vlm pattern,
+    chunked attention, deepseek-v2-236b and the encoder-decoder family
+    build and prefill (their parity tests: ``tests/test_torch_mla.py``,
+    ``test_torch_encdec.py``, ``test_torch_vlm.py``)."""
     cfg = get_config("qwen1.5-0.5b").reduced()
     params = decoder.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decoder.forward_train(params, {}, cfg)
     tokens = torch.from_numpy(np.random.default_rng(6).integers(
         0, cfg.vocab, (2, 5)).astype(np.int32))
+    with torch.inference_mode():
+        loss = decoder.forward_train(
+            params, {"tokens": tokens, "targets": tokens}, cfg)
+    assert loss.shape == () and torch.isfinite(loss)
     with torch.inference_mode():
         vanilla, _ = decoder.forward_prefill(params, {"tokens": tokens},
                                              None, cfg)
