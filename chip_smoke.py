@@ -163,17 +163,17 @@ Phases (any failure exits nonzero):
      and llava-next-34b's image path among them) and ResNet-8, failing
      unless its four gates hold; then, through the library API, at full
      width with random weights on the card at the configs' dtype:
-     mamba2-780m (48 layers), qwen3-moe-30b-a3b (4 of 48 layers),
+     mamba2-780m (48 layers), qwen3-moe-30b-a3b (2 of 48 layers),
      whisper-large-v3 (4 + 4 of 32 + 32 layers, all 1 500 frames) and
      deepseek-v2-236b (1 of 60 layers): each profile's stage walls,
      banked launches a sweep, peak memory and selection, failing unless
      the banked sweep of every row equals the sequential evaluation bit
      for bit, the banked kernel launched exactly the formula's count
-     (96, 1 552, 64 and 491 a sweep) and fused rows equal pallas rows,
+     (96, 776, 64 and 491 a sweep) and fused rows equal pallas rows,
      with one banked sweep of each under ``torch.profiler`` (device
      busy, kernels); then K2 and K4 timed at those sweeps' shapes beside
      their bounds;
-  8. the encoder-decoder serve path, last: ``launch.serve.run(arch=
+  8. the encoder-decoder serve path: ``launch.serve.run(arch=
      "whisper-large-v3")``, the whole model (32 + 32 layers, 1 500 stub
      audio frames) at full width under the serve path's settings, which
      must launch K9 512 times a prefill and 256 a decode step (9 728 in
@@ -182,7 +182,28 @@ Phases (any failure exits nonzero):
      model under ``variant="ref"`` within the logit tolerance
      (teacher-forced); its prefill and decode rates, one profiled decode
      step and the model's bytes are printed;
-  9. training (``phase_train``), its checkpoints in a temporary
+  9. continuous serving of every family (``phase_serve_families``),
+     each run with the launch counters zeroed just before it and read
+     just after: ``launch.serve_load.run`` (one level of 4 Poisson
+     requests, 2 policies, greedy and sampled, 4 slots) under
+     ``"pallas"`` (K2) on mamba2-780m and whisper-large-v3 whole (1 500
+     stub frames), qwen3-moe-30b-a3b with 4 of 48 layers,
+     deepseek-v2-236b with 1 of 60 (and under ``"fused"``, K4, whose
+     tokens must equal pallas's), jamba-v0.1-52b and llava-next-34b
+     reduced, and qwen1.5-0.5b with chunked attention (4 keys a chunk),
+     each failing unless every request's tokens equal its sequential
+     ``Engine.generate`` (K1 / K3), every prefill and decode step
+     launched the banked kernel exactly the call-site formula's count
+     (``serve_load.banked_calls_per_step``) and nothing else, and the
+     bank was built once; each run's wall, tokens/s and decode step
+     wall printed; one deepseek decode step (4 slots) under
+     ``torch.profiler``, with the share of a step the latent expansion
+     (``wuk``/``wuv``) takes; then deepseek-v2-236b (1 of 60 layers)
+     served statically under ``lowrank``/``pallas`` (``_serve_path``:
+     K9 491 times a prefill and a decode step, every K9 call of a
+     prefill and a step within the bound, logits within the tolerance of
+     ``variant="ref"``);
+ 10. training (``phase_train``), its checkpoints in a temporary
      directory removed at the end: ``launch.train_resnet.train``, the
      recipe of the committed ResNet-8 (320 f32 steps at batch 64 from a
      seeded init), whose losses must be finite and fall, its float and
@@ -200,13 +221,13 @@ Phases (any failure exits nonzero):
      optimizer state bit for bit; a banked ``lm_perplexity`` sweep on
      reduced qwen1.5-0.5b equal to the sequential one bit for bit, the
      banked kernel launched once a projection a pass;
- 10. the objectives study (``launch.objectives_pareto``) at ``--quick``
+ 11. the objectives study (``launch.objectives_pareto``) at ``--quick``
      under both variants, against the reference's recorded
      ``benchmarks/results/BENCH_objectives.json`` (candidates, the 2-D
      gate, both fronts' members, accuracies within one image, the
      selection), its launches equal to the call-site formula and the
      fused rows to the pallas rows, then at 256 images;
- 11. the evolve study (``launch.evolve_library``) at its default size
+ 12. the evolve study (``launch.evolve_library``) at its default size
      against ``benchmarks/results/BENCH_evolve.json`` (metric identity,
      the ladder, the tiny builds' counts); its throughput ratio is
      recorded, not gated.
@@ -342,13 +363,14 @@ CONTINUOUS_KERNELS = {"pallas": ("lut_matmul_bank", "lut_matmul"),
 # the module-resilience profiles (``launch.arch_profiles``): the
 # reference's recorded ``--quick`` run, and four families at full width,
 # each with the depth cuts it needs (qwen3-moe: 48 layers of 128 experts
-# are ~29 B parameters, more than one card holds in f32; deepseek: one
-# layer of its 160 experts is already ~3.8 B; whisper: 4 + 4 of its
+# are ~29 B parameters, more than one card holds in f32, and 2 of them
+# keep the run's time beside the every-family serving phase; deepseek:
+# one layer of its 160 experts is already ~3.8 B; whisper: 4 + 4 of its
 # 32 + 32 layers keep the run's time, at all 1 500 encoder frames)
 BENCH_PROFILES = os.path.join(ROOT, "benchmarks", "results",
                               "BENCH_profiles.json")
 PROFILE_FULL_WIDTH = (("mamba2-780m", "ssm", {}),
-                      ("qwen3-moe-30b-a3b", "moe", {"n_layers": 4}),
+                      ("qwen3-moe-30b-a3b", "moe", {"n_layers": 2}),
                       ("whisper-large-v3", "encdec",
                        {"n_enc_layers": 4, "n_layers": 4}),
                       ("deepseek-v2-236b", "moe", {"n_layers": 1}))
@@ -373,6 +395,29 @@ PROFILE_STEP_CHECK = ((2, 3000, 1280, 1280), (24, 4, 5120, 1536),
 # prefill: 6 a layer in the encoder, the cross-KV's 2 and 8 a layer in
 # the decoder; a decode step: the decoder's 8 a layer
 SERVE_ENCDEC = {**SERVE, "arch": "whisper-large-v3"}
+# continuous serving of every family (``phase_serve_families``): each
+# config through ``launch.serve_load.run`` under ``pallas`` (K2), one level
+# of 4 Poisson requests of 2 policies (greedy and sampled alternating)
+# over 4 slots; (family, arch, its arguments).  Cuts: qwen3-moe 4 of 48
+# layers (~29 B parameters whole), deepseek 1 of 60 (one layer ~3.8 B),
+# jamba and llava reduced (one 8-layer jamba period at width ~12 B
+# parameters, ~48 GB in f32; llava's 60 layers of width 7 168 ~35 B);
+# then one attention config with chunked attention, 4 keys a chunk
+SERVE_FAMILIES = (
+    ("ssm", "mamba2-780m", {}),
+    ("encdec", "whisper-large-v3", {}),
+    ("moe", "qwen3-moe-30b-a3b", {"overrides": {"n_layers": 4}}),
+    ("moe+mla", "deepseek-v2-236b", {"overrides": {"n_layers": 1}}),
+    ("hybrid", "jamba-v0.1-52b", {"reduced": True}),
+    ("vlm", "llava-next-34b", {"reduced": True}),
+    ("chunked", "qwen1.5-0.5b",
+     {"overrides": {"attn_impl": "chunked", "kv_chunk": 4}}))
+SERVE_FAMILY_LOAD = {"levels": [2], "n_requests": 4, "warmup": False}
+# the arch also run under ``fused`` (K4), its tokens equal to pallas's
+SERVE_FAMILY_FUSED = "deepseek-v2-236b"
+# the static MLA serve: deepseek-v2-236b at the same depth on K9
+SERVE_MLA = {**SERVE, "arch": "deepseek-v2-236b", "max_new": 4,
+             "overrides": {"n_layers": 1}}
 # training on the card: launch.train's run of qwen1.5-0.5b at full width
 # (remat on, loss chunks of 1 024 tokens, as the config has them), and
 # the reference's recorded runs of the objectives and evolve studies
@@ -1715,7 +1760,8 @@ def _serve_path(device, log, launches_total: dict, settings: dict,
         launches_total[k] += v
     dev, cfg, params, prompts = serve.setup(
         device, arch, batch=settings["batch"],
-        prompt_len=settings["prompt_len"])
+        prompt_len=settings["prompt_len"],
+        overrides=settings.get("overrides"))
     extras = input_extras(cfg, settings["batch"]) or None
     n_params = sum(v.numel() for v in _leaves(params))
     per_prefill, per_decode, rows = k9_calls(cfg, *prompts.shape)
@@ -1803,6 +1849,158 @@ def phase_serve_encdec(device, log, launches_total: dict) -> dict:
         return (cfg.n_enc_layers * 6 + cfg.n_layers * (2 + 8),
                 cfg.n_layers * 8, [b * cfg.enc_frames, b * s, b])
     return _serve_path(device, log, launches_total, SERVE_ENCDEC, k9_calls)
+
+
+def _profile_mla_step(device) -> dict:
+    """One continuous decode step of deepseek-v2-236b (1 of 60 layers, 4
+    slots, 4 multipliers of the serve-load bank, ``pallas``) under
+    ``torch.profiler`` (``_profiled``), then one more step with each of
+    the latent expansion's calls (``mla.wuk``, ``mla.wuv``) timed
+    between two synchronisations: their share of that step's wall."""
+    import numpy as np
+    import torch
+    from repro_torch.approx.layers import ApproxPolicy
+    from repro_torch.approx.specs import BackendSpec
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch import serve, serve_load
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+    from repro_torch.serve import engine as engine_mod
+    mults = serve_load.MULTIPLIERS[::2]
+    dev, cfg, params, prompts = serve.setup(
+        device, SERVE_MLA["arch"], batch=4, prompt_len=8,
+        overrides=SERVE_MLA["overrides"])
+    engine = ContinuousEngine(
+        cfg, params, library=get_default_library(),
+        multipliers=serve_load.MULTIPLIERS, n_slots=4,
+        capacity=serve_load.capacity(cfg), variant="pallas")
+    for row, mult in zip(prompts, mults):
+        engine.submit(row, ServeConfig(max_new_tokens=8, policy=ApproxPolicy(
+            default=BackendSpec(mode="lut", multiplier=mult,
+                                ste=False)).to_json()))
+    engine.step()                       # 4 prefills + the first step
+    engine.step()                       # warm-up decode step
+    prof = _profiled(engine.step)
+    last = engine.step_log[-1]
+    spent = []
+    matmul = engine_mod._CountedPolicy.matmul
+
+    def timed(self, name, x, w, lanes=False):
+        if not name.endswith((".wuk", ".wuv")):
+            return matmul(self, name, x, w, lanes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = matmul(self, name, x, w, lanes)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return y
+
+    engine_mod._CountedPolicy.matmul = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    finally:
+        engine_mod._CountedPolicy.matmul = matmul
+    if last["kind"] != "decode" or last["lanes"] != 4 or len(spent) != 2 \
+            * cfg.n_layers:
+        raise AssertionError(f"profiled MLA step malformed: {last}, "
+                             f"{len(spent)} expansion calls")
+    prof.update(lanes=last["lanes"], launches=last["launches"],
+                view_rows=int(np.max(engine._lengths)) + 1,
+                timed_step_ms=step_s * 1e3,
+                expansion_ms=sum(spent) * 1e3,
+                expansion_share=sum(spent) / step_s)
+    del engine, params
+    torch.cuda.empty_cache()
+    return prof
+
+
+def phase_serve_families(device, log, launches_total: dict) -> dict:
+    """Path H: continuous serving of every family.  Each config of
+    ``SERVE_FAMILIES`` through ``launch.serve_load.run`` under ``pallas``
+    (K2), deepseek-v2-236b also under ``fused`` (K4), each failing
+    unless every request's tokens equal its sequential
+    ``Engine.generate`` under ``lane_policy`` (K1 / K3), every prefill
+    and decode step launched the banked kernel exactly as the call-site
+    formula says (``serve_load.banked_calls_per_step``) and nothing
+    else, and the bank was built once; deepseek's fused tokens must equal
+    its pallas tokens.  Each run's wall, tokens/s, decode step wall and
+    launches are printed; then one MLA decode step profiled, with the
+    latent expansion's share of a step; then the static MLA serve
+    (``_serve_path``: deepseek-v2-236b at 1 of 60 layers under
+    ``lowrank``/``pallas``, K9 491 times a prefill and a decode step,
+    within the bound and 2.5% of ``ref``)."""
+    import torch
+    from repro_torch.launch import serve_load
+    out, tokens = {}, {}
+    runs = [(f, a, kw, "pallas") for f, a, kw in SERVE_FAMILIES]
+    runs += [(f, a, kw, "fused") for f, a, kw in SERVE_FAMILIES
+             if a == SERVE_FAMILY_FUSED]
+    for family, arch, kw, variant in runs:
+        kernels = CONTINUOUS_KERNELS[variant]
+        name = f"serve_load {family} {arch} ({variant})"
+        record, wall, launches = _drive(
+            name, lambda: serve_load.run(
+                device, arch=arch, variant=variant, log=log,
+                **SERVE_FAMILY_LOAD, **kw), kernels)
+        per = {"prefill": record["banked_per_prefill_expected"],
+               "decode": record["banked_per_step_expected"]}
+        steps = record["steps"]
+        banked = sum(steps[k]["n"] * per[k] for k in per)
+        lv = record["levels"][0]
+        if (not record["bit_identity"] or not record["banked_per_step_gate"]
+                or record["bank_builds"] != 1
+                or record["bit_identity_requests"] != 4
+                or launches[kernels[0]] != banked):
+            raise AssertionError(
+                f"{name}: bit identity {record['bit_identity']}, banked "
+                f"gate {record['banked_per_step_gate']}, bank builds "
+                f"{record['bank_builds']}, {kernels[0]} "
+                f"{launches[kernels[0]]} (formula {banked}): {steps}")
+        log(f"{name}: {record['n_layers']} layers, wall {lv['wall_s']:.3f} "
+            f"s, {lv['tokens_per_s']:.2f} tok/s ({lv['n_tokens']} tokens, "
+            f"p50 {lv['p50_ms']:.1f} ms, p99 {lv['p99_ms']:.1f} ms); 4 "
+            f"requests equal the sequential replay ({record['replay_s']:.2f}"
+            f" s)")
+        log(f"{name}: decode step {lv['decode_step_ms']:.2f} ms (median of "
+            f"{steps['decode']['n']}); {kernels[0]} {per['decode']} a decode "
+            f"step and {per['prefill']} a prefill, nothing else, as the "
+            f"formula says")
+        tokens[(arch, variant)] = record["tokens"]
+        for k, v in launches.items():
+            launches_total[k] += v
+        out[f"{arch}_{variant}"] = {**record, "family": family,
+                                    "main_path_s": wall,
+                                    "launches": launches}
+        torch.cuda.empty_cache()
+    if tokens[(SERVE_FAMILY_FUSED, "fused")] != \
+            tokens[(SERVE_FAMILY_FUSED, "pallas")]:
+        raise AssertionError(f"{SERVE_FAMILY_FUSED}: fused tokens differ "
+                             "from pallas")
+    log(f"serve_load {SERVE_FAMILY_FUSED}: fused tokens equal pallas")
+    prof = _profile_mla_step(device)
+    log(f"[profile] continuous MLA step (deepseek-v2-236b, 1 layer, 4 "
+        f"slots, {prof['view_rows']}-row views): {prof['wall_ms']:.2f} ms "
+        f"under the profiler, device busy {prof['device_busy_ms']} ms "
+        f"(share {prof['busy_share']}, {prof['kernels']} kernels, launches "
+        f"{prof['launches']}); the latent expansion (wuk + wuv) "
+        f"{prof['expansion_ms']:.2f} ms of a {prof['timed_step_ms']:.2f} ms "
+        f"step ({prof['expansion_share']:.1%}); top device {prof['top'][:5]}")
+    out["mla_step_profile"] = prof
+
+    def k9_calls(cfg, b, s):
+        from repro_torch.models.moe import capacity
+        per_forward = serve_load.banked_calls_per_step(cfg)["decode"]
+        # projections at b*s (prefill) or b (decode) rows, wuk/wuv over
+        # the whole cache (the checked generate's s + 2 rows), the routed
+        # experts at their capacity
+        rows = {b * s, b, b * (s + 2), capacity(cfg, b * s), capacity(cfg, b)}
+        return per_forward, per_forward, sorted(rows)
+    out["serve_mla"] = _serve_path(device, log, launches_total, SERVE_MLA,
+                                   k9_calls)
+    return out
 
 
 def _resnet_accuracies(model, device) -> dict:
@@ -2514,7 +2712,7 @@ def phase_profiles(device, log, launches_total: dict) -> dict:
     weight-independent fields against ``BENCH_profiles.json`` for all
     five archs; (b) ``run(quick=False)`` under ``pallas``: the eight
     reduced archs and ResNet-8, the four gates; (c) at full width
-    (``PROFILE_FULL_WIDTH``: mamba2-780m; qwen3-moe-30b-a3b with 4 of its
+    (``PROFILE_FULL_WIDTH``: mamba2-780m; qwen3-moe-30b-a3b with 2 of its
     48 layers; whisper-large-v3 with 4 + 4 of its 32 + 32 layers and all
     1 500 frames; deepseek-v2-236b with 1 of its 60 layers), the configs'
     dtype, random weights on the card: each profile's walls, banked
@@ -3083,6 +3281,8 @@ def main() -> int:
     details["main"]["profiles"] = phase_profiles(
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["main"]["serve_encdec"] = phase_serve_encdec(
+        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
+    details["main"]["serve_families"] = phase_serve_families(
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["main"]["train"] = phase_train(
         device, lambda s: print(f"[train] {s}"), details["main"]["launches"])

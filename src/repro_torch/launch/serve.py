@@ -19,17 +19,24 @@ first-call costs only.  ``--compile-cache`` is JAX-only.
 
 ``--continuous`` serves the same prompts through the multi-tenant
 ``ContinuousEngine`` instead (paged KV cache, mixed-policy banked
-decode, DESIGN.md §2.8): ``min(batch, 8)`` slots, a cache of
-``prompt_len + max_new`` rows a slot, ``mode="lut"`` with the engine's
-default ``mul8u_exact`` policy on ``--variant``'s datapath (K2 under
+decode, DESIGN.md §2.8), for any ``--arch``: ``min(batch, 8)`` slots, a
+cache of ``prompt_len + max_new`` rows a slot (plus a vlm's image
+rows), each request with the family's stub extras (encoder frames,
+image embeddings), ``mode="lut"`` with the engine's default
+``mul8u_exact`` policy on ``--variant``'s datapath (K2 under
 ``pallas``, K4 under ``fused``); a one-request warm-up, then the timed
 run:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --continuous
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
+        [--arch deepseek-v2-236b --n-layers 1]
+
+``--n-layers`` cuts the model's depth (for a hybrid, to a multiple of
+its block period); the widths stay the config's.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Callable, Optional
@@ -40,21 +47,25 @@ import torch
 from ..approx.layers import ApproxPolicy
 from ..configs import ARCHS, get_config
 from ..device import DeviceLike, resolve_device
-from ..models.registry import input_extras, model_fns
+from ..models.registry import input_extras, model_fns, prompt_extra_len
 from ..serve.engine import ContinuousEngine, Engine, ServeConfig
 from .steps import pick_case_multiplier, serve_policy, train_policy
 
 
 def setup(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
-          reduced: bool = False, batch: int = 4, prompt_len: int = 32):
+          reduced: bool = False, batch: int = 4, prompt_len: int = 32,
+          overrides: Optional[dict] = None):
     """(device, cfg, params, prompts) of a serve run: random f32
     parameters from a ``torch.Generator`` seeded 0 on the device (the
     reference uses ``PRNGKey(0)``), prompts from numpy's generator
-    seeded 0 (the reference's)."""
+    seeded 0 (the reference's).  ``overrides``: config fields replaced
+    after ``reduced`` (e.g. ``{"n_layers": 1}``, a depth cut)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model_fns(cfg).init_params(gen, cfg)
     rng = np.random.default_rng(0)
@@ -81,19 +92,20 @@ def run(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
         max_new: int = 16, mode: str = "lowrank", multiplier: str = "auto",
         rank: Optional[int] = 4, variant: str = "pallas",
         policy_json: Optional[str] = None, warmup: bool = True,
-        continuous: bool = False,
+        continuous: bool = False, overrides: Optional[dict] = None,
         log: Callable[[str], None] = print) -> dict:
     """Serve one static batch and return what was measured: the
     generated tokens, the warm-up, end-to-end and prefill-only wall
     times (s) and the end-to-end and steady-state decode rates
     (tokens/s).  ``continuous``: serve the prompts through the
     ``ContinuousEngine`` (``run_continuous``; the mode, multiplier, rank
-    and policy arguments do not apply)."""
+    and policy arguments do not apply).  ``overrides``: config fields
+    replaced (``setup``)."""
     dev, cfg, params, prompts = setup(device, arch, reduced, batch,
-                                      prompt_len)
+                                      prompt_len, overrides)
     if continuous:
         return run_continuous(dev, cfg, params, prompts, arch, reduced,
-                              max_new, variant, warmup, log)
+                              max_new, variant, warmup, log, overrides)
     if multiplier == "auto" and not policy_json and mode not in (
             "bf16", "int8"):
         multiplier = pick_case_multiplier()
@@ -120,7 +132,8 @@ def run(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
     n_decode = batch * max(max_new - 1, 1)
     decode_s = max(e2e - prefill_s, 1e-9)
     record = {
-        "arch": arch, "reduced": reduced, "device": str(dev),
+        "arch": arch, "reduced": reduced, "overrides": overrides or {},
+        "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
         "mode": mode, "multiplier": multiplier, "rank": rank,
@@ -138,18 +151,20 @@ def run(device: DeviceLike = None, arch: str = "qwen1.5-0.5b",
 
 def run_continuous(dev, cfg, params, prompts, arch: str, reduced: bool,
                    max_new: int, variant: str, warmup: bool,
-                   log: Callable[[str], None]) -> dict:
+                   log: Callable[[str], None],
+                   overrides: Optional[dict] = None) -> dict:
     """The reference's ``_serve_continuous``: every prompt a request of
     one ``ContinuousEngine`` (``min(batch, 8)`` slots, capacity
-    ``prompt_len + max_new``, the default ``mul8u_exact`` lut policy).
-    Returns the tokens by request, the warm-up and end-to-end walls (s),
-    tokens/s, the decode steps, the bank builds and the timed run's
-    ``step_summary`` (matmul calls and kernel launches per prefill and
-    decode step)."""
+    ``prompt_len + max_new`` and a vlm's image rows, the family's stub
+    extras, the default ``mul8u_exact`` lut policy).  Returns the tokens
+    by request, the warm-up and end-to-end walls (s), tokens/s, the
+    decode steps, the bank builds and the timed run's ``step_summary``
+    (matmul calls and kernel launches per prefill and decode step)."""
     batch, prompt_len = prompts.shape
     n_slots = min(batch, 8)
+    extra = prompt_extra_len(cfg, input_extras(cfg, 1))
     engine = ContinuousEngine(cfg, params, n_slots=n_slots,
-                              capacity=prompt_len + max_new,
+                              capacity=prompt_len + extra + max_new,
                               variant=variant)
     serve_cfg = ServeConfig(max_new_tokens=max_new)
     warmup_s = None
@@ -169,7 +184,8 @@ def run_continuous(dev, cfg, params, prompts, arch: str, reduced: bool,
     tokens = {r: out[r].tolist() for r in rids}  # drop the warm-up's
     n_toks = sum(len(t) for t in tokens.values())
     record = {
-        "arch": arch, "reduced": reduced, "device": str(dev),
+        "arch": arch, "reduced": reduced, "overrides": overrides or {},
+        "device": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
         "continuous": True, "mode": engine.mode, "variant": variant,
@@ -197,6 +213,9 @@ def main(argv=None) -> None:
                          "kernels' plain versions)")
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list(ARCHS))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model to this many layers (widths "
+                         "stay the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -220,7 +239,9 @@ def main(argv=None) -> None:
     record = run(args.device, args.arch, args.reduced, args.batch,
                  args.prompt_len, args.max_new, args.mode, args.multiplier,
                  args.rank, args.variant, args.policy_json,
-                 warmup=not args.no_warmup, continuous=args.continuous)
+                 warmup=not args.no_warmup, continuous=args.continuous,
+                 overrides=({"n_layers": args.n_layers}
+                            if args.n_layers else None))
     tokens = record["tokens"]
     print(np.asarray(next(iter(tokens.values())) if args.continuous
                      else tokens[:2]))

@@ -22,7 +22,8 @@ Differences from the reference, none of which changes a value:
 decode step, where each running request is a bank lane: the
 projections run once for all lanes, and every float reduction whose
 order may depend on the batch size or the cache length runs per lane at
-the shape a sequential B=1 decode gives it.
+the shape a sequential B=1 decode gives it.  The engine's
+``serve.kv_cache.LaneCaches`` holds each lane's cache view.
 
 The batched sweeps (``approx.layers.policy_bank_eval``) give the
 activations a *bank lane* axis in front instead: a banked backend turns
@@ -51,11 +52,6 @@ import torch
 import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
-
-#: The ROADMAP.md item that ports what the port does not have yet,
-#: named by title so that a renumbering leaves it true.
-LANE_SERVE_ITEM = ('ROADMAP.md Queue 1, "Serving the MoE, SSM, hybrid, '
-                   'MLA, encoder-decoder and VLM families"')
 
 
 @dataclass(frozen=True)
@@ -475,22 +471,32 @@ def attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
 
 
 def lane_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
-                   positions: torch.Tensor, kv, biases: list,
+                   positions: torch.Tensor, cache, at: tuple,
                    layer_tag: str = "attn") -> torch.Tensor:
     """One decode step of n requests, each a bank lane: x (n,1,D),
     positions (n,1) (each lane's cache row).  The projections run once
-    for all lanes (``lanes=True``); ``kv(k, v)`` stores each lane's new
-    key and value rows (n,1,Hkv,D) and returns each lane's cache view
-    ``(k_i, v_i)``, (1,T_i,Hkv,D) with the new row at its position, and
-    ``biases[i]`` is lane i's (1,T_i) mask.  Attention runs lane by lane
-    at B=1 over exactly that view, so its float reductions see the
-    shapes a sequential B=1 decode with a T_i-row cache gives them."""
+    for all lanes (``lanes=True``); ``cache`` (``serve.kv_cache.
+    LaneCaches``) stores each lane's new key and value rows in the
+    leaves ``at = (prefix, g)`` and gives each lane's view (1,T_i,Hkv,D)
+    with the new row at its position.  Attention runs lane by lane at
+    B=1 over exactly that view, masked by the lane's causal bias, or
+    under ``cfg.attn_impl == "chunked"`` in KV chunks from its position,
+    so its float reductions see the shapes a sequential B=1 decode with
+    a T_i-row cache gives them."""
     q, k, v = _project_qkv(params, x, cfg, policy, positions, layer_tag,
                            True)
-    out = torch.cat([
-        _grouped_attention(q[i:i + 1].clone(), ki, vi, biases[i])
-        for i, (ki, vi) in enumerate(kv(k, v))])
-    return _project_out(params, out, cfg, policy, layer_tag, True)
+    outs = []
+    for i, view in enumerate(cache.rows_of(*at, {"k": k, "v": v})):
+        q_i = q[i:i + 1].clone()
+        if cfg.attn_impl == "chunked":
+            p = cache.pos[i]
+            outs.append(_chunked_grouped_attention(
+                q_i, view["k"], view["v"], p, p + 1, cfg.kv_chunk))
+        else:
+            outs.append(_grouped_attention(q_i, view["k"], view["v"],
+                                           cache.bias(i)))
+    return _project_out(params, torch.cat(outs), cfg, policy, layer_tag,
+                        True)
 
 
 def init_attention_cache(cfg: LMConfig, batch: int, max_len: int,

@@ -30,9 +30,9 @@ layers' load-balance loss; ``cfg.remat`` recomputes each layer group in
 the backward pass (``torch.utils.checkpoint``).  Under a banked policy
 the loss is one value a lane, each reduced alone.
 
-The continuous engine's lane decode step raises ``NotImplementedError``
-naming its ROADMAP.md item for any family but the dense one with vanilla
-attention.
+``forward_decode_lanes`` is the continuous engine's decode step for
+every pattern: each running request a bank lane, each mixer (``attn``,
+``mla``, ``mamba``) and FFN (``ffn``, ``moe``) in its lane form.
 """
 from __future__ import annotations
 
@@ -41,14 +41,14 @@ from typing import Any, Optional
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
-from .common import (LANE_SERVE_ITEM, LMConfig, attention,
-                     chunked_cross_entropy, dense_init, each_lane, ffn,
-                     init_attention, init_attention_cache, init_ffn,
-                     lane_attention,
+from .common import (LMConfig, attention, chunked_cross_entropy,
+                     dense_init, each_lane, ffn, init_attention,
+                     init_attention_cache, init_ffn, lane_attention,
                      lane_rms_norm, lanes_of, logits_from_hidden, rms_norm,
                      rms_norm_lanes)
-from .mamba2 import init_mamba, init_mamba_cache, mamba_block
-from .mla import init_mla, init_mla_cache, mla_attention
+from .mamba2 import (init_mamba, init_mamba_cache, lane_mamba_block,
+                     mamba_block)
+from .mla import init_mla, init_mla_cache, lane_mla_attention, mla_attention
 from .moe import init_moe, moe_ffn
 
 AUX_LOSS_COEF = 0.01
@@ -146,17 +146,19 @@ def _group_body(h, positions, gparams, gcache, cfg: LMConfig,
         elif mixer == "mla":
             y, nc = mla_attention(gparams[f"mixer_{j}"], hin, cfg, policy,
                                   positions=positions, cache=sub_cache,
-                                  layer_tag="mla")
+                                  layer_tag="mla", lanes=lanes)
         else:
             y, nc = mamba_block(gparams[f"mixer_{j}"], hin, cfg, policy,
-                                cache=sub_cache, layer_tag="mamba")
+                                cache=sub_cache, layer_tag="mamba",
+                                lanes=lanes)
         if nc is not None:
             new_cache[f"mixer_{j}"] = nc
         h = h + y
         if ffn_kind is not None:
             hin = rms_norm_lanes(h, gparams[f"norm2_{j}"], cfg.norm_eps)
             if ffn_kind == "moe":
-                y, a = moe_ffn(gparams[f"ffn_{j}"], hin, cfg, policy)
+                y, a = moe_ffn(gparams[f"ffn_{j}"], hin, cfg, policy,
+                               lanes=lanes)
                 aux = aux + a
             else:
                 y = ffn(gparams[f"ffn_{j}"], hin, cfg, policy,
@@ -210,17 +212,19 @@ def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
     return h, aux, new_caches
 
 
-def _embed_inputs(params, batch, cfg: LMConfig, policy: ApproxPolicy):
+def _embed_inputs(params, batch, cfg: LMConfig, policy: ApproxPolicy,
+                  lanes: bool = False):
     """Token embeddings and positions.  A vlm's image embeddings
     (``batch["img_embeds"]``, (B,S_img,D)) are projected through
     ``img_proj`` and prepended, and the positions cover both; under a
     banked ``img_proj`` the projection gains a bank lane axis, and the
-    token embeddings are copied to every lane."""
+    token embeddings are copied to every lane (with ``lanes`` the batch
+    axis is that lane axis)."""
     tokens = batch["tokens"]
     h = params["embed"][tokens.long()].to(cfg.dtype)
     if cfg.family == "vlm" and "img_embeds" in batch:
         img = policy.matmul("img_proj", batch["img_embeds"].to(cfg.dtype),
-                            params["img_proj"]).to(cfg.dtype)
+                            params["img_proj"], lanes=lanes).to(cfg.dtype)
         h = torch.cat([img, h.expand(*img.shape[:-2], *h.shape[-2:])],
                       dim=-2)
     positions = torch.arange(h.shape[-2], dtype=torch.int32,
@@ -296,7 +300,7 @@ def forward_prefill(params, batch, cache, cfg: LMConfig,
     ``lanes``: each prompt row is a lane of the policy's banked
     backends (the continuous engine's B=1 prefill).  The MoE aux loss
     is discarded, as in the reference."""
-    h, positions = _embed_inputs(params, batch, cfg, policy)
+    h, positions = _embed_inputs(params, batch, cfg, policy, lanes)
     h, _aux, new_caches = _run_stack(params, h, positions, cfg, policy,
                                      caches=cache, lanes=lanes)
     return _logits(params, h, -1, cfg), new_caches
@@ -313,47 +317,48 @@ def forward_decode(params, token, cache, cfg: LMConfig,
     return _logits(params, h, 0, cfg), new_caches
 
 
-def require_lane_decode(cfg: LMConfig) -> None:
-    """The continuous engine's lane decode step serves the dense family
-    with vanilla attention only; raises for any other (vlm and encdec
-    have the dense pattern too, but prefill inputs it does not take)."""
-    if (cfg.family != "dense" or block_pattern(cfg) != [("attn", "ffn")]
-            or cfg.attn_impl != "vanilla"):
-        what = ("MLA" if cfg.use_mla else "chunked attention"
-                if cfg.attn_impl != "vanilla" else
-                f"the {cfg.family!r} family")
-        raise NotImplementedError(f"continuous serving of {what} is not "
-                                  f"ported yet ({LANE_SERVE_ITEM})")
-
-
-def forward_decode_lanes(params, tokens, positions, kv, biases,
-                         cfg: LMConfig, policy: ApproxPolicy) -> list:
+def forward_decode_lanes(params, tokens, positions, cache, cfg: LMConfig,
+                         policy: ApproxPolicy) -> list:
     """One decode step of n requests of a continuous batch, each a lane
     of the policy's banked backends.  tokens (n,) int, positions (n,)
-    int (each lane's cache row); ``kv(mixer, g, k, v)`` stores each
-    lane's new key/value rows of layer group ``g`` and returns each
-    lane's cache view, and ``biases[i]`` is lane i's attention mask
-    (``common.lane_attention``).  The projections run once for all
-    lanes; the norms, attention and unembedding run lane by lane at the
-    shapes a sequential B=1 ``forward_decode`` gives them, so each
-    lane's logits equal that decode's bit for bit.  Returns the n
-    (1, vocab) logits rows."""
-    require_lane_decode(cfg)
+    int (each lane's cache row; a vlm's image rows lie before its
+    first token's); ``cache`` (``serve.kv_cache.LaneCaches``) holds each
+    lane's slot: attention k/v and MLA's latent rows in pages, a mamba
+    slot's conv and SSM state in dense rows.  Every mixer and FFN of
+    ``block_pattern`` runs its lane form: the projections once for all
+    lanes (an MoE layer one banked call an expert and projection, each
+    lane routing its token alone), the norms, attention, the SSM step,
+    the routing and the unembedding lane by lane at the shapes a
+    sequential B=1 ``forward_decode`` gives them, so each lane's logits
+    equal that decode's bit for bit.  Returns the n (1, vocab) logits
+    rows."""
     pattern = block_pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
+    lane_mixer = {"attn": lane_attention, "mla": lane_mla_attention}
     h = params["embed"][tokens.long()[:, None]].to(cfg.dtype)
     positions = positions.to(torch.int32)[:, None]
     for g in range(n_groups):
         gparams = _index(params["blocks"], g)
-        for j, _ in enumerate(pattern):
-            mixer = f"mixer_{j}"
+        for j, (mixer, ffn_kind) in enumerate(pattern):
+            name = f"mixer_{j}"
             hin = lane_rms_norm(h, gparams[f"norm1_{j}"], cfg.norm_eps)
-            h = h + lane_attention(
-                gparams[mixer], hin, cfg, policy, positions=positions,
-                kv=lambda k, v, _m=mixer, _g=g: kv(_m, _g, k, v),
-                biases=biases, layer_tag="attn")
+            if mixer == "mamba":
+                y = lane_mamba_block(gparams[name], hin, cfg, policy,
+                                     cache=cache, at=((name,), g))
+            else:
+                y = lane_mixer[mixer](gparams[name], hin, cfg, policy,
+                                      positions=positions, cache=cache,
+                                      at=((name,), g), layer_tag=mixer)
+            h = h + y
+            if ffn_kind is None:
+                continue
             hin = lane_rms_norm(h, gparams[f"norm2_{j}"], cfg.norm_eps)
-            h = h + ffn(gparams[f"ffn_{j}"], hin, cfg, policy, lanes=True)
+            if ffn_kind == "moe":
+                y, _aux = moe_ffn(gparams[f"ffn_{j}"], hin, cfg, policy,
+                                  lanes=True)
+            else:
+                y = ffn(gparams[f"ffn_{j}"], hin, cfg, policy, lanes=True)
+            h = h + y
     h = lane_rms_norm(h, params["final_norm"], cfg.norm_eps)
     return [logits_from_hidden(h[i:i + 1, 0, :], params["unembed"])
             for i in range(h.shape[0])]

@@ -23,6 +23,12 @@ tokens) is one banked call for all lanes, and the encoder output, the
 cross-KV and the decoder stream carry a bank lane axis; attention,
 cross-attention's scores, the norms and the unembedding run lane by lane
 (``common.each_lane``).
+
+The continuous engine serves it too: its B=1 prefill (``lanes=True``)
+leaves the cross-KV in the slot's dense rows, and ``forward_decode_lanes``
+runs each decode step's projections once for all running requests, each
+request's self-attention over its paged view and its cross-attention
+over its own cross-KV rows.
 """
 from __future__ import annotations
 
@@ -31,11 +37,11 @@ from typing import Any
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
-from .common import (LANE_SERVE_ITEM, LMConfig,
-                     _grouped_attention, _inv_freq_on, attention,
-                     dense_init, each_lane, ffn, init_attention,
-                     init_attention_cache, init_ffn, lanes_of,
-                     logits_from_hidden, rms_norm_lanes)
+from .common import (LMConfig, _grouped_attention, _inv_freq_on,
+                     attention, dense_init, each_lane, ffn, init_attention,
+                     init_attention_cache, init_ffn, lane_attention,
+                     lane_rms_norm, lanes_of, logits_from_hidden,
+                     rms_norm_lanes)
 from .decoder import _index, _restack, lm_loss
 
 
@@ -60,28 +66,38 @@ def init_cross_attention(gen: torch.Generator, cfg: LMConfig,
 
 
 def cross_attention(params, x, enc_kv, cfg: LMConfig, policy: ApproxPolicy,
-                    layer_tag: str = "xattn") -> torch.Tensor:
+                    layer_tag: str = "xattn", lanes: bool = False
+                    ) -> torch.Tensor:
     """x: (B,S,D); enc_kv: {"k": (B,F,H,hd), "v": ...}, the cross-KV
-    from the encoder output.  Any of them may carry a bank lane axis."""
+    from the encoder output.  Any of them may carry a bank lane axis.
+    ``lanes``: x's batch axis is a bank lane axis, and ``enc_kv`` may
+    then be a list of each lane's {"k", "v"} (1,F,H,hd) (the continuous
+    engine's decode step): the scores run lane by lane at B=1."""
     h, hd = cfg.n_heads, cfg.head_dim
     q = policy.matmul(f"{layer_tag}.wq", x, params["wq"],
-                      lanes=x.ndim == 4)
+                      lanes=lanes or x.ndim == 4)
     q = q.reshape(*q.shape[:-1], h, hd).to(cfg.dtype)
-    k, v = enc_kv["k"], enc_kv["v"]
-    out = each_lane(lambda q_, k_, v_: _grouped_attention(q_, k_, v_, 0.0),
-                    lanes_of(4, q, k, v), 4, q, k, v)
+    if isinstance(enc_kv, list):
+        out = torch.cat([
+            _grouped_attention(q[i:i + 1].clone(), kv["k"], kv["v"], 0.0)
+            for i, kv in enumerate(enc_kv)])
+    else:
+        k, v = enc_kv["k"], enc_kv["v"]
+        out = each_lane(lambda q_, k_, v_: _grouped_attention(q_, k_, v_,
+                                                              0.0),
+                        lanes_of(4, q, k, v), 4, q, k, v)
     out = out.reshape(*out.shape[:-2], h * hd)
     return policy.matmul(f"{layer_tag}.wo", out, params["wo"],
-                         lanes=out.ndim == 4).to(cfg.dtype)
+                         lanes=lanes or out.ndim == 4).to(cfg.dtype)
 
 
 def encode_cross_kv(params, enc_out, cfg: LMConfig, policy: ApproxPolicy,
-                    layer_tag: str = "xattn") -> dict:
+                    layer_tag: str = "xattn", lanes: bool = False) -> dict:
     h, hd = cfg.n_heads, cfg.head_dim
 
     def proj(name):
         y = policy.matmul(f"{layer_tag}.{name}", enc_out, params[name],
-                          lanes=enc_out.ndim == 4)
+                          lanes=lanes or enc_out.ndim == 4)
         return y.reshape(*y.shape[:-1], h, hd).to(cfg.dtype)
     return {"k": proj("wk"), "v": proj("wv")}
 
@@ -114,10 +130,11 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     return params
 
 
-def encode(params, frames, cfg: LMConfig, policy: ApproxPolicy
-           ) -> torch.Tensor:
+def encode(params, frames, cfg: LMConfig, policy: ApproxPolicy,
+           lanes: bool = False) -> torch.Tensor:
     """frames: (B,F,D) stub embeddings -> encoder hidden (B,F,D), or
-    (n,B,F,D) under a banked policy.  Causal, as the reference's code."""
+    (n,B,F,D) under a banked policy (with ``lanes``, the batch axis is
+    that lane axis).  Causal, as the reference's code."""
     f, d = frames.shape[-2:]
     dev = frames.device
     h = (frames.to(cfg.dtype)
@@ -127,16 +144,16 @@ def encode(params, frames, cfg: LMConfig, policy: ApproxPolicy
         lp = _index(params["enc_blocks"], layer)
         hin = rms_norm_lanes(h, lp["norm1"], cfg.norm_eps)
         y, _ = attention(lp["attn"], hin, cfg, policy, positions=positions,
-                         cache=None, layer_tag="enc.attn")
+                         cache=None, layer_tag="enc.attn", lanes=lanes)
         h = h + y
         hin = rms_norm_lanes(h, lp["norm2"], cfg.norm_eps)
         h = h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="enc.ffn",
-                    lanes=hin.ndim == 4)
+                    lanes=lanes or hin.ndim == 4)
     return rms_norm_lanes(h, params["enc_norm"], cfg.norm_eps)
 
 
 def _decode_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
-                  self_caches, cross_kvs):
+                  self_caches, cross_kvs, lanes: bool = False):
     """The decoder layers over h (B,S,D): self-attention with its cache
     (written in place), cross-attention over layer l's cross-KV, FFN.
     Returns (normed h, new self caches)."""
@@ -146,24 +163,33 @@ def _decode_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
         hin = rms_norm_lanes(h, lp["norm1"], cfg.norm_eps)
         y, nc = attention(lp["attn"], hin, cfg, policy, positions=positions,
                           cache=_index(self_caches, layer),
-                          layer_tag="dec.attn")
+                          layer_tag="dec.attn", lanes=lanes)
         new.append(nc)
         h = h + y
         hin = rms_norm_lanes(h, lp["norm2"], cfg.norm_eps)
         h = h + cross_attention(lp["xattn"], hin,
-                                _index(cross_kvs, layer), cfg, policy)
+                                _index(cross_kvs, layer), cfg, policy,
+                                lanes=lanes)
         hin = rms_norm_lanes(h, lp["norm3"], cfg.norm_eps)
         h = h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="dec.ffn",
-                    lanes=hin.ndim == 4)
+                    lanes=lanes or hin.ndim == 4)
     return (rms_norm_lanes(h, params["dec_norm"], cfg.norm_eps),
             _restack(self_caches, new))
 
 
-def _embed_tokens(params, tokens, cfg: LMConfig, offset: int = 0
-                  ) -> torch.Tensor:
+def _embed_tokens(params, tokens, cfg: LMConfig, offset=0) -> torch.Tensor:
+    """Token embeddings plus sinusoidal positions from ``offset``: an
+    int, or one int a batch row (the continuous engine's lanes, each
+    row's table made alone at a B=1 call's shape)."""
     h = params["embed"][tokens.long()].to(cfg.dtype)
-    return h + sinusoidal_positions(tokens.shape[1], cfg.d_model, offset,
-                                    device=h.device).to(cfg.dtype)
+    s, d = tokens.shape[1], cfg.d_model
+    if isinstance(offset, int):
+        pos = sinusoidal_positions(s, d, offset, device=h.device)
+    else:
+        pos = torch.stack([sinusoidal_positions(s, d, int(o),
+                                                device=h.device)
+                           for o in offset])
+    return h + pos.to(cfg.dtype)
 
 
 def _last_logits(params, h: torch.Tensor, row: int) -> torch.Tensor:
@@ -223,19 +249,22 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None
 
 
 def forward_prefill(params, batch, cache, cfg: LMConfig,
-                    policy: ApproxPolicy = EXACT_POLICY):
+                    policy: ApproxPolicy = EXACT_POLICY,
+                    lanes: bool = False):
     """Encode the frames, build each decoder layer's cross-KV, run the
-    prompt through the decoder; returns (last_logits, new_cache)."""
-    enc_out = encode(params, batch["frames"], cfg, policy)
+    prompt through the decoder; returns (last_logits, new_cache).
+    ``lanes``: each batch row is a lane of the policy's banked backends
+    (the continuous engine's B=1 prefill)."""
+    enc_out = encode(params, batch["frames"], cfg, policy, lanes)
     kvs = [encode_cross_kv(_index(params["dec_blocks"], layer)["xattn"],
-                           enc_out, cfg, policy)
+                           enc_out, cfg, policy, lanes=lanes)
            for layer in range(cfg.n_layers)]
     cross = {k: torch.stack([kv[k] for kv in kvs]) for k in ("k", "v")}
     h = _embed_tokens(params, batch["tokens"], cfg)
     positions = torch.arange(h.shape[-2], dtype=torch.int32,
                              device=h.device)
     h, new_self = _decode_stack(params, h, positions, cfg, policy,
-                                cache["self"], cross)
+                                cache["self"], cross, lanes)
     return _last_logits(params, h, -1), {"self": new_self, "cross": cross}
 
 
@@ -251,7 +280,32 @@ def forward_decode(params, token, cache, cfg: LMConfig,
                                         "cross": cache["cross"]}
 
 
-def forward_decode_lanes(params, tokens, positions, kv, biases,
-                         cfg: LMConfig, policy: ApproxPolicy) -> list:
-    raise NotImplementedError(f"continuous serving of the encoder-decoder "
-                              f"family is not ported yet ({LANE_SERVE_ITEM})")
+def forward_decode_lanes(params, tokens, positions, cache, cfg: LMConfig,
+                         policy: ApproxPolicy) -> list:
+    """One decode step of n requests of a continuous batch, each a lane
+    of the policy's banked backends (``decoder.forward_decode_lanes``'s
+    contract): each lane's token embedded at its own sinusoidal offset,
+    then every decoder layer's self-attention over the lane's paged
+    ``("self", ...)`` view, cross-attention (``wq``/``wo`` once for all
+    lanes) over the lane's own ``("cross", ...)`` rows of ``cache``
+    (``serve.kv_cache.LaneCaches``) and the FFN.  Returns the n (1,
+    vocab) logits rows, each equal to a sequential B=1
+    ``forward_decode``'s bit for bit."""
+    h = _embed_tokens(params, tokens[:, None], cfg, cache.pos)
+    positions = positions.to(torch.int32)[:, None]
+    for layer in range(cfg.n_layers):
+        lp = _index(params["dec_blocks"], layer)
+        hin = lane_rms_norm(h, lp["norm1"], cfg.norm_eps)
+        h = h + lane_attention(lp["attn"], hin, cfg, policy,
+                               positions=positions, cache=cache,
+                               at=(("self",), layer), layer_tag="dec.attn")
+        hin = lane_rms_norm(h, lp["norm2"], cfg.norm_eps)
+        h = h + cross_attention(lp["xattn"], hin,
+                                cache.state(("cross",), layer, ("k", "v")),
+                                cfg, policy, lanes=True)
+        hin = lane_rms_norm(h, lp["norm3"], cfg.norm_eps)
+        h = h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="dec.ffn",
+                    lanes=True)
+    h = lane_rms_norm(h, params["dec_norm"], cfg.norm_eps)
+    return [logits_from_hidden(h[i:i + 1, 0, :], params["unembed"])
+            for i in range(h.shape[0])]

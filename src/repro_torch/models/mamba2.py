@@ -12,7 +12,9 @@ the gating and the norm stay exact f32 (they are the data-dependent
 "attention" of the SSM; ``approx.modules.EXACT_FAMILIES``).  Under a
 banked backend ``in_proj`` and ``out_proj`` are one banked call each for
 all lanes, and everything between them runs lane by lane at the
-sequential shapes (``_mix``).
+sequential shapes (``_mix``).  The continuous engine's decode step
+(``lane_mamba_block``) does the same for its running requests, each on
+its own slot's conv and SSM state.
 """
 from __future__ import annotations
 
@@ -180,14 +182,15 @@ def _mix(params, proj, cfg: LMConfig, cache: Optional[dict]
 
 
 def mamba_block(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
-                cache: Optional[dict] = None, layer_tag: str = "mamba"
-                ) -> tuple[torch.Tensor, Optional[dict]]:
+                cache: Optional[dict] = None, layer_tag: str = "mamba",
+                lanes: bool = False) -> tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,D), or (n,B,S,D) with a bank lane axis.  cache =
     {"conv": (B,W-1,C), "state": (B,H,P,N)} (each with the lane axis in
     front when a banked call made one) for O(1) decode; None for a
-    full-sequence prefill from zero."""
+    full-sequence prefill from zero.  ``lanes``: x's batch axis is a
+    bank lane axis (the continuous engine's B=1 prefill)."""
     proj = policy.matmul(f"{layer_tag}.in_proj", x, params["in_proj"],
-                         lanes=x.ndim == 4)
+                         lanes=lanes or x.ndim == 4)
     n = proj.shape[0] if proj.ndim == 4 else None
     if n is None:
         y, new_cache = _mix(params, proj, cfg, cache)
@@ -205,8 +208,30 @@ def mamba_block(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
                      {k: torch.stack([c[k] for c in caches])
                       for k in caches[0]})
     out = policy.matmul(f"{layer_tag}.out_proj", y, params["out_proj"],
-                        lanes=y.ndim == 4)
+                        lanes=lanes or y.ndim == 4)
     return out.to(cfg.dtype), new_cache
+
+
+def lane_mamba_block(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
+                     cache, at: tuple, layer_tag: str = "mamba"
+                     ) -> torch.Tensor:
+    """One decode step of n requests, each a bank lane: x (n,1,D).
+    ``in_proj`` and ``out_proj`` run once for all lanes; ``_mix`` runs
+    lane by lane at B=1 on the lane's own ``conv``/``state`` rows of the
+    leaves ``at = (prefix, g)`` of ``cache`` (``serve.kv_cache.
+    LaneCaches``), whose new rows go back to it, as a sequential B=1
+    ``forward_decode`` runs it."""
+    proj = policy.matmul(f"{layer_tag}.in_proj", x, params["in_proj"],
+                         lanes=True)
+    ys, new = [], []
+    for i, state in enumerate(cache.state(*at, ("conv", "state"))):
+        y_i, new_i = _mix(params, proj[i:i + 1].clone(), cfg, state)
+        ys.append(y_i)
+        new.append(new_i)
+    cache.update(*at, new)
+    out = policy.matmul(f"{layer_tag}.out_proj", torch.cat(ys),
+                        params["out_proj"], lanes=True)
+    return out.to(cfg.dtype)
 
 
 def init_mamba_cache(cfg: LMConfig, batch: int, device=None,

@@ -23,6 +23,14 @@ cache's ``pos`` is a host int and the latents are written in place (as
 is one banked call for all lanes, the two norms and the attention core
 run lane by lane (``common.each_lane``), and the cache takes a bank lane
 axis as the attention cache does.
+
+The continuous engine's decode step (``lane_mla_attention``) runs the
+six projections of the new token once for all running requests, writes
+each request's latent row into its paged slot, and expands every
+request's whole ``total_len``-row latent view in one banked call a
+projection: the views are zero-padded to the longest, which leaves each
+lane's rows as its own expansion gives them (rows are independent, and
+zero rows do not move a lane's calibration, which clamps lo <= 0 <= hi).
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ import torch
 
 from ..approx.layers import ApproxPolicy
 from .common import (LMConfig, apply_rope, causal_bias, dense_init,
-                     each_lane, lanes_of, rms_norm_lanes, rope_tables)
+                     each_lane, lane_rms_norm, lanes_of, rms_norm_lanes,
+                     rope_tables)
 
 
 def init_mla(gen: torch.Generator, cfg: LMConfig, lead: tuple = ()) -> dict:
@@ -128,18 +137,20 @@ def _write(buf: torch.Tensor, new: torch.Tensor, pos: int) -> torch.Tensor:
 
 def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
                   positions: torch.Tensor, cache: Optional[dict] = None,
-                  layer_tag: str = "mla"
+                  layer_tag: str = "mla", lanes: bool = False
                   ) -> tuple[torch.Tensor, Optional[dict]]:
     """x: (B,S,D), or (n,B,S,D) with a bank lane axis.  cache: {"ckv":
     (B,T,kv_lora), "kr": (B,T,dr), "pos": int}.  Returns the output in
-    the working dtype and the new cache (None without one)."""
+    the working dtype and the new cache (None without one).  ``lanes``:
+    x's batch axis is a bank lane axis (the continuous engine's B=1
+    prefill)."""
     h = cfg.n_heads
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     eps = cfg.norm_eps
 
     def mm(name, a):
         return policy.matmul(f"{layer_tag}.{name}", a, params[name],
-                             lanes=a.ndim == 4)
+                             lanes=lanes or a.ndim == 4)
 
     s = x.shape[-2]
     cq = rms_norm_lanes(mm("wdq", x), params["qn"], eps)
@@ -190,6 +201,58 @@ def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
         qn_, qr_, kn_, v_, kr_[..., 0, :]), lanes_of(4, *ops), 4, *ops)
     out = out.reshape(*out.shape[:-2], h * dv)
     return mm("wo", out).to(dt), new_cache
+
+
+def lane_mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
+                       positions: torch.Tensor, cache, at: tuple,
+                       layer_tag: str = "mla") -> torch.Tensor:
+    """One decode step of n requests, each a bank lane: x (n,1,D),
+    positions (n,1).  ``wdq``, ``wuq``, ``wqr``, ``wdkv``, ``wkr`` and
+    ``wo`` run once for all lanes, RoPE at each lane's position; each
+    lane's new ``ckv``/``kr`` row goes to its slot of ``cache``
+    (``serve.kv_cache.LaneCaches``, leaves ``at = (prefix, g)``), and
+    ``wuk``/``wuv`` expand every lane's whole view in one banked call
+    each, the views zero-padded to the longest.  The norms and the core
+    run lane by lane at B=1 over the lane's T_i rows, so each lane
+    equals a sequential B=1 decode over a T_i-row cache bit for bit."""
+    n, h = x.shape[0], cfg.n_heads
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    eps, dt = cfg.norm_eps, cfg.dtype
+
+    def mm(name, a):
+        return policy.matmul(f"{layer_tag}.{name}", a, params[name],
+                             lanes=True)
+
+    cq = lane_rms_norm(mm("wdq", x), params["qn"], eps)
+    q_n = mm("wuq", cq).reshape(n, 1, h, dn)
+    q_r = mm("wqr", cq).reshape(n, 1, h, dr)
+    ckv = lane_rms_norm(mm("wdkv", x), params["kvn"], eps)
+    kr = mm("wkr", x)                               # (n,1,dr)
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_r = apply_rope(q_r, cos, sin)
+    kr = apply_rope(kr[..., None, :], cos, sin)[..., 0, :]
+    views = cache.rows_of(*at, {"ckv": ckv, "kr": kr})
+
+    # every lane's latent view, zero rows past its length
+    lens = [v["ckv"].shape[1] for v in views]
+    lat = views[0]["ckv"].new_zeros((n, max(lens), cfg.kv_lora))
+    for i, v in enumerate(views):
+        lat[i, :lens[i]] = v["ckv"][0]
+    k_n, v_all = mm("wuk", lat), mm("wuv", lat)
+
+    outs = []
+    for i, (view, t) in enumerate(zip(views, lens)):
+        ops = (q_n[i:i + 1].to(dt).clone(), q_r[i:i + 1].to(dt).clone(),
+               k_n[i:i + 1, :t].reshape(1, t, h, dn).to(dt).clone(),
+               view["kr"].to(dt),
+               v_all[i:i + 1, :t].reshape(1, t, h, dv).to(dt).clone())
+        if cfg.attn_impl == "chunked":
+            p = cache.pos[i]
+            outs.append(_mla_core_chunked(*ops, p, p + 1, cfg))
+        else:
+            outs.append(_mla_core(*ops, cache.bias(i), cfg))
+    out = torch.cat(outs).reshape(n, 1, h * dv)
+    return mm("wo", out).to(dt)
 
 
 def init_mla_cache(cfg: LMConfig, batch: int, max_len: int, device=None,

@@ -23,7 +23,9 @@ Differences from the reference, none of which changes a value:
     reference's ``vmap`` over lanes does: routing, top-k, dispatch and
     combine run lane by lane at the sequential shapes, and each expert's
     projection is ONE banked call over all lanes (K2/K4 with ``C`` rows
-    a lane).
+    a lane) — in the continuous engine's decode step too, where each
+    running request routes its one token alone (``capacity(cfg, 1)``
+    rows a lane).
 The reference's ``_moe_blocked`` is called by nothing in the reference
 and is not ported.
 """
@@ -35,7 +37,6 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from ..approx.backend import backend_matmul
 from ..approx.layers import ApproxPolicy
 from .common import LMConfig, activation, dense_init, ffn, init_ffn
 
@@ -136,24 +137,30 @@ def combine(out_buf: torch.Tensor, r: Route, cfg: LMConfig
 
 def _expert_matmul(policy: ApproxPolicy, name: str, x: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
-    """x: (E,C,d) @ w: (E,d,f) -> (E,C,f), one datapath call an expert;
-    x (n,E,C,d) with a bank lane axis, or a banked backend, gives
-    (n,E,C,f)."""
-    be = policy.backend_for(name)
+    """x: (E,C,d) @ w: (E,d,f) -> (E,C,f), one datapath call an expert
+    (``policy.matmul``, so a counting policy sees each); x (n,E,C,d)
+    with a bank lane axis, or a banked backend, gives (n,E,C,f)."""
     lanes = x.ndim == 4
     return torch.stack([
-        backend_matmul(x[:, j].contiguous() if lanes else x[j], w[j], be,
-                       lanes=lanes)
+        policy.matmul(name, x[:, j].contiguous() if lanes else x[j], w[j],
+                      lanes=lanes)
         for j in range(w.shape[0])], dim=-3)
 
 
 def moe_ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
-            layer_tag: str = "moe") -> tuple[torch.Tensor, torch.Tensor]:
+            layer_tag: str = "moe", lanes: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D), or (n,B,S,D) with a bank lane axis -> the same shape,
     and the aux load-balance loss (scalar f32, or (n,) under lanes).
+    ``lanes``: x's batch axis is a bank lane axis (the continuous
+    engine's prefill and decode step): each batch row routes its own S
+    tokens alone, as (n,1,S,D) does.
 
     With ``cfg.moe_blocks > 1`` dispatch runs block-locally (capacity
     per block), as the reference's ``vmap`` over token blocks."""
+    if lanes:
+        y, aux = moe_ffn(params, x[:, None], cfg, policy, layer_tag)
+        return y[:, 0], aux
     b, s, d = x.shape[-3:]
     lead = x.shape[:-3]
     t = b * s

@@ -27,6 +27,7 @@ request is one lane of a shared LUT bank (DESIGN.md §2.8).
 """
 from __future__ import annotations
 
+import time
 from collections import Counter, OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional, Union
@@ -39,11 +40,10 @@ from ..approx.layers import (EXACT_POLICY, ApproxPolicy,
                              bank_assignment_overrides, bank_backend)
 from ..approx.specs import BackendSpec, bank_for, policy_assignment
 from ..kernels import ops
-from ..models.common import LMConfig, causal_bias
-from ..models.decoder import require_lane_decode
+from ..models.common import LMConfig
 from ..models.registry import (input_extras, model_fns, probe_layer_tags,
                                prompt_extra_len)
-from .kv_cache import PagedKVCache
+from .kv_cache import LaneCaches, PagedKVCache
 from .scheduler import Request, RequestState, Scheduler
 
 
@@ -146,7 +146,14 @@ class ContinuousEngine:
     one K2 (``pallas``) or K4 (``fused``) launch a projection, whatever
     the number of distinct policies — while the norms, attention over
     each slot's paged cache view, the unembedding and sampling run slot
-    by slot at B=1 (``decoder.forward_decode_lanes``).
+    by slot at B=1 (the family's ``forward_decode_lanes``).  Every
+    family of the registry serves so: attention k/v, MLA's latent rows
+    and the encoder-decoder's self k/v are paged; a mamba slot's conv
+    and SSM state and the encoder-decoder's cross-KV are the slot's
+    dense rows (the cross-KV written once at admission, the state after
+    each step for the slots that ran); an MoE layer routes each slot's
+    token alone, one banked call an expert and projection; a request's
+    ``extras`` (encoder frames, image embeddings) enter its prefill.
 
     Token streams equal per-request sequential ``Engine.generate`` under
     ``lane_policy(serve)`` token for token: a banked lane's integer sums
@@ -162,7 +169,9 @@ class ContinuousEngine:
     grows on first use of a new multiplier (counted in
     ``trace_counts['bank_builds']``).  ``step_log`` holds one record a
     prefill and a decode step: its lanes, its banked and single-table
-    matmul calls and the kernel launches it made (none on the CPU).
+    matmul calls and the kernel launches it made (none on the CPU); a
+    decode step's also its wall (``wall_s``: host clock from its inputs
+    to its sampled tokens on the host).
     The reference's ``sharding=`` is not ported (ROADMAP.md Queue 1,
     "Launch tooling and multi-device").
     """
@@ -177,7 +186,6 @@ class ContinuousEngine:
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  mode: str = "lut", variant: str = "ref",
                  block_m: int = 512, base: Optional[BackendSpec] = None):
-        require_lane_decode(cfg)
         self.cfg = cfg
         self.params = params
         self.fns = model_fns(cfg)
@@ -199,11 +207,6 @@ class ContinuousEngine:
                                capacity=self.capacity,
                                block_size=block_size, n_blocks=n_blocks,
                                device=self.device)
-        lay = self.kv.layout
-        # each attention mixer's (k, v) pools
-        self._pools = {p[0]: (lay.pool_of((p[0], "k")),
-                              lay.pool_of((p[0], "v")))
-                       for p in lay.paths if p[-1] == "k"}
         self.scheduler = Scheduler(self.n_slots)
         n = self.n_slots
         self._tokens = np.zeros(n, np.int64)
@@ -211,7 +214,8 @@ class ContinuousEngine:
         self._active = np.zeros(n, bool)
         self._assign = np.zeros((n, len(self.layers)), np.int64)
         self._gens: list = [None] * n        # per-slot sampler
-        self._phys: list = [None] * n        # per-slot rows (host, device)
+        # per-slot pool rows (host, device); None without pools (SSM)
+        self._phys: list = [None] * n
         self.trace_counts = {"bank_builds": 0}
         self.step_log: list[dict] = []
         self._calls: Counter = Counter()
@@ -399,8 +403,9 @@ class ContinuousEngine:
             st = self.scheduler.admit(self.step_count)
             slot = st.slot
             self.kv.allocate(slot, st.total_len)
-            rows = self.kv.slot_rows(slot, st.total_len)
-            self._phys[slot] = (rows.cpu().numpy(), rows)
+            if self.kv.pools:
+                rows = self.kv.slot_rows(slot, st.total_len)
+                self._phys[slot] = (rows.cpu().numpy(), rows)
             tok = self._prefill(st)
             st.tokens.append(tok)
             self._tokens[slot] = tok
@@ -415,33 +420,28 @@ class ContinuousEngine:
                  if self._active[s]]
         if not slots:
             return False
+        t0 = time.perf_counter()
         dev = self.device
         pos = self._lengths[slots]
+        paged = bool(self.kv.pools)
         host = np.stack([self._tokens[slots], pos,
-                         [self._phys[s][0][p] for s, p in zip(slots, pos)]])
+                         [self._phys[s][0][p] if paged else -1
+                          for s, p in zip(slots, pos)]])
         tokens, positions, write = torch.from_numpy(host).to(dev)
-        rows = [self._phys[s][1] for s in slots]
-        biases = [causal_bias(int(p), 1, r.numel(), dev)
-                  for p, r in zip(pos, rows)]
-        kv = self.kv
-
-        def slot_kv(mixer, g, k, v):
-            pk, pv = self._pools[mixer]
-            kv.write_rows(pk, write, k[:, 0], at=(g, 0))
-            kv.write_rows(pv, write, v[:, 0], at=(g, 0))
-            return [(kv.read_rows(pk, r, (g, 0))[None],
-                     kv.read_rows(pv, r, (g, 0))[None]) for r in rows]
-
+        cache = LaneCaches(self.kv, slots, pos,
+                           [self._phys[s][1] if paged else None
+                            for s in slots], write)
         policy = self._policy_for(self._assign[slots])
         logits = self._logged("decode", len(slots), lambda: (
             self.fns.forward_decode_lanes(self.params, tokens, positions,
-                                          slot_kv, biases, self.cfg,
-                                          policy)))
+                                          cache, self.cfg, policy)))
+        cache.commit()
         toks = torch.cat([
             Engine._sample(lg, self.scheduler.running[s].request.serve,
                            self._gens[s])
             for s, lg in zip(slots, logits)]).cpu().numpy()
-        kv.advance(slots)
+        self.step_log[-1]["wall_s"] = time.perf_counter() - t0
+        self.kv.advance(slots)
         for slot, tok in zip(slots, toks):
             st = self.scheduler.running[slot]
             st.tokens.append(int(tok))

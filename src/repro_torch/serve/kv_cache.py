@@ -9,24 +9,38 @@ virtualizes the *sequence* axis instead, vLLM-style:
   * ``cache_layout`` probes the cache tree structurally — it
     initializes it on the ``meta`` device (no memory) at two capacities
     and marks, per leaf, the axis whose extent changed as the sequence
-    (T) axis.  The dense decoder's k/v ``(G, B, T, H, D)`` leaves find
-    their T axis; its ``pos`` (a host int in the port) is a dense leaf.
+    (T) axis.  No per-family code: attention k/v ``(G, B, T, H, D)``,
+    MLA's latent ``ckv`` ``(G, B, T, kv_lora)`` and ``kr``, and the
+    encoder-decoder's self k/v ``(L, B, T, H, D)`` find their T axis;
+    a mamba slot's ``conv``/``state``, the encoder-decoder's cross-KV
+    and ``pos`` (a host int in the port) are dense leaves.
   * Sequence leaves live in fixed-size-block *pools* shaped
     ``(n_blocks * block_size, *rest)`` (T axis moved to the front);
     a free-list allocator hands blocks to requests, and a per-slot
-    block table maps logical position → physical pool row.
+    block table maps logical position → physical pool row.  A family
+    without sequence leaves (pure SSM) has no pools and takes zero
+    blocks a request.
   * Dense leaves live in a slot-major store: ``(n_slots, *shape)``
-    tensors, and host int leaves in ``(n_slots,)`` numpy arrays.
+    tensors at the dtype the model carries (a prefill's), and host int
+    leaves in ``(n_slots,)`` numpy arrays.
 
-The engine's decode step reads a slot's logical view
-``pool[block_table[t // bs] * bs + t % bs]`` (``slot_rows``,
-``read_rows``) and writes each active slot's one new row
-(``write_rows``); inactive slots are not
-run at all, so no write ever carries the negative row of an
-unallocated table entry (which would wrap to the last pool row, in
-torch as in JAX).  Attention masks rows past a request's position with
-a -1e30 bias (exact zeros after softmax), so the stale rows a view
-holds beyond a request's length never contribute.
+The engine's decode step sees the running slots through ``LaneCaches``:
+each slot's logical view ``pool[block_table[t // bs] * bs + t % bs]``
+of a sequence leaf (``slot_rows``, ``read_rows``), the one new row each
+running slot writes (``write_rows``), and each slot's dense rows, whose
+new values (a mamba slot's conv and SSM state) are written back after
+the step for the slots that ran only — the reference's ``keep_active``.
+Inactive slots are not run at all, so no write ever carries the
+negative row of an unallocated table entry (which would wrap to the
+last pool row, in torch as in JAX).
+
+A slot's pool rows are zeroed when its blocks are allocated, so a view
+reads zeros past the request's position, as the contiguous cache
+``generate`` allocates does, never another request's rows.  Attention
+masks those rows with a -1e30 bias (exact zeros after softmax); MLA's
+latent expansion takes the whole view into its calibration, where zero
+rows leave the range alone (``approx.quant.calibrate`` clamps lo <= 0 <=
+hi) and stale ones would not.
 
 Pools are created and written under ``torch.inference_mode()``.
 """
@@ -37,6 +51,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..models.common import causal_bias
 
 
 def tree_flatten(tree) -> tuple[list, Any]:
@@ -98,11 +114,6 @@ class CacheLayout:
     def dense_positions(self) -> tuple:
         return tuple(i for i, t in enumerate(self.seq_axes) if t is None)
 
-    def pool_of(self, path: tuple) -> int:
-        """Index into ``PagedKVCache.pools`` of the sequence leaf at
-        ``path`` (e.g. ``("mixer_0", "k")``)."""
-        return self.seq_positions.index(self.paths.index(path))
-
 
 def cache_layout(fns, cfg, capacity: int) -> CacheLayout:
     """Probe ``fns.init_cache``'s tree for the sequence axes by
@@ -136,7 +147,9 @@ class PagedKVCache:
     """Block pools + dense store + free-list allocator + block tables.
 
     One instance serves all slots of a ``ContinuousEngine``, on one
-    device (the CPU unless ``device`` says otherwise)."""
+    device (the CPU unless ``device`` says otherwise); a family with no
+    sequence leaves (pure SSM: conv + state carry, O(1) decode) has
+    zero pools and allocates zero blocks a request."""
 
     def __init__(self, fns, cfg, *, n_slots: int, capacity: int,
                  block_size: int = 16, n_blocks: Optional[int] = None,
@@ -167,6 +180,12 @@ class PagedKVCache:
         self.block_tables = np.full((self.n_slots, self.blocks_per_slot),
                                     -1, np.int32)
         self._free: list[int] = list(range(self.n_blocks))
+        # a leaf's path (e.g. ``("mixer_0", "k")``) -> its index into
+        # ``pools`` or ``dense``
+        self.pool_index = {lay.paths[p]: i
+                           for i, p in enumerate(lay.seq_positions)}
+        self.dense_index = {lay.paths[p]: i
+                            for i, p in enumerate(lay.dense_positions)}
 
     # -- allocator ------------------------------------------------------
     @property
@@ -197,6 +216,15 @@ class PagedKVCache:
             raise RuntimeError(f"slot {slot} already holds blocks")
         blocks = [self._free.pop(0) for _ in range(n)]
         self.block_tables[slot, :n] = blocks
+        if blocks:
+            # a released block keeps its last request's rows: zero them,
+            # so the slot's view past its position reads zeros
+            rows = (np.asarray(blocks)[:, None] * self.block_size
+                    + np.arange(self.block_size)).reshape(-1)
+            idx = torch.from_numpy(rows).to(self.device)
+            with torch.inference_mode():
+                for pool in self.pools:
+                    pool[idx] = 0
         return blocks
 
     def release(self, slot: int) -> None:
@@ -231,12 +259,20 @@ class PagedKVCache:
         if treedef != self.layout.treedef:
             raise ValueError("prefill cache structure does not match "
                              "the probed layout")
-        phys = self.slot_rows(slot, length)
+        phys = self.slot_rows(slot, length) if self.pools else None
         pi, di = 0, 0
         with torch.inference_mode():
             for leaf, t in zip(leaves, self.layout.seq_axes):
                 if t is None:
-                    self.dense[di][slot] = leaf
+                    store = self.dense[di]
+                    if (isinstance(leaf, torch.Tensor)
+                            and store.dtype != leaf.dtype):
+                        # the dtype the model carries: a mamba conv state,
+                        # the working dtype in ``init_cache``, comes back
+                        # in f32 from a prefill, and its decode carries it
+                        # so; rounding it here would change the next step
+                        self.dense[di] = store = store.to(leaf.dtype)
+                    store[slot] = leaf
                     di += 1
                 else:
                     self.pools[pi][phys] = torch.movedim(leaf, t,
@@ -249,7 +285,8 @@ class PagedKVCache:
         row per running slot (``rows`` from ``slot_rows``, never
         negative)."""
         with torch.inference_mode():
-            self.pools[pool][(rows, *at)] = values
+            dest = self.pools[pool]
+            dest[(rows, *at)] = values.to(dest.dtype)
 
     def read_rows(self, pool: int, rows: torch.Tensor, at: tuple = ()
                   ) -> torch.Tensor:
@@ -278,8 +315,8 @@ class PagedKVCache:
 
     def advance(self, slots) -> None:
         """One decode step of ``slots``: their host position leaves move
-        on by one row (tensor dense leaves have no per-step state in
-        the ported families)."""
+        on by one row (tensor dense leaves are written by the step's
+        ``LaneCaches.commit``)."""
         for d in self.dense:
             if isinstance(d, np.ndarray):
                 d[list(slots)] += 1
@@ -290,3 +327,67 @@ class PagedKVCache:
                 "free_blocks": len(self._free),
                 "block_size": self.block_size,
                 "n_pools": len(self.pools), "n_dense": len(self.dense)}
+
+
+class LaneCaches:
+    """The running slots' caches as one lane decode step sees them (a
+    family's ``forward_decode_lanes``): lane ``i`` is slot ``slots[i]``,
+    at position ``pos[i]`` (a host int), whose sequence leaves span
+    ``rows[i]`` (``PagedKVCache.slot_rows`` of its ``total_len``, the
+    rows of the cache ``generate`` allocates) and whose new rows go to
+    pool row ``write[i]``.  A leaf is named by its cache path: a
+    ``prefix`` (``("mixer_0",)``, ``("self",)``, ``("cross",)``), a leaf
+    name and its layer group ``g``, the leading index of the leaf."""
+
+    def __init__(self, kv: PagedKVCache, slots, pos, rows, write):
+        self.kv, self.slots = kv, list(slots)
+        self.pos = [int(p) for p in pos]
+        self.rows, self.write = rows, write
+        self._biases: dict = {}
+        self._pending: list = []
+
+    def bias(self, i: int) -> torch.Tensor:
+        """Lane i's (1, T_i) causal mask at its position
+        (``models.common.causal_bias``), made once a step."""
+        if i not in self._biases:
+            self._biases[i] = causal_bias(self.pos[i], 1,
+                                          self.rows[i].numel(),
+                                          self.kv.device)
+        return self._biases[i]
+
+    def rows_of(self, prefix: tuple, g: int, new: dict) -> list:
+        """Write each lane's new row ``new[name][i, 0]`` (``new[name]``:
+        (n, 1, ...)) of the sequence leaves ``prefix + (name,)``, group
+        ``g``, at its position; returns each lane's views ``{name: (1,
+        T_i, ...)}``, the new row included."""
+        kv = self.kv
+        pools = {name: kv.pool_index[prefix + (name,)] for name in new}
+        for name, p in pools.items():
+            kv.write_rows(p, self.write, new[name][:, 0], at=(g, 0))
+        return [{name: kv.read_rows(p, r, (g, 0))[None]
+                 for name, p in pools.items()} for r in self.rows]
+
+    def state(self, prefix: tuple, g: int, names) -> list:
+        """Each lane's dense rows ``{name: (1, ...)}`` of group ``g``
+        (views of the dense store)."""
+        kv = self.kv
+        idx = {name: kv.dense_index[prefix + (name,)] for name in names}
+        return [{name: kv.dense[d][slot, g] for name, d in idx.items()}
+                for slot in self.slots]
+
+    def update(self, prefix: tuple, g: int, new: list) -> None:
+        """Each lane's new dense rows ``new[i] = {name: (1, ...)}`` of
+        group ``g``, written by ``commit`` after the step."""
+        self._pending.append((prefix, g, new))
+
+    def commit(self) -> None:
+        """Write the step's new dense rows into the running slots' rows
+        of the dense store; every other slot's rows stay as they are."""
+        kv = self.kv
+        with torch.inference_mode():
+            for prefix, g, new in self._pending:
+                for slot, rows in zip(self.slots, new):
+                    for name, value in rows.items():
+                        kv.dense[kv.dense_index[prefix + (name,)]][
+                            slot, g] = value
+        self._pending.clear()

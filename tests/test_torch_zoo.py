@@ -325,22 +325,3 @@ def test_param_trees_match_reference():
             pp["blocks"]["mixer_0"][key].numpy(),
             np.asarray(rp["blocks"]["mixer_0"][key]), rtol=2 ** -23,
             atol=0)
-
-
-def test_continuous_serving_of_the_new_families_raises():
-    """The MoE, SSM, hybrid, MLA, encoder-decoder and VLM families are
-    not served continuously yet: the engine and each family's lane
-    decode step raise, naming the serving item."""
-    from repro_torch.models.common import LANE_SERVE_ITEM
-    from repro_torch.serve.engine import ContinuousEngine
-    for arch in ZOO[:3] + ("deepseek-v2-236b", "whisper-large-v3",
-                           "llava-next-34b"):
-        cfg = get_config(arch).reduced()
-        fns = model_fns(cfg)
-        params = fns.init_params(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ContinuousEngine(cfg, params)
-        with pytest.raises(NotImplementedError) as err:
-            fns.forward_decode_lanes(params, None, None, None, None, cfg,
-                                     None)
-        assert LANE_SERVE_ITEM in str(err.value), arch
