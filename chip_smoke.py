@@ -230,7 +230,31 @@ Phases (any failure exits nonzero):
  12. the evolve study (``launch.evolve_library``) at its default size
      against ``benchmarks/results/BENCH_evolve.json`` (metric identity,
      the ladder, the tiny builds' counts); its throughput ratio is
-     recorded, not gated.
+     recorded, not gated;
+ 13. lane sharding (``phase_mesh``) over ``launch.mesh.sweep_mesh()``
+     (the card the run has) and a two-entry mesh that lists that card
+     twice — it exercises the split, the per-shard launches and the
+     gather on one card, and measures nothing across cards — each path
+     sharded against unsharded, with the launch counters zeroed just
+     before each run and read just after: the case study's all-layers
+     sweep on ResNet-8 (the committed checkpoint, 256 images in 64-image
+     batches) with a 16-multiplier bank split 8 + 8, its 17-multiplier
+     bank (no split: whole on the first device) and the 16 lanes on
+     ``sweep_mesh()``, under ``"pallas"`` (K2) and ``"fused"`` (K4); the
+     wide study's 12-lane mixed-width bank split 6 + 6 (K6 / K8); the
+     heterogeneous study's batched verification of its assignments with
+     ``assign_sharding``; one mul8 CGP generation (32 offspring) and a
+     short ladder on the device engine with ``pop_sharding`` (K11; K10
+     re-verifies); ``ContinuousEngine(sharding=slot_sharding(4, ...))``
+     serving qwen1.5-0.5b at full width (random weights from seed 0) to
+     4 Poisson requests of 16 new tokens (K2; the replay K1); and
+     ``compressed_psum`` over an NCCL group of world size 1.  Each fails
+     unless sharded equals unsharded bit for bit (rows, scores,
+     trajectories, tokens; the tokens also the sequential replay's), each
+     banked call launched its kernel once a shard with that shard's lanes
+     and nothing else ran, and the all-reduce equals its plain formula;
+     the phase's wall and each path's sharded and unsharded walls are
+     printed.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -432,6 +456,21 @@ FP32_LANES_PER_SM = 128
 # f32-accurate 3xTF32 split takes three products per multiply-add
 TF32_FLOPS_PER_S = 495e12
 TF32_SPLIT_PRODUCTS = 3
+
+
+# lane sharding (``phase_mesh``): the banked kernel of each variant for
+# 8-bit and for mixed-width banks, the CGP ladder's cut (rungs and
+# generations of the ``small`` budget's 8 and 250) and the sharded
+# continuous engine's load (4 slots split 2 + 2)
+MESH_KERNELS = {"pallas": ("lut_matmul_bank", "composed_matmul_bank"),
+                "fused": ("fused_matmul_bank", "fused_composed_matmul_bank")}
+# the ``kernels.datapaths`` call that launches each of them
+MESH_CALLS = {"pallas": ("approx_matmul_lut_bank", "composed_matmul_lut_bank"),
+              "fused": ("fused_matmul_lut_bank",
+                        "fused_composed_matmul_lut_bank")}
+MESH_LADDER = {"rungs": 4, "generations": 12}
+MESH_SERVE = {"arch": "qwen1.5-0.5b", "n_requests": 4, "max_new": 16,
+              "n_slots": 4}
 
 
 def _smi(fields: str) -> str:
@@ -2415,6 +2454,401 @@ def phase_evolve(device, log, launches_total: dict) -> dict:
     return {**record, "main_path_s": wall, "launches": launches}
 
 
+class _LaneCalls:
+    """Within the block, ``kernels.datapaths``' banked calls (and
+    ``ops.bitsim_pop_planes``) record each call's lane (candidate) count
+    by name; restored on exit."""
+
+    NAMES = ("approx_matmul_lut_bank", "fused_matmul_lut_bank",
+             "composed_matmul_lut_bank", "fused_composed_matmul_lut_bank")
+
+    def __enter__(self):
+        from repro_torch.kernels import datapaths, ops
+        self.calls = {n: [] for n in self.NAMES + ("bitsim_pop_planes",)}
+        self._orig = [(datapaths, n, getattr(datapaths, n))
+                      for n in self.NAMES]
+        self._orig.append((ops, "bitsim_pop_planes", ops.bitsim_pop_planes))
+        for mod, name, fn in self._orig:
+            def counted(a, *rest, _fn=fn, _name=name, **kw):
+                lanes = (a.shape[0] if _name == "bitsim_pop_planes"
+                         else rest[1].shape[0])
+                self.calls[_name].append(int(lanes))
+                return _fn(a, *rest, **kw)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+    def made(self) -> dict:
+        return {k: v for k, v in self.calls.items() if v}
+
+
+def _mesh_pair(label: str, plain, sharded, kernel: str, shards: int,
+               lanes: int, log, timed: dict, launches_total: dict,
+               call: str = None):
+    """Run ``plain()`` then ``sharded()``, each with the launch counters
+    zeroed just before it and read just after; fails unless ``sharded``
+    launched ``kernel`` ``shards`` times as often as ``plain`` and
+    nothing else, each banked call (``call``) with ``lanes`` lanes.
+    Returns both results."""
+    import torch
+    from repro_torch.kernels import ops
+    walls, counts = {}, {}
+    outs = []
+    for which, fn in (("unsharded", plain), ("sharded", sharded)):
+        ops.reset_launch_counts()
+        with _LaneCalls() as lc:
+            t0 = time.perf_counter()
+            outs.append(fn())
+            torch.cuda.synchronize()
+            walls[which] = time.perf_counter() - t0
+        counts[which] = {k: v for k, v in ops.launch_counts().items() if v}
+        made = lc.made()
+        for k, v in counts[which].items():
+            launches_total[k] += v
+    base = counts["unsharded"].get(kernel, 0)
+    want = {kernel: shards * base}
+    if base <= 0 or counts["sharded"] != want:
+        raise AssertionError(f"{label}: sharded launches "
+                             f"{counts['sharded']}, want {want} (unsharded "
+                             f"{counts['unsharded']})")
+    if call is not None and made != {call: [lanes] * (shards * base)}:
+        raise AssertionError(f"{label}: banked calls {made}, want "
+                             f"{shards * base} of {lanes} lanes")
+    log(f"{label}: sharded {walls['sharded']:.3f} s, unsharded "
+        f"{walls['unsharded']:.3f} s; {kernel} {shards} x {base} launches "
+        f"of {lanes} lanes a call")
+    timed[label] = {"sharded_s": walls["sharded"],
+                    "unsharded_s": walls["unsharded"],
+                    "launches": counts["sharded"],
+                    "unsharded_launches": counts["unsharded"],
+                    "shards": shards, "lanes_a_call": lanes}
+    return outs
+
+
+def _mesh_sweeps(device, log, two, one, timed: dict, launches_total: dict):
+    """The case study's and the wide study's all-layers sweeps, sharded
+    against unsharded, rows equal."""
+    from repro_torch.approx.resilience import all_layers_sweep
+    from repro_torch.approx.workload import classification
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch.case_study import case_study_names
+    from repro_torch.launch.mesh import bank_sharding
+    from repro_torch.launch.wide_pareto import wide_names
+    from repro_torch.models import resnet
+    from repro_torch.models.weights import load_resnet8
+    lib = get_default_library()
+    wl = classification(resnet.resnet_config(8), load_resnet8(),
+                        eval_n=EVAL_N, batch=BATCH, device=device)
+    counts = wl.layer_counts
+    names = case_study_names(lib, 16)
+    wide = case_study_names(lib, 6) + wide_names(lib)
+    if len(names) != N_LANES or len(wide) != 12:
+        raise AssertionError(f"mesh phase banks: {len(names)} / "
+                             f"{len(wide)} lanes")
+    rows = {}
+    cases = [(variant, n, cands, mesh, tag)
+             for variant in MESH_KERNELS
+             for n, cands, mesh, tag in (
+                 (16, names[:16], two, "16 lanes 8 + 8"),
+                 (17, names, two, "17 lanes whole"),
+                 (16, names[:16], one, "16 lanes on sweep_mesh()"),
+                 (12, wide, two, "12 mixed-width lanes 6 + 6"))
+             if variant == "pallas" or "sweep_mesh" not in tag]
+    for variant, n, cands, mesh, tag in cases:
+        sh = bank_sharding(n, mesh)
+        shards = len(sh.shards(n))
+        kernel = MESH_KERNELS[variant][n == 12]
+        call = MESH_CALLS[variant][n == 12]
+
+        def sweep(sharding=None):
+            return [r.metrics for r in all_layers_sweep(
+                wl, counts, cands, lib, mode="lut", variant=variant,
+                batch=True, sharding=sharding)]
+
+        plain, split = _mesh_pair(
+            f"all-layers sweep {tag} ({variant})", sweep,
+            lambda: sweep(sh), kernel, shards, n // shards, log, timed,
+            launches_total, call)
+        if split != plain:
+            raise AssertionError(f"sharded sweep {tag} ({variant}) "
+                                 f"differs: {split} != {plain}")
+        rows[f"{variant} {tag}"] = split
+    return rows
+
+
+def _mesh_verification(device, log, two, hetero: dict, timed: dict,
+                       launches_total: dict):
+    """The heterogeneous study's batched verification of its verified
+    assignments, rows split with ``assign_sharding``."""
+    from repro_torch.approx.dse import verify_assignments
+    from repro_torch.approx.workload import classification
+    from repro_torch.core.library import get_default_library
+    from repro_torch.launch.mesh import bank_sharding, policy_sharding
+    from repro_torch.models import resnet
+    from repro_torch.models.weights import load_resnet8
+    lib = get_default_library()
+    wl = classification(resnet.resnet_config(8), load_resnet8(),
+                        eval_n=hetero["eval_n"], batch=hetero["batch"],
+                        device=device)
+    assignments = [p["assignment"] for p in hetero["heterogeneous"]]
+    k = len(assignments)
+    mults = hetero["multipliers"]
+    out = {"assignments": k}
+    for variant in MESH_KERNELS:
+        sh = policy_sharding(k, two)
+        shards = len(sh.shards(k))
+
+        def verify(sharded=False):
+            pts = verify_assignments(
+                wl, assignments, wl.layer_counts, lib, mode="lut",
+                variant=variant, batch=True,
+                sharding=bank_sharding(len(mults), two) if sharded else None,
+                assign_sharding=sh if sharded else None)
+            return [(p.accuracy, p.network_rel_power) for p in pts]
+
+        plain, split = _mesh_pair(
+            f"verification of {k} assignments ({variant})", verify,
+            lambda: verify(True), MESH_KERNELS[variant][0], shards,
+            k // shards, log, timed, launches_total, MESH_CALLS[variant][0])
+        if split != plain:
+            raise AssertionError(f"sharded verification ({variant}) "
+                                 f"differs from the unsharded one")
+        out[variant] = split
+    return out
+
+
+def _mesh_cgp(device, log, two, timed: dict, launches_total: dict):
+    """One mul8 generation (32 offspring of the padded seed) and a short
+    ladder on the device engine, the population split with
+    ``pop_sharding``: scores and trajectories equal; K10 re-verifies each
+    rung's final circuit."""
+    import numpy as np
+    from repro_torch.core.cgp import CgpParams, mutate, pad_nodes
+    from repro_torch.core.evolve_pop import (POP_PAD, PopEvaluator,
+                                             evolve_ladder)
+    from repro_torch.core.seeds import array_multiplier
+    from repro_torch.launch.mesh import pop_sharding
+    exact = array_multiplier(8)
+    params = CgpParams(metric="mae", seed=1234,
+                       generations=MESH_LADDER["generations"])
+    padded = pad_nodes(exact, exact.n_nodes, seed=1334)
+    rng = np.random.default_rng(1234)
+    pop = [mutate(padded, rng, params.h) for _ in range(32)]
+    sh = pop_sharding(POP_PAD, two)
+    ev_plain = PopEvaluator(exact, params, engine="device", device=device)
+    ev_split = PopEvaluator(exact, params, engine="device", sharding=sh)
+    plain, split = _mesh_pair(
+        "mul8 generation, 32 offspring", lambda: ev_plain.errors_of(pop),
+        lambda: ev_split.errors_of(pop), "bitsim_pop", 2, 16, log, timed,
+        launches_total, "bitsim_pop_planes")
+    if not np.array_equal(plain, split):
+        raise AssertionError("sharded mul8 generation scores differ")
+    max_out = float((2 ** 8 - 1) ** 2)
+    ladder = [max_out * (2.0 ** -e) for e in
+              np.linspace(14, 4, MESH_LADDER["rungs"])]
+
+    def run(sharding=None):
+        res = evolve_ladder(padded, exact, ladder, params, engine="device",
+                            device=device, sharding=sharding)
+        return [(r.netlist.to_dict(), r.errors.as_dict()) for r in res]
+
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lad_plain = run()
+    plain_s = time.perf_counter() - t0
+    plain_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    ops.reset_launch_counts()
+    with _LaneCalls() as lc:
+        t0 = time.perf_counter()
+        lad_split = run(sh)
+        split_s = time.perf_counter() - t0
+    split_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    for k, v in list(plain_launches.items()) + list(split_launches.items()):
+        launches_total[k] += v
+    gens = 1 + MESH_LADDER["generations"]
+    rungs = MESH_LADDER["rungs"]
+    if (lad_split != lad_plain
+            or plain_launches != {"bitsim_pop": gens, "bitsim": rungs}
+            or split_launches != {"bitsim_pop": 2 * gens, "bitsim": rungs}
+            or lc.made() != {"bitsim_pop_planes":
+                             [4] * 2 + [rungs * params.lam // 2] * (
+                                 2 * (gens - 1))}):
+        raise AssertionError(f"sharded ladder: trajectories equal "
+                             f"{lad_split == lad_plain}, launches "
+                             f"{split_launches} / {plain_launches}, "
+                             f"calls {lc.made()}")
+    log(f"ladder of {rungs} rungs x {MESH_LADDER['generations']} "
+        f"generations: sharded {split_s:.3f} s, unsharded {plain_s:.3f} s; "
+        f"bitsim_pop 2 x {gens} launches, bitsim {rungs} (re-verification); "
+        f"trajectories equal")
+    timed["ladder"] = {"sharded_s": split_s, "unsharded_s": plain_s,
+                       "launches": split_launches,
+                       "unsharded_launches": plain_launches}
+    return {"generation": list(split), "ladder": [
+        {"errors": e} for _n, e in lad_split]}
+
+
+def _mesh_serve(device, log, two, timed: dict, launches_total: dict):
+    """``ContinuousEngine`` over 4 slots split 2 + 2 against the whole
+    engine on the same Poisson requests; tokens equal each other and
+    the sequential replay; every decode step launched K2 168 times a
+    shard that ran."""
+    import numpy as np
+    import torch
+    from repro_torch.core.library import get_default_library
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_load
+    from repro_torch.launch.mesh import slot_sharding
+    from repro_torch.launch.serve import setup
+    from repro_torch.serve.engine import (ContinuousEngine, Engine,
+                                          ServeConfig)
+    lib = get_default_library()
+    _dev, cfg, params, _ = setup(device, MESH_SERVE["arch"])
+    per_step = PROJECTIONS_PER_LAYER * cfg.n_layers
+    rng = np.random.default_rng(300)
+    policies = serve_load._policy_set(MESH_SERVE["n_requests"])
+    reqs = []
+    for i in range(MESH_SERVE["n_requests"]):
+        prompt = rng.integers(0, cfg.vocab, (int(rng.choice(
+            serve_load.PROMPT_LENS)),)).astype(np.int32)
+        reqs.append((prompt, ServeConfig(
+            max_new_tokens=MESH_SERVE["max_new"],
+            temperature=0.0 if i % 2 == 0 else 0.8,
+            seed=int(rng.integers(0, 1 << 16)), policy=policies[i])))
+    cap = max(serve_load.PROMPT_LENS) + MESH_SERVE["max_new"]
+    runs = {}
+    for which, sharding in (("unsharded", None), ("sharded", slot_sharding(
+            MESH_SERVE["n_slots"], two))):
+        eng = ContinuousEngine(
+            cfg, params, library=lib, multipliers=serve_load.MULTIPLIERS,
+            n_slots=MESH_SERVE["n_slots"], capacity=cap,
+            block_size=serve_load.BLOCK_SIZE, variant="pallas",
+            sharding=sharding)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = serve_load._drive(eng, reqs, 2.0, seed=400)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        for k, v in launches.items():
+            launches_total[k] += v
+        fin = eng.scheduler.finished
+        runs[which] = (eng, [fin[r].tokens for r in stats["rids"]], wall,
+                       launches, stats)
+    eng, toks, wall, launches, stats = runs["sharded"]
+    _, plain_toks, plain_wall, plain_launches, _ = runs["unsharded"]
+    bad = [e for e in eng.step_log
+           if e["single"] or e["banked"] != per_step * e.get("shards", 1)
+           or e["launches"] != {"lut_matmul_bank":
+                                per_step * e.get("shards", 1)}]
+    two_shard = sum(1 for e in eng.step_log if e.get("shards") == 2)
+    if toks != plain_toks or bad or not two_shard or len(eng.kvs) != 2:
+        raise AssertionError(f"sharded engine: tokens equal "
+                             f"{toks == plain_toks}, steps off the formula "
+                             f"{bad[:2]}, two-shard steps {two_shard}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    replay = [Engine(cfg, params, eng.lane_policy(serve), library=lib)
+              .generate(prompt[None], serve)[0].tolist()
+              for prompt, serve in reqs]
+    replay_s = time.perf_counter() - t0
+    replay_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    for k, v in replay_launches.items():
+        launches_total[k] += v
+    if (replay != toks or replay_launches.get("lut_matmul", 0) <= 0
+            or "lut_matmul_bank" in replay_launches):
+        raise AssertionError(f"sharded engine tokens differ from the "
+                             f"sequential replay ({replay_launches})")
+    n_tok = sum(len(t) for t in toks)
+    log(f"continuous {MESH_SERVE['arch']} full width, "
+        f"{MESH_SERVE['n_slots']} slots split 2 + 2: sharded {wall:.3f} s "
+        f"({n_tok / wall:.2f} tok/s, {stats['steps']} steps, {two_shard} "
+        f"decode steps on both shards), unsharded {plain_wall:.3f} s; "
+        f"lut_matmul_bank {per_step} a shard a step; tokens equal the "
+        f"unsharded engine's and the replay's ({replay_s:.2f} s)")
+    timed["continuous"] = {
+        "sharded_s": wall, "unsharded_s": plain_wall, "launches": launches,
+        "unsharded_launches": plain_launches, "replay_s": replay_s,
+        "tokens": n_tok, "steps": stats["steps"],
+        "two_shard_decode_steps": two_shard}
+    del runs, eng
+    torch.cuda.empty_cache()
+    return {"tokens": toks}
+
+
+def _mesh_psum(device, log, timed: dict) -> dict:
+    """``compressed_psum`` over an NCCL group of world size 1 on the
+    card, equal bit for bit to its plain formula on the host."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.compression import compressed_psum
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    gen = torch.Generator(device=device).manual_seed(0)
+    tree = {"w": torch.randn((1024, 1024), generator=gen, device=device),
+            "b": {"c": torch.randn((4096,), generator=gen, device=device)
+                  * 1e-3}}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        got = compressed_psum(tree)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    for path, g in (("w", tree["w"]), ("b/c", tree["b"]["c"])):
+        g = g.cpu()
+        s = torch.clamp_min(torch.max(torch.abs(g)) / 127.0, 1e-12)
+        q = torch.clamp(torch.round(g / s), -127, 127).to(torch.int8)
+        want = q.to(torch.int32).to(torch.float32) * s / 1.0
+        node = got
+        for part in path.split("/"):
+            node = node[part]
+        if not torch.equal(node.cpu(), want):
+            raise AssertionError(f"compressed_psum {path} differs from "
+                                 f"its plain formula")
+    log(f"compressed_psum over an NCCL group of world size 1: equal to its "
+        f"plain formula ({wall:.3f} s with the group's set-up)")
+    timed["compressed_psum"] = {"wall_s": wall}
+    return {"leaves": 2}
+
+
+def phase_mesh(device, log, launches_total: dict, hetero: dict) -> dict:
+    """Path K: lane sharding (``launch.mesh``) on the card, each path
+    sharded against unsharded (docstring, phase 13).  ``hetero``: the
+    heterogeneous study's record (its verified assignments)."""
+    import torch
+    from repro_torch.launch.mesh import sweep_mesh
+    t0 = time.perf_counter()
+    one = sweep_mesh()
+    two = sweep_mesh(devices=[device, device])
+    log(f"meshes: sweep_mesh() {[str(d) for d in one.devices]}, two-entry "
+        f"{[str(d) for d in two.devices]} (one card listed twice: the "
+        f"split, per-shard launches and gather, nothing across cards)")
+    timed: dict = {}
+    out = {"sweep_mesh": [str(d) for d in one.devices],
+           "two_entry": [str(d) for d in two.devices]}
+    out["sweeps"] = _mesh_sweeps(device, log, two, one, timed,
+                                 launches_total)
+    out["verification"] = _mesh_verification(device, log, two, hetero,
+                                             timed, launches_total)
+    out["cgp"] = _mesh_cgp(device, log, two, timed, launches_total)
+    out["serve"] = _mesh_serve(device, log, two, timed, launches_total)
+    out["compressed_psum"] = _mesh_psum(device, log, timed)
+    out["walls"] = timed
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"mesh phase {out['phase_s']:.1f} s on {_smi('name,power.limit')}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def _profile_continuous_step(device) -> dict:
     """One decode step of the continuous engine with 4 active slots (4
     requests at the serve CLI's defaults, 4 tables of the serve-load
@@ -3290,6 +3724,9 @@ def main() -> int:
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
     details["main"]["evolve"] = phase_evolve(
         device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
+    details["main"]["mesh"] = phase_mesh(
+        device, lambda s: print(f"[mesh] {s}"), details["main"]["launches"],
+        details["main"]["heterogeneous_pallas"])
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -330,6 +330,7 @@ def explore(
     all_layers: bool = True,
     cache: Optional[dict] = None,
     batch: bool = False,
+    sharding=None,
     rel_power=None,
     workload: Optional[Workload] = None,
     objectives: Optional[Sequence[str]] = None,
@@ -350,7 +351,9 @@ def explore(
     with a tensor core (a ``Workload`` or ``BankableEval``) and a
     bankable datapath; anything else falls back to the sequential path,
     as in the reference.  A batched sweep writes every result back into
-    ``cache`` under sequential-compatible keys.
+    ``cache`` under sequential-compatible keys.  ``sharding``
+    (``launch.mesh.bank_sharding``) splits the bank's lanes across
+    devices.
 
     Pass a ``workload=`` instead of ``eval_fn`` and optionally
     ``objectives=`` naming the axes to Pareto over; ``layer_counts``
@@ -390,7 +393,7 @@ def explore(
         rows = all_layers_sweep(wl if batch else run, layer_counts,
                                 multipliers, library, mode=mode,
                                 variant=variant, batch=batch,
-                                rel_power=rel_power)
+                                sharding=sharding, rel_power=rel_power)
         if batch:
             _seed_cache(cache, rows, golden)
         result.all_layers = [DesignPoint.from_row(r) for r in rows]
@@ -398,7 +401,7 @@ def explore(
         rows = per_layer_sweep(wl if batch else run, layer_counts,
                                multipliers, library, mode=mode,
                                base=golden, variant=variant, batch=batch,
-                               rel_power=rel_power)
+                               sharding=sharding, rel_power=rel_power)
         if batch:
             _seed_cache(cache, rows, golden)
         result.per_layer = [DesignPoint.from_row(r) for r in rows]
@@ -550,6 +553,8 @@ def verify_assignments(
     mode: str = "lut",
     variant: str = "ref",
     batch: bool = True,
+    sharding=None,
+    assign_sharding=None,
     cache: Optional[dict] = None,
     rel_power=None,
     layers: Optional[tuple] = None,
@@ -568,7 +573,9 @@ def verify_assignments(
 
     ``layers`` pins the bank's layer axis and ``fill`` pads rows that do
     not cover it with a named multiplier (``fill="mul8u_exact"`` equals
-    the golden base).
+    the golden base).  ``assign_sharding`` (``launch.mesh.
+    policy_sharding``) splits the assignment rows across devices
+    (``policy_bank_eval``).
     """
     if not assignments:
         return []
@@ -581,7 +588,8 @@ def verify_assignments(
     batch = batch and can_bank(wl, mode, variant)
     if batch:
         out = policy_bank_eval(wl.traceable_metrics, pbank, mode=mode,
-                               variant=variant)
+                               variant=variant, sharding=sharding,
+                               assign_sharding=assign_sharding)
         lanes = _unstack_metrics(out, wl.metrics, pbank.n_policies)
     else:
         run = wl.cached(cache) if cache is not None else wl
@@ -625,6 +633,8 @@ def explore_heterogeneous(
     extra_assignments: Optional[list[Mapping[str, str]]] = None,
     cache: Optional[dict] = None,
     batch: bool = True,
+    sharding=None,
+    assign_sharding=None,
     rel_power=None,
     predictor: str = "exact",
     train_fraction: float = 0.25,
@@ -664,6 +674,10 @@ def explore_heterogeneous(
     ``result.selected`` is the lowest-power verified point within
     ``quality_bound`` (and ``power_budget`` when given).
 
+    ``sharding`` splits the stage-1 sweep's lanes and
+    ``assign_sharding`` the verified rows across devices
+    (``launch.mesh.bank_sharding`` / ``policy_sharding``).
+
     ``stage_walls``, when given, receives the host-clock seconds of each
     stage that ran: ``per_layer_sweep_s``, ``fit_s`` (surrogate only:
     the fit and the prediction), ``beam_s`` and ``verification_s``;
@@ -701,7 +715,8 @@ def explore_heterogeneous(
                 library, baseline, direction=wl.primary_direction,
                 train_fraction=train_fraction, mode=mode,
                 variant=variant, base=golden, batch=do_batch,
-                rel_power=rel_power, config=surrogate_config,
+                sharding=sharding, rel_power=rel_power,
+                config=surrogate_config,
                 device=device, stage_walls=walls)
             # predict-then-verify: the beam screens on predictions, so
             # its band absorbs the surrogate's held-out error; the exact
@@ -716,7 +731,8 @@ def explore_heterogeneous(
             rows = per_layer_sweep(wl if do_batch else run, layer_counts,
                                    multipliers, library, mode=mode,
                                    base=golden, variant=variant,
-                                   batch=do_batch, rel_power=rel_power)
+                                   batch=do_batch, sharding=sharding,
+                                   rel_power=rel_power)
             walls["per_layer_sweep_s"] = time.perf_counter() - t0
             components = LayerComponents.from_rows(
                 rows, layer_counts, baseline,
@@ -758,7 +774,8 @@ def explore_heterogeneous(
     t0 = time.perf_counter()
     hetero = verify_assignments(
         wl, assignments, layer_counts, library, mode=mode,
-        variant=variant, batch=batch, cache=cache, rel_power=rel_power)
+        variant=variant, batch=batch, sharding=sharding,
+        assign_sharding=assign_sharding, cache=cache, rel_power=rel_power)
     walls["verification_s"] = time.perf_counter() - t0
 
     result = ExploreResult(baseline_accuracy=baseline,

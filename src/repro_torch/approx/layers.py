@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import device_key
 from .backend import BackendLike, as_backend, backend_matmul
 from .registry import get_datapath
 from .specs import (BackendSpec, LutBank, MaterializedBackend, PolicyBank,
@@ -151,7 +152,8 @@ def bank_backend(bank: LutBank, mode: str = "lut",
 def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
               variant: str = "ref",
               base: Optional[BackendLike] = None,
-              layer_pattern: Optional[str] = None) -> dict:
+              layer_pattern: Optional[str] = None,
+              sharding=None) -> dict:
     """Evaluate ``fn(policy)`` for every multiplier in ``bank`` in ONE
     pass of the model, with a lane axis written out (the port of the
     reference's ``jit(vmap(...))`` over the bank).
@@ -173,16 +175,78 @@ def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
     axis (scalars are broadcast to every lane).  Returns that dict with
     each value of shape ``(n_mult, ...)``; lane ``i`` equals the
     sequential evaluation of ``bank.spec(i, mode, variant)``.
+
+    ``sharding`` (``launch.mesh.bank_sharding``) splits the lanes across
+    the devices of its mesh (``sharded_lanes``): each shard runs ``fn``
+    once on its device with a banked backend over its slice of the bank
+    — the slice's tables and, for a wide bank, its lanes' widths, masks
+    and reduce codes (the bank's datapath and static tree stay the whole
+    bank's) — so each banked call launches its kernel once a shard with
+    that shard's lanes.  A count the mesh does not divide runs whole on
+    the first device.
     """
     mb = bank_backend(bank, mode, variant)
-    if layer_pattern is None:
-        policy = ApproxPolicy(default=mb)
-    else:
-        if base is None:
-            base = BackendSpec.golden().materialize()
-        policy = ApproxPolicy(default=as_backend(base),
-                              overrides=[(layer_pattern, mb)])
-    return _lane_outputs(fn, policy, bank.n_mult)
+    if layer_pattern is not None and base is None:
+        base = BackendSpec.golden().materialize()
+
+    def run(f, start: int, stop: int) -> dict:
+        sub = (mb if (start, stop) == (0, bank.n_mult)
+               else _lane_slice(mb, start, stop))
+        if layer_pattern is None:
+            policy = ApproxPolicy(default=sub)
+        else:
+            policy = ApproxPolicy(default=as_backend(base),
+                                  overrides=[(layer_pattern, sub)])
+        return _lane_outputs(f, policy, stop - start)
+
+    if sharding is None:
+        return run(fn, 0, bank.n_mult)
+    return sharded_lanes(fn, bank.n_mult, sharding.shards(bank.n_mult),
+                         run)
+
+
+def _lane_slice(mb: MaterializedBackend, start: int,
+                stop: int) -> MaterializedBackend:
+    """Lanes ``start:stop`` of a banked backend: its per-lane constants
+    (``_LANE_CONSTS``) sliced on the host, so only the slice moves to a
+    device; everything else (datapath, static tree, block size) is the
+    whole bank's."""
+    return MaterializedBackend(
+        spec=mb.spec, datapath=mb.datapath,
+        consts={k: (v[start:stop] if k in _LANE_CONSTS else v)
+                for k, v in mb.consts.items()})
+
+
+def sharded_lanes(fn, n: int, shards, run) -> dict:
+    """A lane-split evaluation: ``run(form, start, stop)`` for each
+    ``(device, start, stop)`` of ``shards`` (a ``NamedSharding.
+    shards(n)``), one process driving every device.  ``form`` is
+    ``fn.on_device(device)`` where ``fn`` has a per-device form (a
+    ``Workload`` adapter's tensor core, ``workload.DeviceForms``), else
+    ``fn`` itself.
+    Every shard's launches are queued on its device's current stream
+    before any result is read, so distinct cards overlap; then the
+    outputs are concatenated on the first shard's device in lane order.
+    Raises when a shard's outputs are not on its device (``fn`` read
+    tensors of another device and has no per-device form)."""
+    per_device = getattr(fn, "on_device", None)
+    outs = []
+    for dev, start, stop in shards:
+        out = run(fn if per_device is None else per_device(dev), start,
+                  stop)
+        for k, v in out.items():
+            if device_key(v.device) != device_key(dev):
+                raise RuntimeError(
+                    f"shard {start}:{stop} on {dev}: output {k!r} is on "
+                    f"{v.device}; fn reads tensors of another device — "
+                    "give it a per-device form (on_device), as the "
+                    "Workload adapters have")
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    first = shards[0][0]
+    return {k: torch.cat([o[k].to(first) for o in outs])
+            for k in outs[0]}
 
 
 def _lane_outputs(fn, policy: ApproxPolicy, n: int) -> dict:
@@ -267,7 +331,8 @@ def policy_for_lane(pbank: PolicyBank, p: int, *, mode: str = "lut",
 
 def policy_bank_eval(fn, pbank: PolicyBank, *, mode: str = "lut",
                      variant: str = "ref",
-                     base: Optional[BackendLike] = None) -> dict:
+                     base: Optional[BackendLike] = None,
+                     sharding=None, assign_sharding=None) -> dict:
     """Evaluate ``fn(policy)`` for every heterogeneous assignment row of
     ``pbank`` in ONE pass of the model — the per-layer generalization of
     ``bank_eval``.  Lane ``p`` runs multiplier
@@ -280,15 +345,36 @@ def policy_bank_eval(fn, pbank: PolicyBank, *, mode: str = "lut",
     ``fn`` and the result follow ``bank_eval``: a dict of tensors, each
     returned with a leading ``n_policies`` axis, lane ``p`` equal bit for
     bit to the sequential evaluation of ``policy_for_lane(pbank, p)``.
+
+    ``assign_sharding`` (``launch.mesh.policy_sharding``) splits the
+    assignment rows across its mesh's devices (``sharded_lanes``): each
+    shard runs ``fn`` on its device over its rows, every layer one banked
+    call with that shard's lanes.  Any lane may gather any table, so
+    every shard holds the whole bank: ``sharding`` (the bank's, the
+    reference's placement of its tables) names the mesh, and without
+    ``assign_sharding`` the rows run whole on its first device.
     """
     if base is None:
         base = BackendSpec.golden().materialize()
-    policy = ApproxPolicy(
-        default=as_backend(base),
-        overrides=bank_assignment_overrides(
-            pbank.bank, pbank.assign, pbank.layers, mode=mode,
-            variant=variant))
-    return _lane_outputs(fn, policy, pbank.n_policies)
+    base = as_backend(base)
+    src = bank_backend(pbank.bank, mode, variant)
+
+    def run(f, start: int, stop: int) -> dict:
+        policy = ApproxPolicy(
+            default=base,
+            overrides=bank_assignment_overrides(
+                pbank.bank, pbank.assign[start:stop], pbank.layers,
+                mode=mode, variant=variant, source=src))
+        return _lane_outputs(f, policy, stop - start)
+
+    n = pbank.n_policies
+    if assign_sharding is not None:
+        shards = assign_sharding.shards(n)
+    elif sharding is not None:
+        shards = [(sharding.shards(n)[0][0], 0, n)]
+    else:
+        return run(fn, 0, n)
+    return sharded_lanes(fn, n, shards, run)
 
 
 def per_lane(fn, x: torch.Tensor, lanes: bool) -> torch.Tensor:

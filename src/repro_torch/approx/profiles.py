@@ -28,9 +28,9 @@ Pipeline (all exact measurements — no surrogate here):
      under ``MaxDrop(max_drop)`` on the primary metric.
 
 ``profile_zoo`` serializes a zoo of profiles;
-``repro_torch.launch.arch_profiles`` runs one on the card.  The
-reference's ``sharding=``/``assign_sharding=`` are left to ROADMAP.md
-Queue 1, "Launch tooling and multi-device".
+``repro_torch.launch.arch_profiles`` runs one on the card.
+``sharding=``/``assign_sharding=`` (``launch.mesh.module_sharding``)
+split the banked rows across devices.
 """
 from __future__ import annotations
 
@@ -130,6 +130,8 @@ def profile_architecture(
     mode: str = "lut",
     variant: str = "ref",
     batch: bool = True,
+    sharding=None,
+    assign_sharding=None,
     beam_width: int = 8,
     top_k: int = 8,
     fill: str = FILL_EXACT,
@@ -161,6 +163,7 @@ def profile_architecture(
     points = verify_assignments(
         wl, [mmap.lower(a) for _f, _m, a in grid], mmap.layer_counts,
         library, mode=mode, variant=variant, batch=batch,
+        sharding=sharding, assign_sharding=assign_sharding,
         layers=mmap.layers, fill=fill)
     rows = [
         ModuleRow(
@@ -208,6 +211,7 @@ def profile_architecture(
     verified = verify_assignments(
         wl, mmap.lower_many(module_assignments), mmap.layer_counts,
         library, mode=mode, variant=variant, batch=batch,
+        sharding=sharding, assign_sharding=assign_sharding,
         layers=mmap.layers, fill=fill)
     walls["verify_s"] = time.perf_counter() - t0
     result = ExploreResult(

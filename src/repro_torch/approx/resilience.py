@@ -219,11 +219,13 @@ def per_layer_sweep(
     base: Optional[BackendLike] = None,
     variant: str = "ref",
     batch: bool = False,
+    sharding=None,
     rel_power=None,
 ) -> list[ResilienceRow]:
     """Fig. 4: one layer approximated at a time.  Sequential: one
     ``eval_fn`` call per (layer, multiplier).  Batched (``batch=True``):
-    one banked pass per layer evaluates every candidate."""
+    one banked pass per layer evaluates every candidate; ``sharding``
+    (``launch.mesh.bank_sharding``) splits its lanes across devices."""
     wl = as_workload(eval_fn)
     base = base if base is not None else BackendSpec.golden().materialize()
     if rel_power is None:
@@ -239,7 +241,7 @@ def per_layer_sweep(
             lanes = _unstack_metrics(
                 bank_eval(wl.traceable_metrics, bank, mode=mode,
                           variant=variant, base=base,
-                          layer_pattern=layer),
+                          layer_pattern=layer, sharding=sharding),
                 wl.metrics, len(multiplier_names))
             for mname, metrics in zip(multiplier_names, lanes):
                 rows.append(_row(library, mname, layer, metrics,
@@ -264,12 +266,14 @@ def all_layers_sweep(
     mode: str = "lut",
     variant: str = "ref",
     batch: bool = False,
+    sharding=None,
     rel_power=None,
 ) -> list[ResilienceRow]:
     """Table II: the same multiplier in every layer.  Sequential: one
     ``eval_fn`` call per multiplier.  Batched (``batch=True``): ONE
     banked pass evaluates the whole ``LutBank``, with accuracies equal
-    to the sequential path's."""
+    to the sequential path's; ``sharding`` splits its lanes across
+    devices."""
     wl = as_workload(eval_fn)
     if rel_power is None:
         rel_power = auto_rel_power(library, multiplier_names)
@@ -281,7 +285,7 @@ def all_layers_sweep(
         bank = bank_for(multiplier_names, library)
         lanes = _unstack_metrics(
             bank_eval(wl.traceable_metrics, bank, mode=mode,
-                      variant=variant),
+                      variant=variant, sharding=sharding),
             wl.metrics, len(multiplier_names))
         return [_row(library, mname, "all", metrics, wl.primary,
                      layer_counts, backends[mname].spec, rel_power,

@@ -549,6 +549,7 @@ def surrogate_components(
     variant: str = "ref",
     base=None,
     batch: bool = False,
+    sharding=None,
     rel_power=None,
     config: Optional[SurrogateConfig] = None,
     device: DeviceLike = None,
@@ -565,7 +566,9 @@ def surrogate_components(
     ``(components, predictor, measured_rows)``.  ``stage_walls``, when
     given, receives the host-clock seconds of the sweep
     (``per_layer_sweep_s``) and of the fit and prediction (``fit_s``);
-    both end in values on the host."""
+    both end in values on the host.  ``sharding``
+    (``launch.mesh.bank_sharding``) splits the sweep's lanes across
+    devices."""
     multipliers = list(multipliers)
     rp_map = (rel_power if rel_power is not None
               else auto_rel_power(library, multipliers))
@@ -574,7 +577,8 @@ def surrogate_components(
     t0 = time.perf_counter()
     rows = per_layer_sweep(eval_fn, layer_counts, names_tr, library,
                            mode=mode, base=base, variant=variant,
-                           batch=batch, rel_power=rp_map)
+                           batch=batch, sharding=sharding,
+                           rel_power=rp_map)
     t1 = time.perf_counter()
     predictor = fit_surrogate(rows, library, baseline,
                               direction=direction, config=config,

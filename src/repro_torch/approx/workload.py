@@ -21,6 +21,14 @@ reference datapath, the wide-width study's fidelity axis; and
 with its audio frames); ``lm_perplexity(cfg)`` — the LM loss and its
 perplexity through ``forward_train``.  ``layer_mult_counts`` is the one
 MAC accounting for ResNets and those LM families.
+
+A lane-split evaluation (``bank_eval(sharding=...)``) runs the tensor
+core on every device of its mesh, and a shard must never read a tensor
+of another device.  The adapters' tensor cores are therefore
+``DeviceForms``: ``traceable_metrics.on_device(d)`` is the same closure
+over copies of the model, the eval data and the reference logits on
+``d``, made once a device and kept (the choice of a per-device form over
+moving inputs in the banked call: the closures own their tensors).
 """
 from __future__ import annotations
 
@@ -30,12 +38,36 @@ from typing import Any, Callable, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, device_key, replicate, resolve_device
 from .layers import (EXACT_POLICY, ApproxPolicy, conv_mult_count,
                      dense_mult_count, per_lane)
 from .objectives import ensure_objective
 
 MetricFn = Callable[[ApproxPolicy], Mapping[str, Any]]
+
+
+class DeviceForms:
+    """A tensor closure with one form a device.  ``make(state, device)``
+    builds the closure over ``state`` (tensors, modules, trees of them)
+    living on ``device``; calling this object calls the form on its home
+    ``device``, and ``on_device(d)`` returns the form over a copy of
+    ``state`` on ``d`` (``device.replicate``), made once and kept."""
+
+    def __init__(self, make, state, device: DeviceLike):
+        self.device = device_key(device)
+        self._make, self._state = make, state
+        self._forms = {self.device: make(state, self.device)}
+
+    def __call__(self, policy):
+        return self._forms[self.device](policy)
+
+    def on_device(self, device: DeviceLike):
+        dev = device_key(device)
+        form = self._forms.get(dev)
+        if form is None:
+            form = self._forms[dev] = self._make(
+                replicate(self._state, dev), dev)
+        return form
 
 
 @dataclass
@@ -166,20 +198,27 @@ def classification(cfg, model, *, eval_n: int = 256, batch: int = 64,
             ref = [resnet.forward(model, images[i], cfg, golden)
                    for i in range(images.shape[0])]
 
-    def traceable_metrics(policy):
-        logits = [resnet.forward(model, images[i], cfg, policy)
-                  for i in range(images.shape[0])]
-        accs = [torch.mean((torch.argmax(l, dim=-1) == labels[i])
-                           .to(torch.float32), dim=-1)
-                for i, l in enumerate(logits)]
-        out = {"accuracy": torch.mean(torch.stack(accs), dim=0)}
-        if ref is not None:
-            lanes = logits[0].ndim == ref[0].ndim + 1
-            maes = [per_lane(lambda t, r=r: torch.mean(torch.abs(t - r)),
-                             l, lanes) for l, r in zip(logits, ref)]
-            out["logit_mae"] = per_lane(torch.mean, torch.stack(maes, -1),
-                                        lanes)
-        return out
+    def make(state, _dev):
+        model, images, labels, ref = state
+
+        def traceable_metrics(policy):
+            logits = [resnet.forward(model, images[i], cfg, policy)
+                      for i in range(images.shape[0])]
+            accs = [torch.mean((torch.argmax(l, dim=-1) == labels[i])
+                               .to(torch.float32), dim=-1)
+                    for i, l in enumerate(logits)]
+            out = {"accuracy": torch.mean(torch.stack(accs), dim=0)}
+            if ref is not None:
+                lanes = logits[0].ndim == ref[0].ndim + 1
+                maes = [per_lane(lambda t, r=r: torch.mean(
+                    torch.abs(t - r)), l, lanes)
+                    for l, r in zip(logits, ref)]
+                out["logit_mae"] = per_lane(
+                    torch.mean, torch.stack(maes, -1), lanes)
+            return out
+        return traceable_metrics
+
+    traceable_metrics = DeviceForms(make, (model, images, labels, ref), dev)
 
     def fn(policy):
         with torch.inference_mode():
@@ -199,8 +238,8 @@ def classification(cfg, model, *, eval_n: int = 256, batch: int = 64,
 def logit_fidelity(forward, inputs, *,
                    ref_policy: ApproxPolicy = EXACT_POLICY,
                    name: str = "logit_fidelity",
-                   layer_counts: Optional[dict[str, int]] = None
-                   ) -> Workload:
+                   layer_counts: Optional[dict[str, int]] = None,
+                   forward_on: Optional[Callable] = None) -> Workload:
     """Logit fidelity vs a reference datapath (default: exact f32).
 
     ``forward(policy, x) -> logits`` is the model closure; ``inputs``
@@ -215,26 +254,39 @@ def logit_fidelity(forward, inputs, *,
     The reference logits are computed once, at construction.  Under a
     banked policy the logits carry a lane axis; every mean then runs
     lane by lane (``per_lane``), so a banked lane equals its sequential
-    evaluation bit for bit."""
+    evaluation bit for bit.
+
+    ``forward_on(d)``, when given, is ``forward``'s form on device ``d``
+    (made once a device): the tensor core then has a per-device form
+    (``DeviceForms``, home: the reference logits' device)."""
     inputs = list(inputs)
     with torch.inference_mode():
         ref = [forward(ref_policy, x) for x in inputs]
 
-    def traceable_metrics(policy):
-        maes, agree = [], []
-        for x, r in zip(inputs, ref):
-            logits = forward(policy, x)
-            lanes = logits.ndim == r.ndim + 1
-            maes.append(per_lane(lambda t: torch.mean(torch.abs(t - r)),
-                                 logits, lanes))
-            agree.append(per_lane(lambda t: torch.mean(
-                (torch.argmax(t, -1) == torch.argmax(r, -1))
-                .to(torch.float32)), logits, lanes))
-        lanes = maes[0].ndim == 1
-        return {"logit_mae": per_lane(torch.mean,
-                                      torch.stack(maes, -1), lanes),
-                "top1_agreement": per_lane(torch.mean,
-                                           torch.stack(agree, -1), lanes)}
+    def make(state, dev):
+        inputs, ref = state
+        fwd = (forward if forward_on is None or dev == home
+               else forward_on(dev))
+
+        def traceable_metrics(policy):
+            maes, agree = [], []
+            for x, r in zip(inputs, ref):
+                logits = fwd(policy, x)
+                lanes = logits.ndim == r.ndim + 1
+                maes.append(per_lane(lambda t: torch.mean(
+                    torch.abs(t - r)), logits, lanes))
+                agree.append(per_lane(lambda t: torch.mean(
+                    (torch.argmax(t, -1) == torch.argmax(r, -1))
+                    .to(torch.float32)), logits, lanes))
+            lanes = maes[0].ndim == 1
+            return {"logit_mae": per_lane(torch.mean,
+                                          torch.stack(maes, -1), lanes),
+                    "top1_agreement": per_lane(
+                        torch.mean, torch.stack(agree, -1), lanes)}
+        return traceable_metrics
+
+    home = device_key(ref[0].device)
+    traceable_metrics = DeviceForms(make, (inputs, ref), home)
 
     def fn(policy):
         with torch.inference_mode():
@@ -491,14 +543,17 @@ def lm_fidelity(cfg: Union[str, Any], params=None, *, batch: int = 2,
     batches = _lm_token_batches(cfg, batch, seq_len, n_batches, seed, dev)
     max_len = seq_len + prompt_extra_len(cfg, batches[0])
 
-    def forward(policy, b):
-        cache = fns.init_cache(cfg, batch, max_len, dev)
-        logits, _ = fns.forward_prefill(params, b, cache, cfg, policy)
-        return logits
+    def forward_on(d, params=params):
+        def forward(policy, b):
+            cache = fns.init_cache(cfg, batch, max_len, d)
+            logits, _ = fns.forward_prefill(params, b, cache, cfg, policy)
+            return logits
+        return forward
 
     return logit_fidelity(
-        forward, batches, name=f"lm_fidelity[{cfg.name}]",
-        layer_counts=layer_mult_counts(cfg, batch, seq_len))
+        forward_on(dev), batches, name=f"lm_fidelity[{cfg.name}]",
+        layer_counts=layer_mult_counts(cfg, batch, seq_len),
+        forward_on=lambda d: forward_on(d, replicate(params, d)))
 
 
 def lm_perplexity(cfg: Union[str, Any], params=None, *, batch: int = 2,
@@ -515,11 +570,17 @@ def lm_perplexity(cfg: Union[str, Any], params=None, *, batch: int = 2,
     cfg, params, fns, dev = _lm_setup(cfg, params, seed, device)
     batches = _lm_token_batches(cfg, batch, seq_len, n_batches, seed, dev)
 
-    def traceable_metrics(policy):
-        losses = torch.stack([fns.forward_train(params, b, cfg, policy)
-                              for b in batches], -1)
-        loss = per_lane(torch.mean, losses, losses.ndim == 2)
-        return {"perplexity": torch.exp(loss), "loss": loss}
+    def make(state, _dev):
+        params, batches = state
+
+        def traceable_metrics(policy):
+            losses = torch.stack([fns.forward_train(params, b, cfg, policy)
+                                  for b in batches], -1)
+            loss = per_lane(torch.mean, losses, losses.ndim == 2)
+            return {"perplexity": torch.exp(loss), "loss": loss}
+        return traceable_metrics
+
+    traceable_metrics = DeviceForms(make, (params, batches), dev)
 
     def fn(policy):
         with torch.inference_mode():

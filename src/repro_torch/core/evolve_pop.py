@@ -14,9 +14,10 @@ the two engines walk identical search trajectories at a fixed seed).
 
 ``evolve_ladder`` fuses a whole ladder of e_max-targeted searches into
 one generation-synchronous sweep: every rung contributes λ offspring to
-a single fused population per generation.  (The reference's multi-device
-``sharding`` of the population axis is not ported; it waits for the
-port's ``launch/mesh.py``.)
+a single fused population per generation, and the population axis can
+be split across devices via ``launch.mesh.pop_sharding`` (one K11
+launch and one reduction a shard, netlist slices split, input planes
+copied to every device, the sums gathered to the host).
 
 Search/verify split: everything here scores candidates on the sampled
 search planes; each search's final circuit is re-verified exhaustively
@@ -33,7 +34,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, device_key, resolve_device
 from ..kernels import ops
 from .cgp import (CgpParams, EvolvedCircuit, _Score, _score, mutate,
                   search_planes, unpack_values)
@@ -47,11 +48,15 @@ from .netlist import Netlist, exhaustive_inputs, stack_netlists, \
 # arithmetic (int64 sums finished in float64 on the host); the rest
 # simulate on the device and reduce on the host from the transferred
 # values.  (The reference reduces on the device only up to 24 output
-# bits, the bound of its int32 chunked sums, and pads populations to a
-# multiple of 8 for its jit cache; int64 sums are exact up to the
-# 32-output cap and a CUDA launch has no shape cache, so the port needs
-# neither.)
+# bits, the bound of its int32 chunked sums; int64 sums are exact up to
+# the 32-output cap, so the port needs no such bound.)
 DEVICE_METRICS = ("er", "mae", "wce")
+
+# a split population is padded up to a multiple of lcm(POP_PAD, mesh
+# size), as the reference pads its populations (for its jit cache; a
+# CUDA launch has no shape cache, so an unsplit population is not
+# padded)
+POP_PAD = 8
 
 # values travel as 32-bit words, so the device engine caps at 32 outputs
 _DEVICE_MAX_N_O = 32
@@ -96,6 +101,12 @@ class PopEvaluator:
                       metrics reduce on the host from device-computed
                       values.
 
+    ``sharding`` (a ``launch.mesh.pop_sharding``) splits the population
+    axis across its mesh's devices: the population is padded to a
+    multiple of lcm(``POP_PAD``, axis size) and each shard takes one K11
+    launch and its own reduction on its device (``device`` defaults to
+    the mesh's first); scores equal the unsplit run's.
+
     Instrumented: ``n_scored`` candidates / ``n_calls`` evaluation
     calls; of the device engine's calls, ``host_s`` (stacking the
     netlists, checking them and copying them to the device) and
@@ -105,7 +116,8 @@ class PopEvaluator:
     """
 
     def __init__(self, exact: Netlist, params: CgpParams,
-                 engine: str = "numpy", device: DeviceLike = None):
+                 engine: str = "numpy", device: DeviceLike = None,
+                 sharding=None):
         if engine not in ("numpy", "device"):
             raise ValueError(f"unknown engine {engine!r} "
                              "(expected 'numpy' or 'device')")
@@ -120,6 +132,7 @@ class PopEvaluator:
             self.n_i, params.search_samples, rng)
         exact_planes = exact.eval_words(self.planes64)
         self.exact_vals = unpack_values(exact_planes, self.n_o, self.num)
+        self.sharding = sharding
         self.n_scored = 0
         self.n_calls = 0
         self.host_s = 0.0
@@ -131,6 +144,8 @@ class PopEvaluator:
                     f"device engine caps at {_DEVICE_MAX_N_O} output "
                     f"bits (got {self.n_o}); use engine='numpy' for "
                     "wider circuits")
+            if device is None and sharding is not None:
+                device = sharding.mesh.devices[0]
             self.device = resolve_device(device)
             self.planes32 = ops.words_to_device(
                 ops.split_planes64(self.planes64), self.device)
@@ -139,6 +154,10 @@ class PopEvaluator:
             buf[:self.num] = unpack_outputs(exact_planes, self.n_o,
                                             self.num).astype(np.int64)
             self.exact_u32 = torch.from_numpy(buf).to(self.device)
+            # the search planes and exact values on each device a shard
+            # runs on, copied once
+            self._on_device = {device_key(self.device):
+                               (self.planes32, self.exact_u32)}
 
     # -- scoring --------------------------------------------------------
     def errors_of(self, pop: Sequence[Netlist]) -> np.ndarray:
@@ -158,17 +177,52 @@ class PopEvaluator:
             return out
         return self._device_errors(pop)
 
+    def _padded(self, pop: list) -> list:
+        """``pop`` padded with copies of its first candidate to a
+        multiple of lcm(``POP_PAD``, axis size) when ``sharding`` splits
+        the population axis."""
+        spec = self.sharding.spec if self.sharding is not None else ()
+        if not len(spec) or spec[0] is None:
+            return pop
+        from ..launch.mesh import axis_size
+        pad_to = int(np.lcm(POP_PAD, axis_size(self.sharding.mesh,
+                                               spec[0])))
+        pp = -(-len(pop) // pad_to) * pad_to
+        return pop + [pop[0]] * (pp - len(pop))
+
+    def _state(self, dev: torch.device) -> tuple:
+        """(planes32, exact_u32) on ``dev``, copied there once."""
+        key = device_key(dev)
+        st = self._on_device.get(key)
+        if st is None:
+            st = self._on_device[key] = (self.planes32.to(key),
+                                         self.exact_u32.to(key))
+        return st
+
     def _device_errors(self, pop: list) -> np.ndarray:
         t0 = time.perf_counter()
         p = len(pop)
-        tens = ops.netlist_tensors(stack_netlists(pop), self.n_i,
-                                   self.device)
+        pop_p = self._padded(pop)
+        arrays = stack_netlists(pop_p)
+        shards = (self.sharding.shards(len(pop_p))
+                  if self.sharding is not None
+                  else [(self.device, 0, p)])
+        tens = [(dev, ops.netlist_tensors(
+            tuple(a[start:stop] for a in arrays), self.n_i, dev))
+            for dev, start, stop in shards]
         t1 = time.perf_counter()
-        vals = _pop_values(ops.bitsim_pop_planes(*tens, self.planes32),
-                           self.n_o)
-        if self.metric in DEVICE_METRICS:
-            ne, wce, sums = _reduce(vals, self.exact_u32,
-                                    self.num).cpu().numpy()
+        device_metric = self.metric in DEVICE_METRICS
+        parts = []
+        for dev, t in tens:
+            # every shard queues its launch and reduction before any
+            # result is read, so distinct cards overlap
+            planes, exact_u32 = self._state(dev)
+            vals = _pop_values(ops.bitsim_pop_planes(*t, planes), self.n_o)
+            parts.append(_reduce(vals, exact_u32, self.num)
+                         if device_metric else vals[:, :self.num])
+        host = [t.cpu().numpy() for t in parts]
+        if device_metric:
+            ne, wce, sums = np.concatenate(host, axis=1)[:, :p]
             if self.metric == "er":
                 res = ne.astype(np.float64) / self.num
             elif self.metric == "wce":
@@ -177,8 +231,8 @@ class PopEvaluator:
                 res = sums.astype(np.float64) / self.num
         else:
             # host-reduced fallback (mse/mre/wcre): the simulation still
-            # runs as one launch
-            vals = vals[:, :self.num].cpu().numpy()
+            # runs as one launch a shard
+            vals = np.concatenate(host)[:p]
             res = np.empty(p, dtype=np.float64)
             for k in range(p):
                 res[k] = error_report_from_values(
@@ -240,17 +294,21 @@ def evolve_pop(
     on_candidate: Optional[Callable[[Netlist, float, float], None]] = None,
     evaluator: Optional[PopEvaluator] = None,
     device: DeviceLike = None,
+    sharding=None,
 ) -> EvolvedCircuit:
     """Generational (1+λ) run: all λ offspring mutate from the SAME
     parent and score in one ``PopEvaluator`` call (one K11 launch when
     engine='device').  NOTE the deliberate semantic difference from
     ``cgp.evolve``, whose offspring chain within a generation — the
     generational step is what makes population scoring possible.  Fixed
-    seed ⇒ identical result from both engines.
+    seed ⇒ identical result from both engines.  ``sharding``
+    (``launch.mesh.pop_sharding``) splits each population across
+    devices.
     """
     rng = np.random.default_rng(params.seed)
     ev = evaluator if evaluator is not None else \
-        PopEvaluator(exact, params, engine=engine, device=device)
+        PopEvaluator(exact, params, engine=engine, device=device,
+                     sharding=sharding)
     parent = seed_netlist
     p_err = float(ev.errors_of([parent])[0])
     p_score = _score(p_err, evaluate_cost(parent).area,
@@ -298,13 +356,16 @@ def evolve_ladder(
         Callable[[int, Netlist, float, float], None]] = None,
     evaluator: Optional[PopEvaluator] = None,
     device: DeviceLike = None,
+    sharding=None,
 ) -> list:
     """The whole e_max ladder as ONE generation-synchronous sweep.
 
     Every rung runs an independent generational (1+λ) search from the
     shared seed; per generation all rungs' offspring fuse into a single
     (len(ladder) * λ) population scored in one evaluator call (one K11
-    launch on the device engine).  Rung i is trajectory-identical to
+    launch on the device engine, one a shard when ``sharding``, a
+    ``launch.mesh.pop_sharding``, splits it).  Rung i is
+    trajectory-identical to
     ``evolve_pop(seed, exact, replace(params, e_max=ladder[i],
     seed=params.seed + i), evaluator=<shared>)``.
 
@@ -314,7 +375,8 @@ def evolve_ladder(
     """
     ladder = sorted(float(e) for e in e_max_ladder)
     ev = evaluator if evaluator is not None else \
-        PopEvaluator(exact, params, engine=engine, device=device)
+        PopEvaluator(exact, params, engine=engine, device=device,
+                     sharding=sharding)
     seed_err = float(ev.errors_of([seed_netlist])[0])
     seed_area = evaluate_cost(seed_netlist).area
     runs = []

@@ -428,11 +428,14 @@ def _evolve_family_pop(
     lib: ApproxLibrary, kind: str, width: int, exact: Netlist,
     e_max_ladder: list[float], metric: str, generations: int, seed: int,
     engine: str, device=None, stats: Optional[dict] = None,
+    sharding=None,
 ) -> int:
     """Population-parallel ladder (DESIGN.md §2.9): every rung of the
     e_max ladder runs from the shared seed as one generation-synchronous
     sweep — one fused evaluation per generation scores all
-    len(ladder) * λ offspring (one K11 launch on the device engine).
+    len(ladder) * λ offspring (one K11 launch on the device engine, one
+    a device when ``sharding``, a ``launch.mesh.pop_sharding``, splits
+    the population).
     Admits every improved feasible parent of every rung plus each rung's
     final circuit; unlike the legacy chained ladder it does NOT thin
     intermediate parents, which is where the extra archive entries at
@@ -448,7 +451,8 @@ def _evolve_family_pop(
     t0 = time.perf_counter()
     params = CgpParams(metric=metric, generations=generations, seed=seed)
     padded = pad_nodes(exact, exact.n_nodes, seed=seed + 100)
-    ev = PopEvaluator(exact, params, engine=engine, device=device)
+    ev = PopEvaluator(exact, params, engine=engine, device=device,
+                      sharding=sharding)
     results = evolve_ladder(padded, exact, e_max_ladder, params,
                             on_candidate=keep, evaluator=ev)
     t1 = time.perf_counter()
@@ -477,7 +481,8 @@ def build_default_library(budget: str = "small",
                           progress: bool = False,
                           engine: str = "legacy",
                           device=None,
-                          stats: Optional[dict] = None) -> ApproxLibrary:
+                          stats: Optional[dict] = None,
+                          sharding=None) -> ApproxLibrary:
     """Budgets: 'tiny' (tests, seconds), 'small' (default artifact,
     ~minutes), 'full' (hours — the paper's scale knob).
 
@@ -490,7 +495,8 @@ def build_default_library(budget: str = "small",
     without thinning, and additionally register composed 12/16-bit rows
     over the evolved 8-bit Pareto tiles (DESIGN.md §2.9).  ``stats``,
     when given, receives each evolved family's timings
-    (``_evolve_family_pop``)."""
+    (``_evolve_family_pop``).  ``sharding`` (a ``launch.mesh.
+    pop_sharding``) splits the fused population across devices."""
     cfg = {
         "tiny": dict(gens=40, ladder=3, mult_widths=(8,), add_widths=(8,),
                      wide_samples=4096, comp_tiles=1, comp_widths=(12,)),
@@ -545,7 +551,8 @@ def build_default_library(budget: str = "small",
                 n = _evolve_family_pop(lib, "multiplier", w, exact,
                                        ladder, "mae", cfg["gens"],
                                        seed=1234, engine=engine,
-                                       device=device, stats=stats)
+                                       device=device, stats=stats,
+                                       sharding=sharding)
             log(f"mul{w}: evolved {n}")
 
     # composed wide rows over the freshly evolved 8-bit Pareto tiles
@@ -582,7 +589,7 @@ def build_default_library(budget: str = "small",
                 n = _evolve_family_pop(lib, "adder", w, exact, ladder,
                                        "mae", cfg["gens"], seed=4321,
                                        engine=engine, device=device,
-                                       stats=stats)
+                                       stats=stats, sharding=sharding)
             log(f"add{w}: evolved {n}")
 
     return lib

@@ -7,7 +7,8 @@ its own.
 """
 from __future__ import annotations
 
-from typing import Union
+import copy
+from typing import Any, Union
 
 import torch
 
@@ -35,3 +36,26 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def device_key(device: DeviceLike) -> torch.device:
+    """``device`` with its index: ``"cuda"`` names the current CUDA
+    device, so two names of one card compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def replicate(tree: Any, device: DeviceLike) -> Any:
+    """A copy of ``tree`` on ``device``: tensors and ``nn.Module``s,
+    also inside dicts, lists and tuples; anything else as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, torch.nn.Module):
+        return copy.deepcopy(tree).to(device)
+    if isinstance(tree, dict):
+        return {k: replicate(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replicate(v, device) for v in tree)
+    return tree

@@ -47,6 +47,25 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def enter_device(index: int) -> int:
+    """Make CUDA device ``index`` current for a launch: a kernel launches
+    on the current device, whatever device its stream belongs to.
+    Returns the device to give back to ``leave_device``, or -1 when
+    ``index`` was current already (raw calls, about as cheap as reading
+    the raw stream)."""
+    prev = torch._C._cuda_getDevice()
+    if prev == index:
+        return -1
+    torch._C._cuda_setDevice(index)
+    return prev
+
+
+def leave_device(prev: int) -> None:
+    """Undo ``enter_device``."""
+    if prev >= 0:
+        torch._C._cuda_setDevice(prev)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("lut_matmul").lut_matmul_launch
@@ -59,18 +78,24 @@ def _launcher():
 
 def lut_matmul(qa: torch.Tensor, qw: torch.Tensor,
                lut16: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on the current stream.  qa (M,K) int32, qw (K,N) int32,
-    lut16 (256,256) uint16, all contiguous on one CUDA device (checked by
+    """Launch K1 on the current stream of the operands' device (made
+    current for the launch).  qa (M,K) int32, qw (K,N) int32, lut16
+    (256,256) uint16, all contiguous on one CUDA device (checked by
     ``ops.approx_matmul_lut``) -> (M,N) int32."""
     m, k = qa.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=qa.device)
     if m == 0 or n == 0:
         return out
-    err = _launcher()(
-        _ptr(qa), _ptr(qw), _ptr(lut16), _ptr(out), m, k, n,
-        sm_count(qa.device.index or 0),
-        ctypes.c_void_p(torch.cuda.current_stream(qa.device).cuda_stream))
+    dev = qa.get_device()
+    prev = enter_device(dev)
+    try:
+        err = _launcher()(
+            _ptr(qa), _ptr(qw), _ptr(lut16), _ptr(out), m, k, n,
+            sm_count(dev),
+            ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev)))
+    finally:
+        leave_device(prev)
     build.check("lut_matmul", err)
     lut_matmul.launches += 1
     return out

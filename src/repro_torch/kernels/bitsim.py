@@ -35,7 +35,7 @@ import torch
 
 from ..core.gates import GATE_ARITY
 from . import build
-from .approx_matmul import _ptr, sm_count
+from .approx_matmul import _ptr, enter_device, leave_device, sm_count
 from .fused_matmul import _stream
 
 #: Shared memory a block uses for its signal scratch before the wrapper
@@ -195,9 +195,14 @@ def _launch(name: str, fn, funcs, in0, in1, outs, planes) -> torch.Tensor:
                       device=planes.device)
     if p == 0 or outs.shape[-1] == 0 or w == 0:
         return out
-    err = _launcher(name)(
-        funcs.data_ptr(), in0.data_ptr(), in1.data_ptr(), outs.data_ptr(),
-        planes.data_ptr(), out.data_ptr(), *dims, _stream(planes))
+    prev = enter_device(planes.get_device())
+    try:
+        err = _launcher(name)(
+            funcs.data_ptr(), in0.data_ptr(), in1.data_ptr(),
+            outs.data_ptr(), planes.data_ptr(), out.data_ptr(), *dims,
+            _stream(planes))
+    finally:
+        leave_device(prev)
     build.check(name, err)
     fn.launches += 1
     return out
@@ -245,4 +250,5 @@ def probe_round_ms(device, rounds: int = 100_000,
         torch.cuda.synchronize()
         return start.elapsed_time(end)
 
-    return (run(rounds) - run(0)) / rounds
+    with torch.cuda.device(out.device):
+        return (run(rounds) - run(0)) / rounds

@@ -32,7 +32,7 @@ import functools
 import torch
 
 from . import build
-from .approx_matmul import _ptr, sm_count
+from .approx_matmul import _ptr, enter_device, leave_device, sm_count
 from .fused_matmul import _mask_bits, _stream
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -64,8 +64,13 @@ def _launch(name: str, fn, qa, qw, luts16, masks, rcodes) -> tuple:
              k * n if qw.ndim == 3 else 0) if banked
             else (_ptr(qa), _ptr(qw)))
     dims = (n_lanes, m, k, n) if banked else (m, k, n)
-    err = _launcher(name)(*lead, *(_ptr(t) for t in ins), *dims,
-                          sm_count(qa.device.index or 0), _stream(qa))
+    dev = qa.get_device()
+    prev = enter_device(dev)
+    try:
+        err = _launcher(name)(*lead, *(_ptr(t) for t in ins), *dims,
+                              sm_count(dev), _stream(qa))
+    finally:
+        leave_device(prev)
     build.check(name, err)
     fn.launches += 1
     return lo, hi

@@ -81,10 +81,12 @@
 #include <cuda_runtime.h>
 
 // Internal linkage: each kernel library carries its own copy, and the
-// once-only flag in launch is never merged with another library's.
+// per-device opt-in flags in launch are never merged with another
+// library's.
 namespace bitsim {
 namespace {
 
+constexpr int kMaxDevices = 64;     // device ordinals the opt-in tracks
 constexpr int kSmemOptin = 232448;   // H100: dynamic shared memory a block
                                      // may opt in to
 constexpr int kIndexBits = 14;       // a signal index (<= 1816 signals)
@@ -394,13 +396,17 @@ inline size_t smem_bytes(int n_nodes, int n_i, int wb, int walk) {
 template <int WB>
 int launch_wb(const Args& g, int P, int walk, int G, size_t smem,
               cudaStream_t stream) {
-  static bool configured = false;    // once: the opt-in limit
-  if (!configured) {
+  // once a device: the opt-in limit acts on the current device only
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         bitsim_kernel<WB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemOptin);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   const dim3 grid((g.W + WB - 1) / WB, P);
   bitsim_kernel<WB><<<grid, dim3(WB, G), smem, stream>>>(g, walk);

@@ -149,6 +149,7 @@ constexpr int kNT = 8;          // outputs per thread along N
 constexpr int kKC = 32;         // K chunk staged per step
 constexpr int kBatch = 8;       // staged loads in flight per thread
 constexpr int kLutEntries = 65536;
+constexpr int kMaxDevices = 64;  // device ordinals the opt-in tracks
 // split weights of a wide and a narrow lane's item
 constexpr int kWideCost = 5;
 constexpr int kNarrowCost = 2;
@@ -1011,8 +1012,12 @@ inline int run(const In* x, long long x_lane_stride, const In* w,
                cudaStream_t stream) {
   constexpr bool kQuant8 = std::is_same<In, float>::value && !kComposed;
   const int tn = threads_across_n(N);
-  static bool configured = false;
-  if (!configured) {
+  // the opt-in acts on the current device only: one flag a device
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     const cudaError_t err =
         kQuant8 ? cudaFuncSetAttribute(
                       quant8_kernel,
@@ -1023,7 +1028,7 @@ inline int run(const In* x, long long x_lane_stride, const In* w,
                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                       (int)smem_bytes(1, kComposed));
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   if constexpr (kQuant8) {
     quant8_kernel<<<grid, kThreads, quant_smem_bytes(tn), stream>>>(

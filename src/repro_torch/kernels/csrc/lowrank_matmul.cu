@@ -67,6 +67,7 @@ constexpr int kStreamWarps = kStreamThreads / 32;
 constexpr int kStreamCols = 128;   // 32 lanes x 4 columns
 constexpr int kStreamMaxK = 64;   // lowrank_matmul.STREAM_MAX_K
 constexpr int kStages = 3;         // code tiles in flight (cp.async ring)
+constexpr int kMaxDevices = 64;    // device ordinals a shared memory opt-in tracks
 // the mma block tile (lowrank_matmul.MMA_TILE) and its 2 x 4 warps,
 // each owning 32 x 16 outputs, 2 x 2 m16n8 MMA tiles
 constexpr int kBM = 64, kBN = 64, kWM = 2, kWN = 4;
@@ -514,12 +515,17 @@ mma_kernel(const int* __restrict__ qa, const int* __restrict__ qw,
 
 // ---- launch -------------------------------------------------------------
 
+// The opt-in acts on the current device only, so ``done`` holds one flag
+// a device ordinal.
 template <typename Kernel>
-int set_smem(Kernel kernel, bool& done) {
-  if (done) return 0;
+int set_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  if (cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (done[dev]) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  done = err == cudaSuccess;
+  done[dev] = err == cudaSuccess;
   return (int)err;
 }
 
@@ -532,7 +538,7 @@ int launch_stream(const int* qa, const int* qw, const float* u,
                   const float* v, float* out, float* ws, int* counters,
                   int n_counters, int M, int K, int N, int R, int kps,
                   int splits, cudaStream_t stream) {
-  static bool configured = false;
+  static bool configured[kMaxDevices] = {};
   if (int err = set_smem(stream_kernel<MB>, configured)) return err;
   const size_t smem = stream_smem<MB>(R, kps);
   const dim3 grid((N + kStreamCols - 1) / kStreamCols, splits,
@@ -553,7 +559,7 @@ int launch_mma(const int* qa, const int* qw, const float* u, const float* v,
                int K, int N, int R, int kps, int splits,
                cudaStream_t stream) {
   constexpr auto kernel = mma_kernel<BK>;
-  static bool configured = false;
+  static bool configured[kMaxDevices] = {};
   if (int err = set_smem(kernel, configured)) return err;
   const size_t smem = mma_smem<BK>(R);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);

@@ -50,7 +50,7 @@ import torch
 
 from ..approx.quant import dequant_sums
 from . import build
-from .approx_matmul import sm_count
+from .approx_matmul import enter_device, leave_device, sm_count
 
 
 class Scalars(ctypes.Structure):
@@ -336,9 +336,14 @@ def _launch(name: str, fn, x, w, luts16, sc, codes=()):
     lead = ((x.data_ptr(), m * k if x.ndim == 3 else 0) if banked
             else (x.data_ptr(),))
     dims = (lanes, m, k, n) if banked else (m, k, n)
-    err = _launcher(name)(
-        *lead, *ins, sc.struct, buf.data_ptr(), *dims,
-        sm_count(x.device.index or 0), _stream(x))
+    dev = x.get_device()
+    prev = enter_device(dev)
+    try:
+        err = _launcher(name)(
+            *lead, *ins, sc.struct, buf.data_ptr(), *dims, sm_count(dev),
+            torch._C._cuda_getCurrentRawStream(dev))
+    finally:
+        leave_device(prev)
     build.check(name, err)
     fn.launches += 1
     return outs

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
+from .approx_matmul import enter_device, leave_device
 
 #: Largest rank the kernel takes: its factor tables live in shared
 #: memory (``csrc/lowrank_matmul.cu`` ``kMaxRank``).
@@ -155,10 +156,14 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
             scratch.grow(p.splits * m * n, p.tiles)
         ws, counters = scratch.ws_ptr, scratch.counters_ptr
         n_counters = scratch.n_counters
-    err = _launcher()(_ARGS.pack(
-        qa.data_ptr(), qw.data_ptr(), u.data_ptr(), v.data_ptr(),
-        out.data_ptr(), ws, counters, n_counters, m, k, n, r,
-        p.k_per_split, p.splits, stream))
+    prev = enter_device(dev)
+    try:
+        err = _launcher()(_ARGS.pack(
+            qa.data_ptr(), qw.data_ptr(), u.data_ptr(), v.data_ptr(),
+            out.data_ptr(), ws, counters, n_counters, m, k, n, r,
+            p.k_per_split, p.splits, stream))
+    finally:
+        leave_device(prev)
     if err:
         build.check("lowrank_matmul", err)
     lowrank_matmul.launches += 1

@@ -39,6 +39,7 @@ from ..approx.backend import as_backend, backend_matmul
 from ..approx.layers import (EXACT_POLICY, ApproxPolicy,
                              bank_assignment_overrides, bank_backend)
 from ..approx.specs import BackendSpec, bank_for, policy_assignment
+from ..device import device_key, replicate
 from ..kernels import ops
 from ..models.common import LMConfig
 from ..models.registry import (input_extras, model_fns, probe_layer_tags,
@@ -117,6 +118,16 @@ class Engine:
 # Continuous batching (DESIGN.md §2.8)
 # ----------------------------------------------------------------------
 @dataclass
+class _Shard:
+    """One device's part of a ``ContinuousEngine``: its parameter
+    replica and the paged cache of slots ``start`` onward."""
+    device: torch.device
+    params: dict
+    start: int
+    kv: PagedKVCache
+
+
+@dataclass
 class _CountedPolicy(ApproxPolicy):
     """An ``ApproxPolicy`` that counts its matmuls in ``calls``:
     ``"banked"`` (one banked datapath call for every lane at once) or
@@ -171,9 +182,20 @@ class ContinuousEngine:
     prefill and a decode step: its lanes, its banked and single-table
     matmul calls and the kernel launches it made (none on the CPU); a
     decode step's also its wall (``wall_s``: host clock from its inputs
-    to its sampled tokens on the host).
-    The reference's ``sharding=`` is not ported (ROADMAP.md Queue 1,
-    "Launch tooling and multi-device").
+    to its sampled tokens on the host) and the shards that ran it
+    (``shards``).
+
+    ``sharding`` (``launch.mesh.slot_sharding``) splits the slot axis
+    across its mesh's devices: each device keeps a replica of the
+    parameters (copied once; the bank's tables move to each device on
+    first use) and a paged cache of its own slots (``kvs``; ``n_blocks``
+    is shared out evenly), the scheduler maps slot i to the shard whose
+    range holds it, and a decode step runs each shard's lane step on its
+    device — every shard's launches queued before any sampled token is
+    read — then gathers the tokens to the host in slot order.  No
+    reduction or calibration spans lanes, so a shard's tokens equal the
+    whole engine's.  A count the mesh does not divide runs whole on the
+    first device.
     """
 
     #: the most per-active-set lane policies kept (each holds its
@@ -185,7 +207,8 @@ class ContinuousEngine:
                  n_slots: int = 4, capacity: int = 64,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  mode: str = "lut", variant: str = "ref",
-                 block_m: int = 512, base: Optional[BackendSpec] = None):
+                 block_m: int = 512, base: Optional[BackendSpec] = None,
+                 sharding=None):
         self.cfg = cfg
         self.params = params
         self.fns = model_fns(cfg)
@@ -203,10 +226,31 @@ class ContinuousEngine:
         self.default_policy = default_policy
         self.base = (base if base is not None
                      else BackendSpec.golden()).materialize(library)
-        self.kv = PagedKVCache(self.fns, cfg, n_slots=self.n_slots,
-                               capacity=self.capacity,
-                               block_size=block_size, n_blocks=n_blocks,
-                               device=self.device)
+        ranges = (sharding.shards(self.n_slots) if sharding is not None
+                  else [(self.device, 0, self.n_slots)])
+        if n_blocks is not None and n_blocks % len(ranges):
+            raise ValueError(f"n_blocks {n_blocks} does not divide into "
+                             f"{len(ranges)} shards")
+        replicas: dict = {device_key(self.device): params}
+        self._shards: list[_Shard] = []
+        for dev, start, stop in ranges:
+            key = device_key(dev)
+            if key not in replicas:
+                replicas[key] = replicate(params, key)
+            self._shards.append(_Shard(
+                device=key, params=replicas[key], start=start,
+                kv=PagedKVCache(
+                    self.fns, cfg, n_slots=stop - start,
+                    capacity=self.capacity, block_size=block_size,
+                    n_blocks=(None if n_blocks is None
+                              else n_blocks // len(ranges)),
+                    device=key)))
+        #: each shard's paged cache; ``kv`` is the first (the only one
+        #: without ``sharding``)
+        self.kvs = [sh.kv for sh in self._shards]
+        self.kv = self.kvs[0]
+        self._shard_of = np.concatenate([
+            np.full(sh.kv.n_slots, i) for i, sh in enumerate(self._shards)])
         self.scheduler = Scheduler(self.n_slots)
         n = self.n_slots
         self._tokens = np.zeros(n, np.int64)
@@ -284,10 +328,18 @@ class ContinuousEngine:
         return ApproxPolicy(default=self.base,
                             overrides=overrides).materialize(self._library)
 
-    def _policy_for(self, assign: np.ndarray) -> ApproxPolicy:
+    def _where(self, slot: int) -> tuple:
+        """(shard, the slot's index in the shard's cache)."""
+        sh = self._shards[self._shard_of[slot]]
+        return sh, slot - sh.start
+
+    def _policy_for(self, assign: np.ndarray, shard: int = 0
+                    ) -> ApproxPolicy:
         """The banked policy of these assignment rows (one lane a row),
-        kept for the next steps with the same running set."""
-        key = assign.shape[0].to_bytes(2, "little") + assign.tobytes()
+        kept for the next steps of ``shard`` with the same running
+        set."""
+        key = (int(shard).to_bytes(2, "little")
+               + assign.shape[0].to_bytes(2, "little") + assign.tobytes())
         policy = self._policies.get(key)
         if policy is None:
             policy = _CountedPolicy(
@@ -365,7 +417,8 @@ class ContinuousEngine:
         done = [st for st in self.scheduler.running.values() if st.done]
         for st in done:
             slot = st.slot
-            self.kv.release(slot)
+            sh, local = self._where(slot)
+            sh.kv.release(local)
             self._active[slot] = False
             self._gens[slot] = self._phys[slot] = None
             self.scheduler.finish(st, self.step_count)
@@ -375,36 +428,42 @@ class ContinuousEngine:
         """B=1 prefill of an admitted request over a ``total_len``-row
         cache (the one ``generate`` allocates), its rows then written
         into the slot's blocks; returns its first token."""
-        dev, cfg, serve = self.device, self.cfg, st.request.serve
+        sh, local = self._where(st.slot)
+        dev, cfg, serve = sh.device, self.cfg, st.request.serve
         batch = {"tokens": torch.as_tensor(st.request.prompt[None],
                                            device=dev)}
         if st.request.extras:
             batch.update({k: torch.as_tensor(np.asarray(v), device=dev)
                           for k, v in st.request.extras.items()})
-        policy = self._policy_for(st.assign_row[None])
+        policy = self._policy_for(st.assign_row[None],
+                                  self._shard_of[st.slot])
         cache = self.fns.init_cache(cfg, 1, st.total_len, dev)
         logits, cache = self._logged("prefill", 1, lambda: (
-            self.fns.forward_prefill(self.params, batch, cache, cfg,
+            self.fns.forward_prefill(sh.params, batch, cache, cfg,
                                      policy, lanes=True)))
         gen = torch.Generator(device=dev).manual_seed(serve.seed)
         self._gens[st.slot] = gen
-        self.kv.write_prefill(st.slot, cache, st.prefill_len)
+        sh.kv.write_prefill(local, cache, st.prefill_len)
         return int(Engine._sample(logits, serve, gen)[0])
 
     def _admit(self) -> list:
         admitted = []
         while True:
             st = self.scheduler.head()
-            if st is None or not self.scheduler.free_slots():
+            free = self.scheduler.free_slots()
+            if st is None or not free:
                 break
-            if not self.kv.can_allocate(self.kv.blocks_needed(
-                    st.total_len)):
+            # the scheduler admits into the lowest free slot: its shard's
+            # cache must hold the request
+            kv = self._where(free[0])[0].kv
+            if not kv.can_allocate(kv.blocks_needed(st.total_len)):
                 break                   # strict FIFO: head blocks queue
             st = self.scheduler.admit(self.step_count)
             slot = st.slot
-            self.kv.allocate(slot, st.total_len)
-            if self.kv.pools:
-                rows = self.kv.slot_rows(slot, st.total_len)
+            local = self._where(slot)[1]
+            kv.allocate(local, st.total_len)
+            if kv.pools:
+                rows = kv.slot_rows(local, st.total_len)
                 self._phys[slot] = (rows.cpu().numpy(), rows)
             tok = self._prefill(st)
             st.tokens.append(tok)
@@ -421,27 +480,44 @@ class ContinuousEngine:
         if not slots:
             return False
         t0 = time.perf_counter()
-        dev = self.device
-        pos = self._lengths[slots]
         paged = bool(self.kv.pools)
-        host = np.stack([self._tokens[slots], pos,
-                         [self._phys[s][0][p] if paged else -1
-                          for s, p in zip(slots, pos)]])
-        tokens, positions, write = torch.from_numpy(host).to(dev)
-        cache = LaneCaches(self.kv, slots, pos,
-                           [self._phys[s][1] if paged else None
-                            for s in slots], write)
-        policy = self._policy_for(self._assign[slots])
-        logits = self._logged("decode", len(slots), lambda: (
-            self.fns.forward_decode_lanes(self.params, tokens, positions,
-                                          cache, self.cfg, policy)))
-        cache.commit()
-        toks = torch.cat([
-            Engine._sample(lg, self.scheduler.running[s].request.serve,
-                           self._gens[s])
-            for s, lg in zip(slots, logits)]).cpu().numpy()
+        # each shard's running slots (slot order), its inputs copied to
+        # its device before any shard's step is queued
+        steps = []
+        for i, sh in enumerate(self._shards):
+            mine = [s for s in slots if self._shard_of[s] == i]
+            if not mine:
+                continue
+            pos = self._lengths[mine]
+            host = np.stack([self._tokens[mine], pos,
+                             [self._phys[s][0][p] if paged else -1
+                              for s, p in zip(mine, pos)]])
+            tokens, positions, write = torch.from_numpy(host).to(sh.device)
+            cache = LaneCaches(sh.kv, [s - sh.start for s in mine], pos,
+                               [self._phys[s][1] if paged else None
+                                for s in mine], write)
+            steps.append((sh, mine, tokens, positions, cache,
+                          self._policy_for(self._assign[mine], i)))
+
+        def run() -> list:
+            sampled = []
+            for sh, mine, tokens, positions, cache, policy in steps:
+                logits = self.fns.forward_decode_lanes(
+                    sh.params, tokens, positions, cache, self.cfg, policy)
+                cache.commit()
+                sampled.append(torch.cat([
+                    Engine._sample(lg,
+                                   self.scheduler.running[s].request.serve,
+                                   self._gens[s])
+                    for s, lg in zip(mine, logits)]))
+            return sampled
+
+        sampled = self._logged("decode", len(slots), run)
+        toks = np.concatenate([t.cpu().numpy() for t in sampled])
         self.step_log[-1]["wall_s"] = time.perf_counter() - t0
-        self.kv.advance(slots)
+        self.step_log[-1]["shards"] = len(steps)
+        for sh, mine, *_ in steps:
+            sh.kv.advance([s - sh.start for s in mine])
         for slot, tok in zip(slots, toks):
             st = self.scheduler.running[slot]
             st.tokens.append(int(tok))

@@ -3,19 +3,18 @@ DESIGN.md §6): int8 symmetric uniform quantization with a per-leaf scale
 and *error feedback* (the round-trip error is carried to the next step,
 Karimireddy et al. 2019).
 
-``compressed_psum``, the reference's ``shard_map`` all-reduce in int8,
-needs a device mesh and raises here.
+``compressed_psum`` is the reference's ``shard_map`` all-reduce of
+int8-quantized gradients, over a ``torch.distributed`` process group
+(the codes are summed as int32, as the reference's ``psum`` sums them).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from .optimizer import _like, nest, tree_leaves
-
-#: The ROADMAP.md item that ports the mesh and its collectives.
-MESH_ITEM = 'ROADMAP.md Queue 1, "Launch tooling and multi-device"'
 
 
 def quantize_leaf(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,8 +49,24 @@ def init_residual(params: Any) -> dict:
                                                device=p.device))
 
 
-def compressed_psum(tree: Any, axis_name: str) -> Any:
-    """The reference all-reduces a gradient tree in int8 over a mesh
-    axis inside ``shard_map``; one card has no mesh."""
-    raise NotImplementedError(f"compressed_psum needs a device mesh, which "
-                              f"is not ported yet ({MESH_ITEM})")
+def compressed_psum(tree: Any, group=None) -> dict:
+    """All-reduce a gradient tree over ``group`` (a ``torch.distributed``
+    process group; None: the default one) in int8 and return each leaf's
+    mean over the participants, as a dict keyed like ``tree``: a common
+    scale (the largest participant's, ``all_reduce(MAX)``), the int8 codes
+    at that scale summed as int32 (``all_reduce(SUM)``), then ``total *
+    s_max / n`` in f32 with n the group's size — the reference's order of
+    operations."""
+    n = float(dist.get_world_size(group))
+    out = {}
+    for path, g in tree_leaves(tree):
+        g = g.to(torch.float32)
+        _q, s = quantize_leaf(g)
+        # common scale across participants so summed codes are coherent
+        s_max = s.clone()
+        dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+        q = torch.clamp(torch.round(g / s_max), -127, 127).to(torch.int8)
+        total = q.to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        out[path] = total.to(torch.float32) * s_max / n
+    return nest(out)

@@ -105,13 +105,6 @@ def test_quantize_leaf_and_feedback_bit_for_bit():
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=k)
 
 
-def test_compressed_psum_raises_naming_its_item():
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md Queue 1, "Launch tooling and '
-                             'multi-device"'):
-        compression.compressed_psum({"g": torch.ones(2)}, "data")
-
-
 def test_lr_at_within_one_ulp():
     """Within 1 ulp wherever both packages' f32 cosines agree.  XLA's
     f32 cos is one ulp off the correctly rounded value on a few steps
