@@ -254,7 +254,27 @@ Phases (any failure exits nonzero):
      banked call launched its kernel once a shard with that shard's lanes
      and nothing else ran, and the all-reduce equals its plain formula;
      the phase's wall and each path's sharded and unsharded walls are
-     printed.
+     printed;
+ 14. the dry run (``phase_dryrun``, ``repro_torch.launch.dryrun``):
+     first on the host, the production (16, 16) mesh as a ``"fake"``
+     process group of 256 with every leaf a DTensor over ``meta``
+     shards, ``qwen1.5-0.5b`` x ``train_4k`` and x ``decode_32k`` and
+     ``mamba2-780m`` x ``long_500k`` (each must be ``ok`` with a nonzero
+     collective term; per-device argument GB, flops, collective GB, the
+     roofline terms on the H100's published peaks and the bottleneck
+     printed); then the same cells on a one-card mesh, whose probes run
+     for real on the card from seed 0 — the train cell's one 1 x 4096
+     microbatch forward and backward at one and two layers and the
+     optimizer at full depth, ``decode_32k``'s batch of 128 against a
+     32 768-row cache (17.2 GB of bf16 KV a layer) and ``long_500k``'s
+     batch of 1, each at one and two layers, under ``"pallas"`` (K9) and
+     ``"ref"``.  Fails unless each one-card analysis is ``ok`` with no
+     collectives, K9 launched exactly 7 (qwen1.5-0.5b) or 2 (mamba2) a
+     layer in each decode probe's timed run, and each decode probe's
+     logits under ``"pallas"`` are within ``QUANT_RTOL`` of the largest
+     |logit| of the same probe under ``"ref"``; each probe's wall and
+     peak memory are printed beside its roofline bound and the card's
+     name and power limit.
 
 The line before last is the kernels' JSON summary, the last line the
 device JSON.  Details go to ``chiprun_out/chip_smoke.json``.  Without a
@@ -2849,6 +2869,129 @@ def phase_mesh(device, log, launches_total: dict, hetero: dict) -> dict:
     return out
 
 
+#: the dry run's cells: (arch, shape, K9 launches a layer of a decode
+#: probe's forward, or None for a train cell)
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k", None),
+                ("qwen1.5-0.5b", "decode_32k", 7),
+                ("mamba2-780m", "long_500k", 2))
+
+
+def _dryrun_line(r: dict) -> str:
+    rf = r["roofline"]
+    return (f"argument {r['memory']['argument_bytes'] / 1e9:.3f} GB, "
+            f"{r['flops_per_device']:.4g} flops, collectives "
+            f"{r['collectives']['total_bytes'] / 1e9:.4f} GB a device; "
+            f"compute {rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g} "
+            f"s, collective {rf['collective_s']:.4g} s -> "
+            f"{rf['bottleneck']}")
+
+
+def phase_dryrun(device, log, launches_total: dict) -> dict:
+    """Path L: the dry run (docstring, phase 14): the production mesh's
+    analysis on the host, then each cell's probes realized on the
+    card."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    t0 = time.perf_counter()
+    card = _smi("name,power.limit")
+    out: dict = {"production": {}, "card": {}}
+    for arch, shape, _k9 in DRYRUN_CELLS:
+        # the full-depth train trace (16 microbatches) is skipped here;
+        # the probes carry the analysis
+        r = dryrun.run_cell(arch, shape, lower=_k9 is not None)
+        if not r["ok"] or r["collectives"]["total_bytes"] <= 0 \
+                or r["roofline"]["collective_s"] <= 0:
+            raise AssertionError(f"dry run {arch} x {shape} on the "
+                                 f"production mesh: {r}")
+        log(f"{arch} x {shape} on {r['mesh']} ({r['n_chips']} fake "
+            f"ranks): {_dryrun_line(r)}")
+        out["production"][f"{arch}/{shape}"] = r
+    host_s = time.perf_counter() - t0
+    one = Mesh(("data", "model"), (1, 1), (device,))
+    # a decode_32k probe at two layers peaks at ~71 GB in 16 GiB blocks:
+    # after the earlier phases the cached segments are too fragmented
+    # for it, so this phase allocates from fresh, growable segments
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        out["card"] = _dryrun_on_card(device, log, one, card)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    launches = ops.launch_counts()
+    if launches["lowrank_matmul"] <= 0:
+        raise AssertionError("dry run: K9 never ran on the card")
+    for k, v in launches.items():
+        launches_total[k] += v
+    out["launches"] = launches
+    out["host_s"] = host_s
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"dry-run phase {out['phase_s']:.1f} s ({host_s:.1f} s of it the "
+        f"production-mesh analysis on the host) on {card}")
+    return out
+
+
+def _dryrun_on_card(device, log, one, card: str) -> dict:
+    """Each dry-run cell's probes realized on the one-card mesh ``one``
+    (phase 14's gates), the launch counters zeroed before the first."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    out = {}
+    ops.reset_launch_counts()
+    for arch, shape, k9 in DRYRUN_CELLS:
+        logits: dict = {"pallas": {}, "ref": {}}
+        r = dryrun.run_cell(arch, shape, mesh=one, lower=False,
+                            variant="pallas",
+                            probe_outputs=logits["pallas"] if k9 else None)
+        if not r["ok"] or r["collectives"]["total_bytes"] != 0:
+            raise AssertionError(f"dry run {arch} x {shape} on one card: "
+                                 f"{r}")
+        rec = {"run": r}
+        if k9 is not None:
+            dryrun.run_probes(arch, shape, one, "auto", "lowrank",
+                              variant="ref", realize=device,
+                              probe_outputs=logits["ref"])
+            rec["pallas_vs_ref"] = {}
+            for p in r["probe_details"]:
+                got = p["launches"].get("lowrank_matmul", 0)
+                if got != k9 * p["depth"]:
+                    raise AssertionError(
+                        f"{arch} x {shape} {p['probe']}: K9 launched "
+                        f"{got} times, the call sites make "
+                        f"{k9 * p['depth']}")
+                a = logits["pallas"][p["probe"]].float()
+                b = logits["ref"][p["probe"]].float()
+                d = float((a - b).abs().max())
+                atol = QUANT_RTOL * float(b.abs().max())
+                if not (bool(torch.isfinite(a).all()) and d <= atol):
+                    raise AssertionError(
+                        f"{arch} x {shape} {p['probe']}: pallas logits "
+                        f"differ from ref by {d} > {atol}")
+                rec["pallas_vs_ref"][p["probe"]] = {"max_abs": d,
+                                                    "atol": atol}
+        del logits
+        for p in r["probe_details"]:
+            log(f"{arch} x {shape} {p['probe']} (depth {p['depth']}) on "
+                f"{card}: wall {p['wall_s'] * 1e3:.2f} ms, first run "
+                f"{p['compile_s']:.2f} s, peak "
+                f"{(p['peak_bytes'] or 0) / 1e9:.2f} GB; roofline bound "
+                f"{p['bound_s'] * 1e3:.3f} ms ({p['flops']:.4g} flops, "
+                f"{p['bytes'] / 1e9:.3f} GB unfused); launches "
+                f"{p['launches']}"
+                + (f"; pallas vs ref max |d logits| "
+                   f"{rec['pallas_vs_ref'][p['probe']]['max_abs']:.4g} "
+                   f"(tolerance "
+                   f"{rec['pallas_vs_ref'][p['probe']]['atol']:.4g})"
+                   if k9 is not None else ""))
+        out[f"{arch}/{shape}"] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def _profile_continuous_step(device) -> dict:
     """One decode step of the continuous engine with 4 active slots (4
     requests at the serve CLI's defaults, 4 tables of the serve-load
@@ -3727,6 +3870,8 @@ def main() -> int:
     details["main"]["mesh"] = phase_mesh(
         device, lambda s: print(f"[mesh] {s}"), details["main"]["launches"],
         details["main"]["heterogeneous_pallas"])
+    details["main"]["dryrun"] = phase_dryrun(
+        device, lambda s: print(f"[dryrun] {s}"), details["main"]["launches"])
     details["total_s"] = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

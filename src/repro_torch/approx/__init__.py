@@ -13,7 +13,7 @@ from .registry import (Datapath, available_datapaths, get_datapath,
 from .specs import (BackendSpec, LutBank, MaterializedBackend, PolicyBank,
                     bank_for, canonicalize, clear_materialize_cache,
                     materialize, materialize_cache_stats)
-from .backend import as_backend, backend_matmul
+from .backend import MatmulBackend, as_backend, backend_matmul
 from .layers import (ApproxPolicy, bank_backend, bank_eval,
                      policy_bank_eval, policy_for_lane, spec_of)
 from .resilience import (BankableEval, LayerComponents, all_layers_sweep,

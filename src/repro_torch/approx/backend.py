@@ -17,6 +17,10 @@ Modes (each a registered datapath, see ``repro_torch.approx.registry``):
 ``w`` may also be a prepared-weight dict (``prepare_weight``): the
 weight side of a ``lowrank`` datapath precomputed once per checkpoint.
 
+The preferred handle is a ``BackendSpec`` (or the ``MaterializedBackend``
+it caches to); the legacy array-carrying ``MatmulBackend`` remains as a
+deprecation shim, as in the reference, and is converted on entry.
+
 Gradients: straight-through estimator (``torch.autograd.Function``) —
 the backward pass is the exact f32 matmul.
 
@@ -29,14 +33,71 @@ unbanked backends alike.
 """
 from __future__ import annotations
 
-from typing import Union
+import warnings
+from dataclasses import dataclass
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
+from ..launch.mesh import reduce_partial, sharded_reshape
 from .quant import calibrate, dequant_sums, quantize
 from .specs import BackendSpec, MaterializedBackend, materialize
 
-BackendLike = Union[None, BackendSpec, MaterializedBackend]
+# ----------------------------------------------------------------------
+# Legacy shim (pre-spec API): id-hashed dataclass carrying raw arrays.
+# Prefer BackendSpec everywhere new; this stays so reference-style call
+# sites run unchanged.
+# ----------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)  # eq=False: id-hash (ndarray fields)
+class MatmulBackend:
+    mode: str = "bf16"                       # f32|bf16|int8|lut|lowrank
+    multiplier: str = "mul8u_exact"          # library entry name
+    lut: Optional[np.ndarray] = None         # (256,256) int32 product LUT
+    factors_u: Optional[np.ndarray] = None   # (R,256) f32
+    factors_v: Optional[np.ndarray] = None   # (R,256) f32
+    rank: int = 0
+    block_m: int = 512                       # LUT-emulation row blocking
+    ste: bool = True                         # straight-through gradients
+    use_pallas: bool = False                 # route through the kernels
+
+    @staticmethod
+    def exact(mode: str = "bf16") -> "MatmulBackend":
+        return MatmulBackend(mode=mode)
+
+    @staticmethod
+    def from_library(name: str, mode: str = "lut",
+                     rank: Optional[int] = None, library=None,
+                     use_pallas: bool = False) -> "MatmulBackend":
+        """Deprecated: use ``BackendSpec.from_library(...).materialize()``.
+        Builds a legacy backend emulating library multiplier ``name``."""
+        warnings.warn(
+            "MatmulBackend.from_library is deprecated; use "
+            "BackendSpec.from_library(name, ...).materialize(library)",
+            DeprecationWarning, stacklevel=2)
+        from ..core.library import get_default_library
+        from .registry import pack_lowrank, pack_lut
+        lib = library if library is not None else get_default_library()
+        spec = BackendSpec(mode=mode, multiplier=name, rank=rank,
+                           variant="pallas" if use_pallas else "ref")
+        lut = pack_lut(spec, lib)["lut"]
+        lr = pack_lowrank(spec, lib)     # shares the auto-rank heuristic
+        return MatmulBackend(
+            mode=mode, multiplier=name, lut=lut,
+            factors_u=lr["u"], factors_v=lr["v"],
+            rank=int(lr["u"].shape[0]), use_pallas=use_pallas)
+
+    def to_spec(self) -> BackendSpec:
+        """Best-effort serializable spec: faithful whenever the arrays
+        came from a library; the one legacy-field -> spec mapping."""
+        return BackendSpec(
+            mode=self.mode, multiplier=self.multiplier,
+            rank=(int(self.rank) or None), block_m=self.block_m,
+            ste=self.ste,
+            variant="pallas" if self.use_pallas else "ref")
+
+
+BackendLike = Union[None, BackendSpec, MaterializedBackend, MatmulBackend]
 
 
 def as_backend(backend: BackendLike) -> MaterializedBackend:
@@ -47,7 +108,37 @@ def as_backend(backend: BackendLike) -> MaterializedBackend:
         return backend
     if isinstance(backend, BackendSpec):
         return materialize(backend)
+    if isinstance(backend, MatmulBackend):
+        return _from_legacy(backend)
     raise TypeError(f"not a backend: {type(backend).__name__}")
+
+
+def _from_legacy(be: MatmulBackend) -> MaterializedBackend:
+    from .registry import get_datapath
+    spec = be.to_spec()
+    if not spec.is_quantized:
+        return materialize(spec)
+    dp = get_datapath(spec.datapath_name)
+    if not dp.needs_library:                 # int8: no consts to carry
+        return materialize(spec)
+    # Raw arrays were attached by hand — wrap them uncached (id-hash
+    # semantics identical to the legacy class).
+    if be.mode.startswith("lut"):
+        if be.lut is None:
+            raise ValueError("legacy lut backend without a LUT")
+        lut = np.asarray(be.lut, np.int32)
+        consts = {"lut": lut, "block_m": int(be.block_m)}
+        if spec.variant != "ref":            # the kernels' uint16 table
+            from ..kernels.approx_matmul import lut_to_uint16
+            consts["lut16"] = lut_to_uint16(torch.from_numpy(lut))
+    elif be.mode.startswith("lowrank"):
+        if be.factors_u is None or be.factors_v is None:
+            raise ValueError("legacy lowrank backend without factors")
+        consts = {"u": np.asarray(be.factors_u, np.float32),
+                  "v": np.asarray(be.factors_v, np.float32)}
+    else:
+        raise ValueError(f"legacy backend mode {be.mode!r} needs a spec")
+    return MaterializedBackend(spec=spec, datapath=dp, consts=consts)
 
 
 # ----------------------------------------------------------------------
@@ -76,9 +167,11 @@ def _quantized_matmul(x: torch.Tensor, w: torch.Tensor,
     k = x.shape[-1]
     # int32 sums, or f32 already for composed datapaths (limbs
     # recombined)
-    s = dp.forward_q(qa, qw, consts)
-    row = torch.sum(qa, dim=-1, dtype=torch.int32)[..., None]   # (.., M, 1)
-    col = torch.sum(qw, dim=-2, dtype=torch.int32)[..., None, :]  # (.., 1, N)
+    s = reduce_partial(dp.forward_q(qa, qw, consts))
+    row = reduce_partial(                                       # (.., M, 1)
+        torch.sum(qa, dim=-1, dtype=torch.int32)[..., None])
+    col = reduce_partial(                                       # (.., 1, N)
+        torch.sum(qw, dim=-2, dtype=torch.int32)[..., None, :])
     if dp.exact_int32:
         # exact datapath: Σ (qa-za)(qw-zw) with int32 accumulation
         acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
@@ -151,10 +244,11 @@ def _prepared_matmul(x2d: torch.Tensor, pw: dict,
     ua = u[:, qa.long()].to(torch.bfloat16)               # (R,M,K)
     # bf16 operands, f32 accumulation (the reference's
     # preferred_element_type=f32): bf16 products are exact in f32
-    y_q = torch.matmul(ua.to(torch.float32),
-                       pw["tabs"].to(torch.float32)).sum(dim=0)  # (M,N)
+    y_q = reduce_partial(torch.matmul(
+        ua.to(torch.float32), pw["tabs"].to(torch.float32)).sum(dim=0))
     k = x2d.shape[1]
-    row = torch.sum(qa, dim=1, dtype=torch.int32).to(torch.float32)
+    row = reduce_partial(torch.sum(qa, dim=1, dtype=torch.int32)
+                         ).to(torch.float32)
     zaf = qp_a.zero_point.to(torch.float32)
     acc = (y_q - pw["w_zp"] * row[:, None] - zaf * pw["colsum"][None, :]
            + k * zaf * pw["w_zp"])
@@ -173,6 +267,10 @@ def _prepare_stacked(w: torch.Tensor, mb: MaterializedBackend) -> dict:
     the reference's ``vmap`` does."""
     if w.ndim == 2:
         return prepare_weight(w, mb)
+    if w.device.type == "meta":      # shapes only: one slice, stacked
+        one = _prepare_stacked(w[(0,) * (w.ndim - 2)], mb)
+        return {key: t.expand(*w.shape[:-2], *t.shape).contiguous()
+                for key, t in one.items()}
     parts = [_prepare_stacked(w[i], mb) for i in range(w.shape[0])]
     return {key: torch.stack([p[key] for p in parts]) for key in parts[0]}
 
@@ -208,7 +306,7 @@ def backend_matmul(x: torch.Tensor, w,
     k = x.shape[-1]
     if is_prepared(w):
         y = _prepared_matmul(x.reshape(-1, k).to(torch.float32), w, mb)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
+        return sharded_reshape(y, (*x.shape[:-1], y.shape[-1]))
     n = w.shape[-1]
     if lanes:
         y = _forward(x.reshape(x.shape[0], -1, k), w, mb, lanes=True)
@@ -219,4 +317,6 @@ def backend_matmul(x: torch.Tensor, w,
     else:
         y = _forward(x2d, w, mb, False)
     lead = x.shape[:-1] if mb.lanes is None else (mb.lanes, *x.shape[:-1])
-    return y.reshape(*lead, n)
+    return sharded_reshape(y, (*lead, n))
+
+

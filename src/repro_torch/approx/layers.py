@@ -23,20 +23,24 @@ import torch
 import torch.nn.functional as F
 
 from ..device import device_key
-from .backend import BackendLike, as_backend, backend_matmul
+from .backend import (BackendLike, MatmulBackend, as_backend,
+                      backend_matmul)
 from .registry import get_datapath
 from .specs import (BackendSpec, LutBank, MaterializedBackend, PolicyBank,
                     canonicalize)
 
 
 def spec_of(backend: BackendLike) -> BackendSpec:
-    """Serializable spec of any backend handle."""
+    """Serializable spec of any backend handle (legacy backends describe
+    themselves via ``MatmulBackend.to_spec``)."""
     if backend is None:
         return BackendSpec()
     if isinstance(backend, BackendSpec):
         return backend
     if isinstance(backend, MaterializedBackend):
         return backend.spec
+    if isinstance(backend, MatmulBackend):
+        return backend.to_spec()
     raise TypeError(f"not a backend: {type(backend).__name__}")
 
 
@@ -70,6 +74,10 @@ class ApproxPolicy:
         def mat(be: BackendLike) -> MaterializedBackend:
             if isinstance(be, MaterializedBackend):
                 return be
+            if isinstance(be, MatmulBackend):
+                # preserve hand-attached arrays instead of rebuilding
+                # by multiplier name from the library
+                return as_backend(be)
             return spec_of(be).materialize(library)
         return ApproxPolicy(
             default=mat(self.default),
@@ -82,6 +90,9 @@ class ApproxPolicy:
         def key_of(be: BackendLike):
             spec = canonicalize(spec_of(be))
             if isinstance(be, MaterializedBackend) and not be.canonical:
+                return (spec, be)
+            if isinstance(be, MatmulBackend) and (
+                    be.lut is not None or be.factors_u is not None):
                 return (spec, be)
             return spec
         return (key_of(self.default),

@@ -7,6 +7,11 @@ named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads as it is.  Nothing is compiled at import:
 ``load`` builds on first use, ``build_all`` builds every kernel at once
 (one ``nvcc`` per source, all started together).
+
+``EVENTS`` is the process-wide tally of what happened: ``("build",
+name, seconds)`` for each fresh ``nvcc`` build and ``("load", name,
+seconds, fresh)`` for each library loaded (``fresh``: built by that
+call); ``launch.compile_cache.trace_audit`` counts it by delta.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -27,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+EVENTS: list[tuple] = []
 
 
 def nvcc_path() -> str:
@@ -62,21 +69,23 @@ def _start(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, started) -> str:
     """Wait for one build; returns nvcc's output (register report)."""
     if started is None:
         return ""
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    EVENTS.append(("build", name, time.perf_counter() - t0))
     out.with_suffix(".log").write_text(log)
     return log
 
@@ -91,11 +100,15 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        _finish(name, _start(name))
+        t0 = time.perf_counter()
+        started = _start(name)
+        _finish(name, started)
         lib = ctypes.CDLL(str(library_path(name)))
         lib.lutmm_error_string.argtypes = [ctypes.c_int]
         lib.lutmm_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
+        EVENTS.append(("load", name, time.perf_counter() - t0,
+                       started is not None))
     return lib
 
 

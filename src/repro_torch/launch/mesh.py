@@ -183,6 +183,136 @@ class NamedSharding:
                      for a in names)
 
 
+def sharded_reshape(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t.reshape(shape)``, for a plain tensor or a DTensor.  Where
+    DTensor's view rule cannot carry a DTensor's sharding through the
+    reshape (a dim split over a mesh axis that the new dims do not
+    divide, e.g. 56 heads over 16; or a dim split over two mesh axes
+    whose inner split falls inside a new dim), the mesh axes that split
+    the dims from the first one the reshape changes are gathered first:
+    all but the outermost of each such dim's axes, then, if that is not
+    enough, all of them.  The gradient is reshaped back the same way.
+    The values are those of ``t.reshape`` either way."""
+    if not hasattr(t, "placements"):
+        return t.reshape(shape)
+    return _ShardedReshape.apply(t, tuple(shape))
+
+
+def _reshape_dtensor(t, shape: tuple):
+    try:
+        return t.reshape(shape)
+    except RuntimeError:
+        pass
+    from torch.distributed.tensor import Replicate
+
+    new = tuple(torch.empty(tuple(t.shape), device="meta")
+                .reshape(shape).shape)
+    first = next((i for i, (a, b) in enumerate(zip(t.shape, new))
+                  if a != b), min(t.ndim, len(new)))
+    placements = list(t.placements)
+    seen: set = set()
+    for i, p in enumerate(placements):
+        if p.is_shard() and p.dim >= first:
+            if p.dim in seen:
+                placements[i] = Replicate()
+            seen.add(p.dim)
+    try:
+        return t.redistribute(t.device_mesh, placements).reshape(shape)
+    except RuntimeError:
+        pass
+    placements = [Replicate() if p.is_shard() and p.dim >= first else p
+                  for p in t.placements]
+    return t.redistribute(t.device_mesh, placements).reshape(shape)
+
+
+def embedding_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the rows of an embedding table.  For a DTensor
+    table (the dry run) the lookup is ``F.embedding``, whose backward
+    DTensor shards as an embedding's; the backward of indexing scatters
+    into a DTensor, which some torch releases cannot place."""
+    if hasattr(table, "placements"):
+        return torch.nn.functional.embedding(ids, table)
+    return table[ids]
+
+
+def reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending partial sums reduced (each ``Partial``
+    placement made ``Replicate``); a plain tensor as it is.  A
+    contraction over a sharded dim leaves its result partial; reducing
+    it before the elementwise epilogue keeps DTensor from having to turn
+    the epilogue's sharded operands partial, which some torch releases
+    cannot."""
+    if not hasattr(t, "placements") or not any(
+            p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+
+
+def sharded_einsum(equation: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(equation, *xs)``, for plain tensors or DTensors.
+    Where DTensor's sharding propagation cannot run the einsum on the
+    operands as they are placed (some torch releases cannot flatten two
+    sharded dims into the one batch dim of the ``bmm`` the einsum
+    becomes), each DTensor operand first keeps only its dim-0 split and
+    is gathered on its other dims; then, if that is not enough, gathered
+    whole.  A differentiated einsum takes the dim-0 layout at once (its
+    backward flattens the gradients the same way).  The values are
+    those of ``torch.einsum`` either way."""
+    if not any(hasattr(x, "placements") for x in xs):
+        return torch.einsum(equation, *xs)
+    from torch.distributed.tensor import Replicate
+    # under autograd the backward's own flatten meets the same limit,
+    # so a differentiated einsum takes the dim-0 layout at once
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+    if not grad:
+        try:
+            return torch.einsum(equation, *xs)
+        except RuntimeError:
+            pass
+
+    def keep(x, rule):
+        if not hasattr(x, "placements"):
+            return x
+        return x.redistribute(x.device_mesh, [
+            p if rule(p) else Replicate() for p in x.placements])
+    try:
+        out = torch.einsum(equation, *(
+            keep(x, lambda p: p.is_shard(0)) for x in xs))
+        return _Dim0Grad.apply(out) if grad else out
+    except RuntimeError:
+        pass
+    out = torch.einsum(equation, *(keep(x, lambda p: False) for x in xs))
+    return _Dim0Grad.apply(out) if grad else out
+
+
+class _Dim0Grad(torch.autograd.Function):
+    """The identity; its gradient keeps only its dim-0 split, so the
+    einsum's backward gets a gradient laid out as its output was."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        return g.redistribute(g.device_mesh, [
+            p if p.is_shard(0) else Replicate() for p in g.placements])
+
+
+class _ShardedReshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.in_shape = tuple(t.shape)
+        return _reshape_dtensor(t, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshape_dtensor(g, ctx.in_shape), None
+
+
 # ----------------------------------------------------------------------
 # Parameter sharding rules
 # ----------------------------------------------------------------------

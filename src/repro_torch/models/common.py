@@ -36,11 +36,16 @@ sequential evaluation bit for bit.
 sequence goes through ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint``, so memory stays about ``B * chunk * V``.
 
-Not ported yet: the sharding hints (``hint_*``: no mesh on one card;
-ROADMAP.md Queue 1, "Launch tooling and multi-device").
+The sharding hints (``hint_batch``, ``hint_axis``, ``hint_spec``) are
+the counterpart of the reference's ``with_sharding_constraint``
+anchors: under an ambient ``DeviceMesh`` (``ambient_mesh``, which the
+dry run installs) a DTensor is redistributed to the spec's placements;
+without one, or for a plain tensor, each returns its input object.  A
+hint changes placement, never a value.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -52,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
+from ..launch.mesh import NamedSharding, sharded_einsum, sharded_reshape
 
 
 @dataclass(frozen=True)
@@ -147,6 +153,75 @@ class LMConfig:
                                        small["n_layers"])
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+# ----------------------------------------------------------------------
+# Sharding hints (ambient-mesh aware; no-ops without a mesh)
+# ----------------------------------------------------------------------
+_AMBIENT: list = []
+
+
+@contextlib.contextmanager
+def ambient_mesh(device_mesh):
+    """Make ``device_mesh`` (a ``torch.distributed`` ``DeviceMesh`` with
+    ``mesh_dim_names``) the mesh the hints place DTensors on, for the
+    block (the reference's ``with mesh:``)."""
+    _AMBIENT.append(device_mesh)
+    try:
+        yield device_mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def _ambient_mesh():
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+def hint_batch(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Constrain dim to the data-parallel axes (('pod','data') ∩ mesh).
+    Anchors activation sharding so the batch is not replicated, e.g.
+    after vocab-sharded embedding gathers."""
+    return hint_spec(x, {dim: "batch"})
+
+
+def hint_axis(x: torch.Tensor, dim: int, axis: str = "model"
+              ) -> torch.Tensor:
+    """Constrain one dim to a named mesh axis (e.g. experts on 'model')."""
+    return hint_spec(x, {dim: axis})
+
+
+def hint_pspec(shape, dims: dict, axis_names, sizes) -> Optional[tuple]:
+    """The spec ``hint_spec`` constrains a ``shape`` to on a mesh of
+    ``sizes`` along ``axis_names``: 'batch' expands to the data-parallel
+    axes, dims that don't divide are dropped; None when no dim is set."""
+    size_of = dict(zip(axis_names, sizes))
+    spec: list = [None] * len(shape)
+    for dim, axis in dims.items():
+        if axis == "batch":
+            axes = tuple(a for a in ("pod", "data") if a in size_of)
+            if axes and shape[dim] % math.prod(
+                    size_of[a] for a in axes) == 0:
+                spec[dim] = axes if len(axes) > 1 else axes[0]
+        elif axis in size_of and shape[dim] % size_of[axis] == 0:
+            spec[dim] = axis
+    return None if all(e is None for e in spec) else tuple(spec)
+
+
+def hint_spec(x: torch.Tensor, dims: dict) -> torch.Tensor:
+    """Constrain several dims at once: {dim: 'model' | 'batch'} (the
+    spec ``hint_pspec`` builds; the mesh axes it does not name
+    replicate).  Returns ``x`` itself without an ambient mesh, for a
+    plain tensor, or when no dim divides."""
+    m = _ambient_mesh()
+    if m is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = hint_pspec(tuple(x.shape), dims, m.mesh_dim_names, m.shape)
+    if spec is None:
+        return x
+    return x.redistribute(m, NamedSharding(m, spec).placements(m))
 
 
 # ----------------------------------------------------------------------
@@ -326,14 +401,14 @@ def _grouped_attention(q, k, v, mask_bias) -> torch.Tensor:
     hk = k.shape[2]
     g = h // hk
     f32 = torch.float32
-    q = q.reshape(b, s, hk, g, d).to(f32)
-    scores = torch.einsum("bskgd,btkd->bkgst", q, k.to(f32))
+    q = sharded_reshape(q, (b, s, hk, g, d)).to(f32)
+    scores = sharded_einsum("bskgd,btkd->bkgst", q, k.to(f32))
     scores = scores / math.sqrt(d)
     scores = scores + mask_bias  # (.., S, T) broadcast
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd",
+    out = sharded_einsum("bkgst,btkd->bskgd",
                        probs.to(v.dtype).to(f32), v.to(f32))
-    return out.reshape(b, s, h, d)
+    return sharded_reshape(out, (b, s, h, d))
 
 
 def _chunked_grouped_attention(q, k, v, q_pos0: int, t_valid: int,
@@ -348,7 +423,8 @@ def _chunked_grouped_attention(q, k, v, q_pos0: int, t_valid: int,
     t, hk = k.shape[1], k.shape[2]
     g = h // hk
     f32 = torch.float32
-    qg = (q.reshape(b, s, hk, g, d) / math.sqrt(d)).to(q.dtype).to(f32)
+    qg = (sharded_reshape(q, (b, s, hk, g, d))
+          / math.sqrt(d)).to(q.dtype).to(f32)
     c = min(kv_chunk, t)
     pad = (-t) % c
     if pad:
@@ -360,7 +436,7 @@ def _chunked_grouped_attention(q, k, v, q_pos0: int, t_valid: int,
     acc = torch.zeros((b, hk, g, s, d), dtype=f32, device=q.device)
     for i0 in range(0, k.shape[1], c):
         kc, vc = k[:, i0:i0 + c].to(f32), v[:, i0:i0 + c]
-        scores = torch.einsum("bskgd,bckd->bkgsc", qg, kc)
+        scores = sharded_einsum("bskgd,bckd->bkgsc", qg, kc)
         key_pos = i0 + torch.arange(c, device=q.device)
         valid = ((key_pos[None, :] <= q_pos[:, None])
                  & (key_pos[None, :] < t_valid))
@@ -369,12 +445,12 @@ def _chunked_grouped_attention(q, k, v, q_pos0: int, t_valid: int,
         p = torch.where(valid, torch.exp(scores - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bkgsc,bckd->bkgsd", p.to(vc.dtype).to(f32),
+        pv = sharded_einsum("bkgsc,bckd->bkgsd", p.to(vc.dtype).to(f32),
                           vc.to(f32))
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (b,hk,g,s,d)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return sharded_reshape(out.permute(0, 3, 1, 2, 4), (b, s, h, d))
 
 
 def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
@@ -390,9 +466,9 @@ def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
     v = policy.matmul(f"{layer_tag}.wv", x, params["wv"], lanes=mm_lanes)
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(*q.shape[:-1], h, hd)
-    k = k.reshape(*k.shape[:-1], hk, hd)
-    v = v.reshape(*v.shape[:-1], hk, hd)
+    q = sharded_reshape(q, (*q.shape[:-1], h, hd))
+    k = sharded_reshape(k, (*k.shape[:-1], hk, hd))
+    v = sharded_reshape(v, (*v.shape[:-1], hk, hd))
     if cfg.qk_norm:
         def norm(t, gamma):
             if lanes:
@@ -411,7 +487,8 @@ def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
 def _project_out(params, out, cfg: LMConfig, policy: ApproxPolicy,
                  layer_tag: str, lanes: bool) -> torch.Tensor:
     lanes = lanes or out.ndim == 5
-    out = out.reshape(*out.shape[:-2], cfg.n_heads * cfg.head_dim)
+    out = sharded_reshape(out, (*out.shape[:-2],
+                                cfg.n_heads * cfg.head_dim))
     out = policy.matmul(f"{layer_tag}.wo", out, params["wo"], lanes=lanes)
     return out.to(cfg.dtype)
 
@@ -544,9 +621,19 @@ def _chunk_loss(h, t, m, w_unembed):
     """Summed masked CE of one (B, chunk) slice, and its mask count."""
     logits = torch.matmul(h.to(torch.float32),
                           w_unembed.to(torch.float32).T)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
-    return torch.sum((lse - gold) * m), torch.sum(m)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    if hasattr(logits, "placements"):
+        # a DTensor (the dry run): pick the target column by a compare,
+        # which a vocab-sharded DTensor runs shard by shard; its gather
+        # goes through a masked-partial placement that some torch
+        # releases cannot run on meta shards.  The same value: one
+        # logit plus zeros.
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab == t.long()[..., None], logits,
+                           0.0).sum(dim=-1, keepdim=True)
+    else:
+        gold = torch.gather(logits, -1, t.long()[..., None])
+    return torch.sum((lse - gold)[..., 0] * m), torch.sum(m)
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, w_unembed: torch.Tensor,

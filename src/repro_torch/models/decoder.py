@@ -41,8 +41,9 @@ from typing import Any, Optional
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
+from ..launch.mesh import embedding_rows
 from .common import (LMConfig, attention, chunked_cross_entropy,
-                     dense_init, each_lane, ffn, init_attention,
+                     dense_init, each_lane, ffn, hint_batch, init_attention,
                      init_attention_cache, init_ffn, lane_attention,
                      lane_rms_norm, lanes_of, logits_from_hidden, rms_norm,
                      rms_norm_lanes)
@@ -206,6 +207,7 @@ def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
             h, a, nc = checkpoint(_group_body, *args, use_reentrant=False)
         else:
             h, a, nc = _group_body(*args)
+        h = hint_batch(h)
         aux = aux + a
         new.append(nc)
     new_caches = None if new[0] is None else _restack(caches, new)
@@ -221,7 +223,7 @@ def _embed_inputs(params, batch, cfg: LMConfig, policy: ApproxPolicy,
     token embeddings are copied to every lane (with ``lanes`` the batch
     axis is that lane axis)."""
     tokens = batch["tokens"]
-    h = params["embed"][tokens.long()].to(cfg.dtype)
+    h = embedding_rows(params["embed"], tokens.long()).to(cfg.dtype)
     if cfg.family == "vlm" and "img_embeds" in batch:
         img = policy.matmul("img_proj", batch["img_embeds"].to(cfg.dtype),
                             params["img_proj"], lanes=lanes).to(cfg.dtype)
@@ -229,7 +231,7 @@ def _embed_inputs(params, batch, cfg: LMConfig, policy: ApproxPolicy,
                       dim=-2)
     positions = torch.arange(h.shape[-2], dtype=torch.int32,
                              device=h.device)
-    return h, positions
+    return hint_batch(h), positions
 
 
 # ----------------------------------------------------------------------
@@ -310,7 +312,8 @@ def forward_decode(params, token, cache, cfg: LMConfig,
                    policy: ApproxPolicy = EXACT_POLICY):
     """One decode step. token: (B,) int. Returns (logits, new_cache)."""
     pos = _cache_pos(cache, cfg)
-    h = params["embed"][token.long()[:, None]].to(cfg.dtype)
+    h = hint_batch(embedding_rows(params["embed"], token.long()[:, None])
+                   .to(cfg.dtype))
     positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
     h, _aux, new_caches = _run_stack(params, h, positions, cfg, policy,
                                      caches=cache)

@@ -37,8 +37,10 @@ from typing import Any
 import torch
 
 from ..approx.layers import EXACT_POLICY, ApproxPolicy
+from ..launch.mesh import embedding_rows, sharded_reshape
 from .common import (LMConfig, _grouped_attention, _inv_freq_on,
-                     attention, dense_init, each_lane, ffn, init_attention,
+                     attention, dense_init, each_lane, ffn, hint_batch,
+                     init_attention,
                      init_attention_cache, init_ffn, lane_attention,
                      lane_rms_norm, lanes_of, logits_from_hidden,
                      rms_norm_lanes)
@@ -76,7 +78,7 @@ def cross_attention(params, x, enc_kv, cfg: LMConfig, policy: ApproxPolicy,
     h, hd = cfg.n_heads, cfg.head_dim
     q = policy.matmul(f"{layer_tag}.wq", x, params["wq"],
                       lanes=lanes or x.ndim == 4)
-    q = q.reshape(*q.shape[:-1], h, hd).to(cfg.dtype)
+    q = sharded_reshape(q, (*q.shape[:-1], h, hd)).to(cfg.dtype)
     if isinstance(enc_kv, list):
         out = torch.cat([
             _grouped_attention(q[i:i + 1].clone(), kv["k"], kv["v"], 0.0)
@@ -86,7 +88,7 @@ def cross_attention(params, x, enc_kv, cfg: LMConfig, policy: ApproxPolicy,
         out = each_lane(lambda q_, k_, v_: _grouped_attention(q_, k_, v_,
                                                               0.0),
                         lanes_of(4, q, k, v), 4, q, k, v)
-    out = out.reshape(*out.shape[:-2], h * hd)
+    out = sharded_reshape(out, (*out.shape[:-2], h * hd))
     return policy.matmul(f"{layer_tag}.wo", out, params["wo"],
                          lanes=lanes or out.ndim == 4).to(cfg.dtype)
 
@@ -98,7 +100,7 @@ def encode_cross_kv(params, enc_out, cfg: LMConfig, policy: ApproxPolicy,
     def proj(name):
         y = policy.matmul(f"{layer_tag}.{name}", enc_out, params[name],
                           lanes=lanes or enc_out.ndim == 4)
-        return y.reshape(*y.shape[:-1], h, hd).to(cfg.dtype)
+        return sharded_reshape(y, (*y.shape[:-1], h, hd)).to(cfg.dtype)
     return {"k": proj("wk"), "v": proj("wv")}
 
 
@@ -137,8 +139,8 @@ def encode(params, frames, cfg: LMConfig, policy: ApproxPolicy,
     that lane axis).  Causal, as the reference's code."""
     f, d = frames.shape[-2:]
     dev = frames.device
-    h = (frames.to(cfg.dtype)
-         + sinusoidal_positions(f, d, device=dev).to(cfg.dtype))
+    h = hint_batch(frames.to(cfg.dtype)
+                   + sinusoidal_positions(f, d, device=dev).to(cfg.dtype))
     positions = torch.arange(f, dtype=torch.int32, device=dev)
     for layer in range(cfg.n_enc_layers):
         lp = _index(params["enc_blocks"], layer)
@@ -147,8 +149,9 @@ def encode(params, frames, cfg: LMConfig, policy: ApproxPolicy,
                          cache=None, layer_tag="enc.attn", lanes=lanes)
         h = h + y
         hin = rms_norm_lanes(h, lp["norm2"], cfg.norm_eps)
-        h = h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="enc.ffn",
-                    lanes=lanes or hin.ndim == 4)
+        h = hint_batch(h + ffn(lp["ffn"], hin, cfg, policy,
+                               layer_tag="enc.ffn",
+                               lanes=lanes or hin.ndim == 4))
     return rms_norm_lanes(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -171,8 +174,9 @@ def _decode_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
                                 _index(cross_kvs, layer), cfg, policy,
                                 lanes=lanes)
         hin = rms_norm_lanes(h, lp["norm3"], cfg.norm_eps)
-        h = h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="dec.ffn",
-                    lanes=lanes or hin.ndim == 4)
+        h = hint_batch(h + ffn(lp["ffn"], hin, cfg, policy,
+                               layer_tag="dec.ffn",
+                               lanes=lanes or hin.ndim == 4))
     return (rms_norm_lanes(h, params["dec_norm"], cfg.norm_eps),
             _restack(self_caches, new))
 
@@ -181,7 +185,7 @@ def _embed_tokens(params, tokens, cfg: LMConfig, offset=0) -> torch.Tensor:
     """Token embeddings plus sinusoidal positions from ``offset``: an
     int, or one int a batch row (the continuous engine's lanes, each
     row's table made alone at a B=1 call's shape)."""
-    h = params["embed"][tokens.long()].to(cfg.dtype)
+    h = embedding_rows(params["embed"], tokens.long()).to(cfg.dtype)
     s, d = tokens.shape[1], cfg.d_model
     if isinstance(offset, int):
         pos = sinusoidal_positions(s, d, offset, device=h.device)
@@ -189,7 +193,7 @@ def _embed_tokens(params, tokens, cfg: LMConfig, offset=0) -> torch.Tensor:
         pos = torch.stack([sinusoidal_positions(s, d, int(o),
                                                 device=h.device)
                            for o in offset])
-    return h + pos.to(cfg.dtype)
+    return hint_batch(h + pos.to(cfg.dtype))
 
 
 def _last_logits(params, h: torch.Tensor, row: int) -> torch.Tensor:
@@ -209,8 +213,8 @@ def _train_layer(h, lp, xkv, positions, cfg: LMConfig,
     hin = rms_norm_lanes(h, lp["norm2"], cfg.norm_eps)
     h = h + cross_attention(lp["xattn"], hin, xkv, cfg, policy)
     hin = rms_norm_lanes(h, lp["norm3"], cfg.norm_eps)
-    return h + ffn(lp["ffn"], hin, cfg, policy, layer_tag="dec.ffn",
-                   lanes=hin.ndim == 4)
+    return hint_batch(h + ffn(lp["ffn"], hin, cfg, policy,
+                              layer_tag="dec.ffn", lanes=hin.ndim == 4))
 
 
 def forward_train(params, batch, cfg: LMConfig,

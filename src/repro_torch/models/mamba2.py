@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
+from ..launch.mesh import sharded_einsum, sharded_reshape
 from .common import LMConfig, dense_init, randn, rms_norm
 
 
@@ -99,11 +100,11 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int,
     la = dt * a[None, None, :]                       # (B,S,H) log-decay
     xbar = x * dt[..., None]                         # (B,S,H,P)
 
-    la_c = la.reshape(bsz, nc, q, h)
+    la_c = sharded_reshape(la, (bsz, nc, q, h))
     cum = torch.cumsum(la_c, dim=2)                  # (B,NC,Q,H)
-    x_c = xbar.reshape(bsz, nc, q, h, p)
-    b_c = b_mat.reshape(bsz, nc, q, n)
-    c_c = c_mat.reshape(bsz, nc, q, n)
+    x_c = sharded_reshape(xbar, (bsz, nc, q, h, p))
+    b_c = sharded_reshape(b_mat, (bsz, nc, q, n))
+    c_c = sharded_reshape(c_mat, (bsz, nc, q, n))
 
     # intra-chunk: M[i,j] = exp(cum_i - cum_j) * (c_i . b_j), i >= j;
     # masked inside the exponent, as in the reference
@@ -111,13 +112,13 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int,
     causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                    device=x.device))[None, None, :, :, None]
     l_mat = torch.exp(torch.where(causal, diff, -1e30))
-    cb = torch.einsum("bcin,bcjn->bcij", c_c, b_c)
+    cb = sharded_einsum("bcin,bcjn->bcij", c_c, b_c)
     m = cb[..., None] * l_mat                               # (B,NC,Q,Q,H)
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", m, x_c)
+    y_intra = sharded_einsum("bcijh,bcjhp->bcihp", m, x_c)
 
     # per-chunk input state: S_c = sum_j exp(cum_last - cum_j) b_j (x) x_j
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)       # (B,NC,Q,H)
-    s_chunk = torch.einsum("bcjh,bcjn,bcjhp->bchpn",
+    s_chunk = sharded_einsum("bcjh,bcjn,bcjhp->bchpn",
                            decay_to_end, b_c, x_c)
 
     # inter-chunk: sequential state pass (the state BEFORE each chunk)
@@ -133,10 +134,10 @@ def _ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int,
     prev_states = torch.stack(prev, dim=1)                  # (B,NC,H,P,N)
 
     # y_inter[i] = exp(cum_i) * c_i . state_{c-1}
-    y_inter = torch.einsum("bcih,bcin,bchpn->bcihp",
+    y_inter = sharded_einsum("bcih,bcin,bchpn->bcihp",
                            torch.exp(cum), c_c, prev_states)
 
-    y = (y_intra + y_inter).reshape(bsz, s, h, p)
+    y = sharded_reshape(y_intra + y_inter, (bsz, s, h, p))
     return y, state
 
 
@@ -156,7 +157,7 @@ def _mix(params, proj, cfg: LMConfig, cache: Optional[dict]
 
     dt = _softplus(dt.to(torch.float32) + params["dt_bias"])
     a = -torch.exp(params["a_log"])
-    xs_h = xs.reshape(bsz, s, h, p).to(torch.float32)
+    xs_h = sharded_reshape(xs, (bsz, s, h, p)).to(torch.float32)
     b32 = b_mat.to(torch.float32)
     c32 = c_mat.to(torch.float32)
 
@@ -167,16 +168,16 @@ def _mix(params, proj, cfg: LMConfig, cache: Optional[dict]
         state = cache["state"]                       # (B,H,P,N)
         dtl = dt[:, 0, :]                            # (B,H)
         dec = torch.exp(dtl * a[None, :])
-        upd = torch.einsum("bh,bhp,bn->bhpn", dtl, xs_h[:, 0], b32[:, 0])
+        upd = sharded_einsum("bh,bhp,bn->bhpn", dtl, xs_h[:, 0], b32[:, 0])
         state = state * dec[:, :, None, None] + upd
-        y = torch.einsum("bn,bhpn->bhp", c32[:, 0], state)[:, None]
+        y = sharded_einsum("bn,bhpn->bhp", c32[:, 0], state)[:, None]
         new_cache = {"conv": new_conv, "state": state}
     else:  # prefill with cache carry-out
         y, final = _ssd_chunked(xs_h, dt, a, b32, c32, cfg.ssm_chunk)
         new_cache = {"conv": new_conv, "state": final}
 
     y = y + xs_h * params["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, s, di)
+    y = sharded_reshape(y, (bsz, s, di))
     y = y * F.silu(z.to(torch.float32))
     return rms_norm(y.to(cfg.dtype), params["norm"], cfg.norm_eps), new_cache
 

@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from ..approx.layers import ApproxPolicy
+from ..launch.mesh import sharded_einsum, sharded_reshape
 from .common import (LMConfig, apply_rope, causal_bias, dense_init,
                      each_lane, lane_rms_norm, lanes_of, rms_norm_lanes,
                      rope_tables)
@@ -75,11 +76,11 @@ def _mla_core(q_n, q_r, k_n, k_r, v, mask_bias, cfg: LMConfig
     v:(B,T,H,dv) -> (B,S,H,dv) f32; operands in the working dtype,
     products and sums in f32."""
     f32 = torch.float32
-    s_n = torch.einsum("bshd,bthd->bhst", q_n.to(f32), k_n.to(f32))
-    s_r = torch.einsum("bshd,btd->bhst", q_r.to(f32), k_r.to(f32))
+    s_n = sharded_einsum("bshd,bthd->bhst", q_n.to(f32), k_n.to(f32))
+    s_r = sharded_einsum("bshd,btd->bhst", q_r.to(f32), k_r.to(f32))
     scores = (s_n + s_r) * _scale(cfg) + mask_bias
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).to(f32),
+    return sharded_einsum("bhst,bthd->bshd", probs.to(v.dtype).to(f32),
                         v.to(f32))
 
 
@@ -105,8 +106,8 @@ def _mla_core_chunked(q_n, q_r, k_n, k_r, v, q_pos0: int, t_valid: int,
     acc = torch.zeros((b, h, s, dv), dtype=f32, device=dev)
     for i0 in range(0, k_n.shape[1], c):
         vc = v[:, i0:i0 + c]
-        sc = torch.einsum("bshd,bchd->bhsc", q_n, k_n[:, i0:i0 + c].to(f32))
-        sc = sc + torch.einsum("bshd,bcd->bhsc", q_r,
+        sc = sharded_einsum("bshd,bchd->bhsc", q_n, k_n[:, i0:i0 + c].to(f32))
+        sc = sc + sharded_einsum("bshd,bcd->bhsc", q_r,
                                k_r[:, i0:i0 + c].to(f32))
         sc = sc * _scale(cfg)
         key_pos = i0 + torch.arange(c, device=dev)
@@ -117,7 +118,7 @@ def _mla_core_chunked(q_n, q_r, k_n, k_r, v, q_pos0: int, t_valid: int,
         p = torch.where(valid, torch.exp(sc - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhsc,bchd->bhsd", p.to(vc.dtype).to(f32),
+        pv = sharded_einsum("bhsc,bchd->bhsd", p.to(vc.dtype).to(f32),
                           vc.to(f32))
         acc = acc * alpha[..., None] + pv
         m = m_new
@@ -156,8 +157,8 @@ def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     cq = rms_norm_lanes(mm("wdq", x), params["qn"], eps)
     q_n = mm("wuq", cq)
     q_r = mm("wqr", cq)
-    q_n = q_n.reshape(*q_n.shape[:-1], h, dn)
-    q_r = q_r.reshape(*q_r.shape[:-1], h, dr)
+    q_n = sharded_reshape(q_n, (*q_n.shape[:-1], h, dn))
+    q_r = sharded_reshape(q_r, (*q_r.shape[:-1], h, dr))
     ckv = rms_norm_lanes(mm("wdkv", x), params["kvn"], eps)
     kr = mm("wkr", x)                               # (B,S,dr)
 
@@ -180,8 +181,8 @@ def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     # expand the compressed cache, all of it, to per-head keys/values
     k_n = mm("wuk", ckv_all)
     v = mm("wuv", ckv_all)
-    k_n = k_n.reshape(*k_n.shape[:-1], h, dn)
-    v = v.reshape(*v.shape[:-1], h, dv)
+    k_n = sharded_reshape(k_n, (*k_n.shape[:-1], h, dn))
+    v = sharded_reshape(v, (*v.shape[:-1], h, dv))
 
     dt = cfg.dtype
     if cfg.attn_impl == "chunked":
@@ -199,7 +200,7 @@ def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
            kr_all.to(dt)[..., None, :])
     out = each_lane(lambda qn_, qr_, kn_, v_, kr_: core(
         qn_, qr_, kn_, v_, kr_[..., 0, :]), lanes_of(4, *ops), 4, *ops)
-    out = out.reshape(*out.shape[:-2], h * dv)
+    out = sharded_reshape(out, (*out.shape[:-2], h * dv))
     return mm("wo", out).to(dt), new_cache
 
 

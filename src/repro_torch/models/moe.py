@@ -28,6 +28,10 @@ Differences from the reference, none of which changes a value:
     rows a lane).
 The reference's ``_moe_blocked`` is called by nothing in the reference
 and is not ported.
+
+Without block-local dispatch (``moe_blocks <= 1``) the expert buffer is
+hinted onto the ``model`` axis (expert parallelism) under an ambient
+mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from ..approx.layers import ApproxPolicy
-from .common import LMConfig, activation, dense_init, ffn, init_ffn
+from ..launch.mesh import sharded_reshape
+from .common import (LMConfig, activation, dense_init, ffn, hint_axis,
+                     init_ffn)
 
 
 def init_moe(gen: torch.Generator, cfg: LMConfig, lead: tuple = ()
@@ -90,7 +96,7 @@ def route(params, xf: torch.Tensor, cfg: LMConfig) -> Route:
     top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
 
     # aux loss (Switch-style): E * sum_e f_e * p_e
-    flat_e = top_ids.reshape(-1)                           # (T·k,)
+    flat_e = sharded_reshape(top_ids, (-1,))             # (T·k,)
     me = torch.mean(probs, dim=0)
     ce = torch.zeros((e,), dtype=torch.float32, device=xf.device)
     ce = ce.index_add(0, flat_e, torch.full(flat_e.shape, 1.0 / (t * k),
@@ -115,8 +121,8 @@ def dispatch(xf: torch.Tensor, r: Route, cfg: LMConfig) -> torch.Tensor:
     row = torch.where(r.pos_in_e < cap, r.sorted_e * cap + r.pos_in_e,
                       e * cap)
     buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
-    buf[row] = xf[r.order // k]
-    return buf[:e * cap].view(e, cap, d)
+    buf = buf.index_put((row,), xf[r.order // k])
+    return sharded_reshape(buf[:e * cap], (e, cap, d))
 
 
 def combine(out_buf: torch.Tensor, r: Route, cfg: LMConfig
@@ -129,8 +135,8 @@ def combine(out_buf: torch.Tensor, r: Route, cfg: LMConfig
     gathered = torch.where((r.pos_in_e < cap)[:, None], gathered, 0.0)
     slot_out = torch.zeros((t * k, out_buf.shape[-1]), dtype=out_buf.dtype,
                            device=out_buf.device)
-    slot_out[r.order] = gathered
-    slot_out = slot_out.reshape(t, k, -1)
+    slot_out = slot_out.index_put((r.order,), gathered)
+    slot_out = sharded_reshape(slot_out, (t, k, -1))
     return torch.sum(slot_out * r.top_w[..., None].to(slot_out.dtype),
                      dim=1)
 
@@ -166,15 +172,16 @@ def moe_ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
     t = b * s
     nb = cfg.moe_blocks
     if nb > 1 and t % nb == 0 and t // nb >= cfg.top_k:
-        xb = x.reshape(*lead, nb, t // nb, d)
+        xb = sharded_reshape(x, (*lead, nb, t // nb, d))
         outs = [_moe_tokens(params, xb[..., j, :, :], cfg, policy,
                             layer_tag) for j in range(nb)]
         y = torch.stack([o[0] for o in outs], dim=-3)
         aux = torch.mean(torch.stack([o[1] for o in outs], dim=-1), dim=-1)
-        return y.reshape(*y.shape[:-3], b, s, d).to(x.dtype), aux
-    y, aux = _moe_tokens(params, x.reshape(*lead, t, d), cfg, policy,
-                         layer_tag)
-    return y.reshape(*y.shape[:-2], b, s, d).to(x.dtype), aux
+        return (sharded_reshape(y, (*y.shape[:-3], b, s, d)).to(x.dtype),
+                aux)
+    y, aux = _moe_tokens(params, sharded_reshape(x, (*lead, t, d)), cfg,
+                         policy, layer_tag)
+    return sharded_reshape(y, (*y.shape[:-2], b, s, d)).to(x.dtype), aux
 
 
 def _moe_tokens(params, xf, cfg: LMConfig, policy: ApproxPolicy,
@@ -185,6 +192,8 @@ def _moe_tokens(params, xf, cfg: LMConfig, policy: ApproxPolicy,
     routes = [route(params, x, cfg) for x in xs]
     bufs = [dispatch(x, r, cfg) for x, r in zip(xs, routes)]
     buf = torch.stack(bufs) if lanes else bufs[0]
+    if cfg.moe_blocks <= 1 and not lanes:
+        buf = hint_axis(buf, 0, "model")   # EP: expert dim on 'model'
 
     hidden = _expert_matmul(policy, f"{layer_tag}.wi", buf, params["wi"])
     if cfg.act == "silu":

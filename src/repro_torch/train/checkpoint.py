@@ -20,9 +20,18 @@ and dtypes and the metadata.
     (on their device, in their dtype), so an ``nn.Module`` and the
     optimizer state stay linked to the tensors they hold.
 
-One process writes one shard (``shard-00000``); the reference's
-per-host shards and resharding onto a mesh need a mesh (ROADMAP.md
-Queue 1, "Launch tooling and multi-device").
+Per-host shards: with a ``torch.distributed`` group up, rank r writes
+``shard-{r:05d}.npz`` (every process without one writes
+``shard-00000``), and ``manifest.json`` records ``n_hosts`` = the world
+size.  The leaves are dealt out in turn, leaf i to rank i mod the world
+size, so no process writes the whole state; a DTensor leaf is gathered
+(``full_tensor``, a collective every rank joins) and written by its
+rank.  Every rank writes into one staging directory, and rank 0
+publishes it after a barrier.  ``restore`` merges every ``shard-*.npz``,
+as the reference's does; with ``shardings`` (a tree of
+``launch.mesh.NamedSharding`` over a ``torch.distributed`` ``DeviceMesh``)
+it returns DTensors placed by ``NamedSharding.placements`` on the
+current mesh, whatever mesh wrote the checkpoint — the elastic path.
 """
 from __future__ import annotations
 
@@ -39,11 +48,32 @@ import torch
 from .optimizer import tree_leaves
 
 
+def _world() -> tuple[int, int]:
+    """(rank, world size) of the ``torch.distributed`` group, or (0, 1)
+    without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if _world()[1] > 1:
+        dist.barrier()
+
+
 def _host(state: Any) -> dict[str, np.ndarray]:
-    """Every leaf of ``state`` as a host numpy array (a copy), by path."""
+    """This rank's leaves of ``state`` (leaf i when i mod the world size
+    is the rank) as host numpy arrays (copies), by path."""
+    rank, world = _world()
     out = {}
-    for key, leaf in tree_leaves(state):
-        out[key] = leaf.detach().to("cpu", copy=True).numpy()
+    for i, (key, leaf) in enumerate(tree_leaves(state)):
+        full = getattr(leaf, "full_tensor", None)
+        if full is not None:
+            leaf = full()            # a collective: every rank joins
+        if i % world == rank:
+            out[key] = leaf.detach().to("cpu", copy=True).numpy()
     return out
 
 
@@ -82,7 +112,7 @@ class CheckpointManager:
             metadata["approx_policy"] = policy.to_json_dict()
         self.wait()  # one outstanding async save at a time
         arrays = _host(state)   # device -> host now, before any update
-        if self.async_save and not block:
+        if self.async_save and not block and _world()[1] == 1:
             self._thread = threading.Thread(
                 target=self._write, args=(step, arrays, metadata))
             self._thread.start()
@@ -96,26 +126,39 @@ class CheckpointManager:
 
     def _write(self, step: int, arrays: dict[str, np.ndarray],
                metadata: Optional[dict]) -> None:
+        rank, world = _world()
         final = self._step_dir(step)
-        tmp = os.path.join(self.directory, f"tmp-{step:09d}-{os.getpid()}")
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "shard-00000.npz"), **arrays)
-        manifest = {
-            "step": step,
-            "time": time.time(),
-            "n_hosts": 1,
-            "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                       for k, v in arrays.items()},
-            "metadata": metadata or {},
-        }
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.replace(tmp, final)   # atomic publish
-        self._gc()
+        # one staging directory for every rank of a group
+        tmp = os.path.join(self.directory, f"tmp-{step:09d}-" + (
+            f"{os.getpid()}" if world == 1 else f"w{world}"))
+        if rank == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        _barrier()
+        np.savez(os.path.join(tmp, f"shard-{rank:05d}.npz"), **arrays)
+        leaves = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                  for k, v in arrays.items()}
+        if world > 1:
+            import torch.distributed as dist
+            every: list = [None] * world
+            dist.all_gather_object(every, leaves)
+            leaves = {k: v for part in every for k, v in part.items()}
+        if rank == 0:
+            manifest = {
+                "step": step,
+                "time": time.time(),
+                "n_hosts": world,
+                "leaves": leaves,
+                "metadata": metadata or {},
+            }
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)   # atomic publish
+            self._gc()
+        _barrier()
 
     def _gc(self) -> None:
         steps = sorted(
@@ -125,12 +168,15 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore ---------------------------------------------------------
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> tuple[Any, dict]:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> tuple[Any, dict]:
         """Copy checkpoint ``step`` (default: the latest) into
         ``template``'s tensors in place; returns (template, metadata).
-        Raises on a missing leaf or a shape mismatch before it copies
-        anything."""
+        With ``shardings`` (a tree of ``NamedSharding`` like
+        ``template``'s, over a ``DeviceMesh``) it returns a new tree of
+        DTensors instead, each leaf in the template's dtype placed on
+        that mesh.  Raises on a missing leaf or a shape mismatch before
+        it copies anything."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -151,10 +197,66 @@ class CheckpointManager:
                 raise ValueError(
                     f"shape mismatch for {key}: ckpt {arrays[key].shape} "
                     f"vs model {tuple(leaf.shape)}")
+        if shardings is not None:
+            return (_placed(template, shardings, arrays),
+                    manifest.get("metadata", {}))
         with torch.no_grad():
             for key, leaf in leaves:
                 leaf.copy_(torch.from_numpy(np.asarray(arrays[key])))
         return template, manifest.get("metadata", {})
+
+
+def _placed(template: Any, shardings: Any, arrays: dict) -> Any:
+    """``template``'s tree with each leaf ``arrays[path]`` as a DTensor
+    on its sharding's ``DeviceMesh``: every rank holds the whole array
+    from disk and keeps its own shard (no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    sh_of = dict(_sharding_leaves(shardings))
+    out = {}
+    for key, leaf in tree_leaves(template):
+        sh = sh_of[key]
+        device_mesh = sh.mesh
+        full = torch.from_numpy(np.asarray(arrays[key])).to(
+            device=device_mesh.device_type, dtype=leaf.dtype)
+        out[key] = distribute_tensor(full, device_mesh,
+                                     sh.placements(device_mesh),
+                                     src_data_rank=None)
+    return _renest(template, out)
+
+
+def _sharding_leaves(shardings: Any, prefix: str = "") -> list:
+    """``(path, NamedSharding)`` of a sharding tree, with the paths
+    ``optimizer.tree_leaves`` gives the matching state."""
+    sep = "/" if prefix else ""
+    if isinstance(shardings, dict):
+        return [kv for k in sorted(shardings)
+                for kv in _sharding_leaves(shardings[k],
+                                           f"{prefix}{sep}{k}")]
+    if isinstance(shardings, tuple) and hasattr(shardings, "_fields"):
+        return [kv for f in shardings._fields
+                for kv in _sharding_leaves(getattr(shardings, f),
+                                         f"{prefix}{sep}.{f}")]
+    if isinstance(shardings, (tuple, list)):
+        return [kv for i, v in enumerate(shardings)
+                for kv in _sharding_leaves(v, f"{prefix}{sep}{i}")]
+    return [(prefix, shardings)]
+
+
+def _renest(template: Any, flat: dict, prefix: str = "") -> Any:
+    """A tree shaped like ``template`` holding ``flat[path]``."""
+    sep = "/" if prefix else ""
+    if isinstance(template, dict):
+        return {k: _renest(v, flat, f"{prefix}{sep}{k}")
+                for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(
+            _renest(getattr(template, f), flat, f"{prefix}{sep}.{f}")
+            for f in template._fields))
+    if isinstance(template, (tuple, list)):
+        return type(template)(_renest(v, flat, f"{prefix}{sep}{i}")
+                              for i, v in enumerate(template))
+    return flat[prefix]
 
 
 def policy_from_metadata(metadata: dict):
