@@ -116,7 +116,15 @@ Phases (any failure exits nonzero):
   4. K10 against ``Netlist.eval_words`` and its plain version on
      exhaustive planes (65 536 vectors) for every evolved netlist of the
      built library;
-  5. timings — each kernel and its plain version at the main-path
+  5. the expert axis of K1-K4 (``phase_experts``): one launch for an MoE
+     projection's experts and bank lanes, bit for bit against the plain
+     versions at E = 8 with qwen3-moe's and deepseek's expert projections
+     (M = 4, P = 1 and 3, activations banked and shared) and at ragged
+     shapes (two token blocks' buffers over the same experts among
+     them), then at full E (P = 15 x E = 128 at qwen3-moe's (2048, 768),
+     P = 24 x E = 160 at deepseek's (5120, 1536)) against E launches of
+     K2/K4 without the axis, bit for bit, each timed beside its bound;
+     then timings — each kernel and its plain version at the main-path
      shapes (CUDA events after warm-up) beside its bound, the largest of
      its table lookups, its integer ops and its bytes (K9 also beside
      ``torch.matmul`` of its pre-gathered tables, its ``library_ms``, with
@@ -169,7 +177,8 @@ Phases (any failure exits nonzero):
      banked launches a sweep, peak memory and selection, failing unless
      the banked sweep of every row equals the sequential evaluation bit
      for bit, the banked kernel launched exactly the formula's count
-     (96, 776, 64 and 491 a sweep) and fused rows equal pallas rows,
+     (96, 14, 64 and 14 a sweep: one a projection, a routed-expert
+     projection one for all its experts) and fused rows equal pallas rows,
      with one banked sweep of each under ``torch.profiler`` (device
      busy, kernels); then K2 and K4 timed at those sweeps' shapes beside
      their bounds;
@@ -434,6 +443,23 @@ PROFILE_STEP_LARGE = ((21, 3000, 1280, 1280), (21, 3000, 1280, 5120),
 # expert projections at all 24
 PROFILE_STEP_CHECK = ((2, 3000, 1280, 1280), (24, 4, 5120, 1536),
                       (24, 4, 1536, 5120))
+# the expert axis of K1-K4 (``phase_experts``: an MoE projection's E
+# experts, for every bank lane, in one launch): (lanes P, experts E, rows
+# M, K, N).  Held against the plain versions at E = 8 with qwen3-moe's and
+# deepseek's expert projections at M = 4 capacity rows, one lane (K1/K3
+# on one table; K2/K4 with a bank of one) and three (K2/K4, activations
+# banked and shared), and at ragged shapes (the last: two token blocks'
+# buffers over the same experts, X = 2E slices); then at full E against E
+# launches of the kernels without the axis (kernel against kernel: the
+# plain gather would take minutes at 160 experts) and timed beside them
+EXPERT_CHECK = ((1, 8, 4, 2048, 768), (3, 8, 4, 2048, 768),
+                (1, 8, 4, 768, 2048), (3, 8, 4, 768, 2048),
+                (1, 8, 4, 5120, 1536), (3, 8, 4, 5120, 1536),
+                (1, 8, 4, 1536, 5120), (3, 8, 4, 1536, 5120))
+EXPERT_RAGGED = ((2, 5, 7, 577, 65), (3, 3, 1, 33, 9), (1, 4, 513, 31, 8),
+                 (2, 3, 2, 100, 50))
+EXPERT_BLOCKS = 2            # the last ragged case: X = 2E slices
+EXPERT_FULL = ((15, 128, 4, 2048, 768), (24, 160, 4, 5120, 1536))
 # the encoder-decoder serve path: whisper-large-v3 whole (32 encoder and
 # 32 decoder layers, 1 500 frames) at the serve path's settings; K9 a
 # prefill: 6 a layer in the encoder, the cross-KV's 2 and 8 a layer in
@@ -1943,12 +1969,12 @@ def _profile_mla_step(device) -> dict:
     spent = []
     matmul = engine_mod._CountedPolicy.matmul
 
-    def timed(self, name, x, w, lanes=False):
+    def timed(self, name, x, w, lanes=False, experts=False):
         if not name.endswith((".wuk", ".wuv")):
-            return matmul(self, name, x, w, lanes)
+            return matmul(self, name, x, w, lanes, experts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y = matmul(self, name, x, w, lanes)
+        y = matmul(self, name, x, w, lanes, experts)
         torch.cuda.synchronize()
         spent.append(time.perf_counter() - t0)
         return y
@@ -2050,8 +2076,17 @@ def phase_serve_families(device, log, launches_total: dict) -> dict:
     out["mla_step_profile"] = prof
 
     def k9_calls(cfg, b, s):
+        from repro_torch.models.decoder import block_pattern
         from repro_torch.models.moe import capacity
-        per_forward = serve_load.banked_calls_per_step(cfg)["decode"]
+        # the call-site formula counts one call a routed-expert
+        # projection; lowrank has no expert form, so K9 launches once an
+        # expert there (E where the formula counts 1)
+        pattern = block_pattern(cfg)
+        moe_layers = (sum(f == "moe" for _m, f in pattern)
+                      * (cfg.n_layers // len(pattern)))
+        ffn = 3 if cfg.act == "silu" else 2
+        per_forward = (serve_load.banked_calls_per_step(cfg)["decode"]
+                       + moe_layers * ffn * (cfg.n_experts - 1))
         # projections at b*s (prefill) or b (decode) rows, wuk/wuv over
         # the whole cache (the checked generate's s + 2 rows), the routed
         # experts at their capacity
@@ -3401,6 +3436,171 @@ def _leaves(tree):
         yield tree
 
 
+def _expert_operands(p_, e, m, k, n, gen, device, blocks: int = 1) -> dict:
+    """The expert form's operands at one shape: codes (K1/K2) and floats
+    (K3/K4) of ``blocks`` x E slices, banked (P lanes) and shared, the
+    stacked weights, and each (lane, slice) pair's scalars (the backend's
+    ``calibrate_slices``, weight scalars per expert)."""
+    from repro_torch.approx.quant import calibrate_slices, pair_scalars
+    x_ = blocks * e
+    out = {"qab": _codes((p_, x_, m, k), gen, device),
+           "qa": _codes((x_, m, k), gen, device),
+           "qw": _codes((e, k, n), gen, device),
+           "xb": _floats((p_, x_, m, k), gen, device),
+           "x": _floats((x_, m, k), gen, device),
+           "w": _floats((e, k, n), gen, device, 0.2)}
+    qp_w = calibrate_slices(out["w"])
+    for key in ("xb", "x"):
+        out[f"sp_{key}"] = pair_scalars(calibrate_slices(out[key]), qp_w,
+                                        p_, x_)
+    return out
+
+
+def phase_experts(device) -> dict:
+    """The expert axis of K1-K4 (``kernels.ops`` with stacked weights
+    (E, K, N): one launch for every expert and bank lane, as
+    ``models.moe._expert_matmul`` now makes one a projection).  (a) Bit
+    for bit against the plain versions (``ref.*_experts_ref``: a loop
+    over the pairs of the kernels' plain versions) at ``EXPERT_CHECK`` and
+    ``EXPERT_RAGGED``: K1/K3 on one table, K2/K4 on P tables with banked
+    and shared activations, the fused kernels' f32 results after the
+    eager epilogue too.  (b) At ``EXPERT_FULL`` against E launches of
+    K2/K4 without the axis, bit for bit, each form timed (CUDA events)
+    beside its bound (the largest of the table lookups at 32 a clock per
+    SM, the integer adds and the bytes, ``phase_timing``'s rates)."""
+    import torch
+    from repro_torch.approx.quant import calibrate_slices, pair_scalars
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(3)
+    profile = _tables(device)["profile"]
+    max_err = {k: 0.0 for k in ("lut_matmul", "lut_matmul_bank",
+                                "fused_matmul", "fused_matmul_bank")}
+    cases = 0
+
+    def check(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        for g, v in zip(got, want):
+            v = v.reshape(g.shape)
+            if g.numel():
+                err = float((g.double() - v.double()).abs().max())
+                max_err[name] = max(max_err[name], err)
+            if not torch.equal(g, v):
+                raise AssertionError(f"{name} expert form != {what} (max "
+                                     f"abs err {max_err[name]})")
+        cases += 1
+
+    def fused(name, op, plain, x, w, tabs, sp, what):
+        pairs = (tabs.shape[0] if tabs.ndim == 3 else 1) * x.shape[-3]
+        fp, ip = fm.pack_scalars(pairs, device, *sp)
+        want = plain(x, w, tabs.to(torch.int32), fp, ip)
+        check(name, op(x, w, tabs, *sp, raw=True), want, f"plain {what}")
+        k = x.shape[-1]
+        lead = want[0].shape[:-2]
+        s = want[0].to(torch.float32).reshape(-1, *want[0].shape[-2:])
+        f32 = fm.dequant(s, want[1].reshape(-1, want[1].shape[-1]),
+                         want[2].reshape(-1, want[2].shape[-1]), fp, ip, k)
+        check(name, [op(x, w, tabs, *sp)], [f32.reshape(*lead, *f32.shape[
+            -2:])], f"plain {what} f32")
+
+    shapes = [(c, 1) for c in EXPERT_CHECK] + [
+        (c, EXPERT_BLOCKS if i == len(EXPERT_RAGGED) - 1 else 1)
+        for i, c in enumerate(EXPERT_RAGGED)]
+    for (p_, e, m, k, n), blocks in shapes:
+        what = f"P={p_} E={e} x{blocks} {(m, k, n)}"
+        o = _expert_operands(p_, e, m, k, n, gen, device, blocks)
+        idx = torch.arange(p_, device=device) % profile.shape[0]
+        tabs = profile.index_select(0, idx)
+        if p_ == 1:                       # one table: K1 and K3
+            check("lut_matmul", [ops.approx_matmul_lut(o["qa"], o["qw"],
+                                                       tabs[0])],
+                  [ref.approx_matmul_lut_experts_ref(
+                      o["qa"], o["qw"], tabs[0].to(torch.int32))],
+                  f"plain {what}")
+            fused("fused_matmul", ops.fused_matmul_lut,
+                  ref.fused_matmul_experts_ref, o["x"], o["w"], tabs[0],
+                  o["sp_x"], what)
+        for key in ("qab", "qa"):
+            check("lut_matmul_bank",
+                  [ops.approx_matmul_lut_bank(o[key], o["qw"], tabs)],
+                  [ref.approx_matmul_lut_bank_experts_ref(
+                      o[key], o["qw"], tabs.to(torch.int32))],
+                  f"plain {what} {key}")
+        for key in ("xb", "x"):
+            fused("fused_matmul_bank", ops.fused_matmul_lut_bank,
+                  ref.fused_matmul_bank_experts_ref, o[key], o["w"], tabs,
+                  o[f"sp_{key}"], f"{what} {key}")
+        del o
+    print(f"[experts] {cases} expert-form cases equal the plain versions "
+          f"bit for bit")
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
+    lookup_rate = sms * LOOKUPS_PER_SM_CLOCK * clock_hz
+    int_rate = sms * INT32_OPS_PER_SM_CLOCK * clock_hz
+    rows = []
+    for p_, e, m, k, n in EXPERT_FULL:
+        what = f"P={p_} E={e} {(m, k, n)}"
+        idx = torch.arange(p_, device=device) % profile.shape[0]
+        tabs = profile.index_select(0, idx)
+        products = p_ * e * m * k * n
+        for kernel, op, floats in (
+                ("lut_matmul_bank", ops.approx_matmul_lut_bank, False),
+                ("fused_matmul_bank", ops.fused_matmul_lut_bank, True)):
+            if not floats:
+                a = _codes((p_, e, m, k), gen, device)
+                w = _codes((e, k, n), gen, device)
+                sp = ()
+            else:
+                a = _floats((p_, e, m, k), gen, device)
+                w = _floats((e, k, n), gen, device, 0.2)
+                sp = pair_scalars(calibrate_slices(a), calibrate_slices(w),
+                                  p_, e)
+            call = (lambda: op(a, w, tabs, *sp, raw=True)) if sp else (
+                lambda: op(a, w, tabs))
+            # today's E launches, their slices cut before the clock
+            slices = [a[:, j].contiguous() for j in range(e)]
+            sc = [[v.reshape(p_, e)[:, j].contiguous() if isinstance(
+                v, torch.Tensor) else v for v in sp] for j in range(e)]
+
+            def loop():
+                return [op(slices[j], w[j], tabs, *sc[j],
+                           **({"raw": True} if sp else {}))
+                        for j in range(e)]
+            got = call()
+            per = loop()
+            want = ([torch.stack(per, dim=1)] if not sp else
+                    [torch.stack([q[i] for q in per], dim=1)
+                     for i in range(3)])
+            check(kernel, got if sp else [got], want,
+                  f"{e} launches without the axis, {what}")
+            del per, want, got
+            ms = _time(call, reps=2, warmup=1)
+            loop_ms = _time(loop, reps=1, warmup=0)
+            nbytes = (a.numel() + w.numel() + p_ * e * m * n
+                      + (p_ * e * (m + n) if sp else 0)) * 4 \
+                + p_ * 65536 * 2
+            rows.append({"kernel": kernel, "form": "experts", "lanes": p_,
+                         "experts": e, "M": m, "K": k, "N": n, "ms": ms,
+                         "e_launches_ms": loop_ms,
+                         "items": fm.k_split(p_ * e, m, k, n, sms).items,
+                         **_bounds(products / lookup_rate,
+                                   int_seconds(0, 2 * products, int_rate),
+                                   nbytes / HBM_BYTES_PER_S)})
+            print(f"[experts] {kernel} {what}: one launch {ms:.3f} ms, "
+                  f"{e} launches without the axis {loop_ms:.3f} ms, bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['limit']}); "
+                  f"equal bit for bit")
+            del a, w, slices, sc
+            torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"[experts] phase {wall:.1f} s")
+    return {"cases": cases, "max_abs_err": max_err, "rows": rows,
+            "wall_s": wall}
+
+
 def _time(fn, reps: int, warmup: int) -> float:
     import torch
     for _ in range(warmup):
@@ -3841,38 +4041,62 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     shapes = main_path_shapes(resnet.resnet_config(8), BATCH)
-    details = {"card": card, **phase_build()}
-    details["compare"] = phase_compare(shapes, device)
-    details["main"], lib = phase_main(device)
-    details["compare"]["library"] = phase_compare_library(
-        lib, device, details["compare"]["max_abs_err"])
-    details["timing"] = phase_timing(shapes, device)
+    walls = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall kept in ``walls[name]``."""
+        start = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - start
+        print(f"[wall] {name}: {walls[name]:.1f} s")
+        return out
+
+    details = {"card": card, **timed("build", phase_build)}
+    details["compare"] = timed("compare", phase_compare, shapes, device)
+    details["main"], lib = timed("main", phase_main, device)
+    details["compare"]["library"] = timed(
+        "compare_library", phase_compare_library, lib, device,
+        details["compare"]["max_abs_err"])
+    details["experts"] = timed("experts", phase_experts, device)
+    details["timing"] = timed("timing", phase_timing, shapes, device)
+    for k, v in details["experts"]["max_abs_err"].items():
+        details["compare"]["max_abs_err"][k] = max(
+            details["compare"]["max_abs_err"][k], v)
+    launches = details["main"]["launches"]
+
+    def log(tag):
+        return lambda s: print(f"[{tag}] {s}")
     # after the timing phase: with this path's ~2.5 million launches
     # before it, every short profiler window of the timing phase
     # (``_device_ops``) lost most of its kernel records (two runs)
-    details["main"]["serve_continuous"] = phase_serve_continuous(
-        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
-    details["main"]["continuous_step_profile"] = phase_profile_continuous(
-        device)
+    details["main"]["serve_continuous"] = timed(
+        "serve_continuous", phase_serve_continuous, device, log("main"),
+        launches)
+    details["main"]["continuous_step_profile"] = timed(
+        "continuous_step_profile", phase_profile_continuous, device)
     # after the timing phase too (its profiler windows; ROADMAP.md Watch)
-    details["main"]["profiles"] = phase_profiles(
-        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
-    details["main"]["serve_encdec"] = phase_serve_encdec(
-        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
-    details["main"]["serve_families"] = phase_serve_families(
-        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
-    details["main"]["train"] = phase_train(
-        device, lambda s: print(f"[train] {s}"), details["main"]["launches"])
-    details["main"]["objectives"] = phase_objectives(
-        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
-    details["main"]["evolve"] = phase_evolve(
-        device, lambda s: print(f"[main] {s}"), details["main"]["launches"])
-    details["main"]["mesh"] = phase_mesh(
-        device, lambda s: print(f"[mesh] {s}"), details["main"]["launches"],
+    details["main"]["profiles"] = timed("profiles", phase_profiles, device,
+                                        log("main"), launches)
+    details["main"]["serve_encdec"] = timed(
+        "serve_encdec", phase_serve_encdec, device, log("main"), launches)
+    details["main"]["serve_families"] = timed(
+        "serve_families", phase_serve_families, device, log("main"),
+        launches)
+    details["main"]["train"] = timed("train", phase_train, device,
+                                     log("train"), launches)
+    details["main"]["objectives"] = timed(
+        "objectives", phase_objectives, device, log("main"), launches)
+    details["main"]["evolve"] = timed("evolve", phase_evolve, device,
+                                      log("main"), launches)
+    details["main"]["mesh"] = timed(
+        "mesh", phase_mesh, device, log("mesh"), launches,
         details["main"]["heterogeneous_pallas"])
-    details["main"]["dryrun"] = phase_dryrun(
-        device, lambda s: print(f"[dryrun] {s}"), details["main"]["launches"])
+    details["main"]["dryrun"] = timed("dryrun", phase_dryrun, device,
+                                      log("dryrun"), launches)
     details["total_s"] = time.perf_counter() - t0
+    details["phase_walls_s"] = walls
+    print("[wall] phases " + json.dumps(
+        {k: round(v, 1) for k, v in walls.items()}))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)

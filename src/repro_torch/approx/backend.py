@@ -30,6 +30,15 @@ per bank lane, ``(n, ..., N)``.  ``lanes=True`` says that ``x``
 already carries that lane axis in front; each lane is then calibrated
 on its own, exactly as the reference's ``vmap`` lane is, for banked and
 unbanked backends alike.
+
+Stacked expert weights (an MoE projection, ``experts=True``): ``w`` is
+``(E, K, N)`` and ``x`` ``(X, C, K)`` (``(n, X, C, K)`` with lanes), slice
+``s`` against ``w[s % E]``, each (lane, slice) pair calibrated on its own
+as the reference's ``vmap`` over experts does.  A datapath with an
+expert form (``has_expert_form``: the 8-bit ``lut_pallas`` / ``lut_fused``
+tables) runs them in one kernel launch, as the reference's batched
+``pallas_call`` does; the others, and an STE backend under autograd,
+run one call a slice.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ import numpy as np
 import torch
 
 from ..launch.mesh import reduce_partial, sharded_reshape
-from .quant import calibrate, dequant_sums, quantize
+from .quant import (calibrate, calibrate_slices, dequant_sums, quantize,
+                    slice_params)
 from .specs import BackendSpec, MaterializedBackend, materialize
 
 # ----------------------------------------------------------------------
@@ -180,6 +190,30 @@ def _quantized_matmul(x: torch.Tensor, w: torch.Tensor,
                         qp_a.scale, qp_w.scale, k)
 
 
+def _quantized_experts(x: torch.Tensor, w: torch.Tensor,
+                       backend: MaterializedBackend) -> torch.Tensor:
+    """x (X,C,K), or (n,X,C,K) with a lane axis; w (E,K,N), E dividing X
+    -> (X,C,N), or (n,X,C,N) when ``x`` or the backend is banked, through
+    the datapath's expert form: one call for every (lane, slice) pair,
+    each calibrated and quantized on its own (zero-padded capacity rows
+    and a starved expert's all-zero buffer included), its sums and
+    dequant per pair with the ``_quantized_matmul`` formula."""
+    dp = backend.datapath
+    consts = backend.device_consts(x.device)
+    if dp.fused:
+        return dp.forward_fused_experts(x, w, consts)
+    qp_a, qp_w = calibrate_slices(x), calibrate_slices(w)
+    qa, qw = quantize(x, qp_a), quantize(w, qp_w)
+    s = dp.forward_q_experts(qa, qw, consts)
+    slices = x.shape[-3]
+    row = torch.sum(qa, dim=-1, dtype=torch.int32)[..., None]
+    col = slice_params(torch.sum(qw, dim=-2, dtype=torch.int32)[:, None],
+                       slices)
+    return dequant_sums(s.to(torch.float32), row, col, qp_a.zero_point,
+                        slice_params(qp_w.zero_point, slices), qp_a.scale,
+                        slice_params(qp_w.scale, slices), x.shape[-1])
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor,
              backend: MaterializedBackend, lanes: bool) -> torch.Tensor:
     if backend.mode == "f32":
@@ -293,16 +327,38 @@ def prepare_tree(params, backend: BackendLike):
     return walk(params)
 
 
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor,
+                   mb: MaterializedBackend, lanes: bool) -> torch.Tensor:
+    """``backend_matmul(experts=True)``: the datapath's expert form where
+    it has one and no gradient is asked for, else one call a slice."""
+    if (mb.spec.is_quantized and mb.datapath.has_expert_form(mb.consts)
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad))):
+        return _quantized_experts(x.to(torch.float32), w.to(torch.float32),
+                                  mb)
+    e = w.shape[0]
+    return torch.stack([
+        backend_matmul(x[:, j].contiguous() if lanes else x[j], w[j % e],
+                       mb, lanes=lanes)
+        for j in range(x.shape[-3])], dim=-3)
+
+
 def backend_matmul(x: torch.Tensor, w,
                    backend: BackendLike = None,
-                   lanes: bool = False) -> torch.Tensor:
+                   lanes: bool = False,
+                   experts: bool = False) -> torch.Tensor:
     """x: (..., K) @ w: (K, N) -> (..., N) f32 through the selected
     accelerator datapath.  ``lanes=True``: x's leading axis is a bank
     lane axis, kept in front of the result for every mode.  A banked
     backend turns an unbanked x into (n, ..., N).  Lane-carrying
     evaluation is forward-only (no STE).  ``w`` may be a
-    prepared-weight dict (``prepare_weight``)."""
+    prepared-weight dict (``prepare_weight``).  ``experts=True``: w is
+    the (E, K, N) stack of an MoE projection's expert weights and x (X,
+    C, K) (``(n, X, C, K)`` with lanes), E dividing X, slice s against
+    ``w[s % E]`` -> (X, C, N) (with a lane axis in front as above)."""
     mb = as_backend(backend)
+    if experts:
+        return _expert_matmul(x, w, mb, lanes)
     k = x.shape[-1]
     if is_prepared(w):
         y = _prepared_matmul(x.reshape(-1, k).to(torch.float32), w, mb)

@@ -58,8 +58,12 @@ class ApproxPolicy:
         return self.default
 
     def matmul(self, name: str, x: torch.Tensor, w: torch.Tensor,
-               lanes: bool = False) -> torch.Tensor:
-        return backend_matmul(x, w, self.backend_for(name), lanes=lanes)
+               lanes: bool = False, experts: bool = False) -> torch.Tensor:
+        """``backend_matmul`` under ``name``'s backend; ``experts``: w is
+        an MoE projection's stacked (E, K, N) expert weights, one call
+        for every expert."""
+        return backend_matmul(x, w, self.backend_for(name), lanes=lanes,
+                              experts=experts)
 
     def with_override(self, pattern: str, backend: BackendLike
                       ) -> "ApproxPolicy":

@@ -106,6 +106,39 @@ def calibrate(x: torch.Tensor, bits: Bits = 8, eps: float = 1e-8,
     return QuantParams(scale=scale, zero_point=zp, qmax=qmax)
 
 
+def calibrate_slices(x: torch.Tensor, bits: int = 8) -> QuantParams:
+    """``calibrate`` of each trailing ``(M, K)`` slice of ``x`` on its own
+    (an MoE's experts, with or without a lane axis in front, as the
+    reference's ``vmap`` over them calibrates each): scale and zero
+    point of shape ``(..., 1, 1)``."""
+    qp = calibrate(x.reshape(-1, *x.shape[-2:]), bits, lanes=True)
+    lead = (*x.shape[:-2], 1, 1)
+    return QuantParams(qp.scale.reshape(lead), qp.zero_point.reshape(lead),
+                       qp.qmax)
+
+
+def slice_params(t: torch.Tensor, slices: int) -> torch.Tensor:
+    """Per-expert values ``t`` (E, ...) for ``slices`` activation slices,
+    E dividing them, slice s taking ``t[s % E]`` (several token blocks'
+    buffers over the same experts, one after another)."""
+    e = t.shape[0]
+    return t if e == slices else t.repeat(slices // e, *(1,) * (t.ndim - 1))
+
+
+def pair_scalars(qp_a: QuantParams, qp_w: QuantParams, lanes: int,
+                 slices: int) -> tuple:
+    """``scalar_params`` of the expert form: ``(sa, za, sw, zw, qmax)``,
+    one value a (lane, slice) pair, lane-major, from ``calibrate_slices``
+    of the activations (``(lanes, slices, M, K)``, or ``(slices, M, K)``
+    shared by the lanes) and of the stacked weights (E, K, N), slice s
+    taking expert ``s % E``'s."""
+    def per_pair(t):
+        return t.expand(lanes, slices, 1, 1).reshape(-1)
+    return (per_pair(qp_a.scale), per_pair(qp_a.zero_point),
+            per_pair(slice_params(qp_w.scale, slices)),
+            per_pair(slice_params(qp_w.zero_point, slices)), qp_a.qmax)
+
+
 def clip_codes(q: torch.Tensor, qmax) -> torch.Tensor:
     """``clip(q, 0, qmax)`` for a float or per-lane tensor ``qmax``."""
     q = torch.clamp_min(q, 0.0)

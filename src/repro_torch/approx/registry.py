@@ -96,6 +96,14 @@ class Datapath:
                   ) -> torch.Tensor:
         raise NotImplementedError
 
+    def has_expert_form(self, consts: dict) -> bool:
+        """Whether this datapath runs stacked expert weights in one call
+        (``forward_q_experts``, or ``forward_fused_experts`` for a fused
+        one): an MoE projection's experts for every lane at once, as the
+        reference's batched ``pallas_call`` does.  Without it,
+        ``backend_matmul(experts=True)`` calls it once an expert."""
+        return False
+
 
 _REGISTRY: dict[str, Datapath] = {}
 

@@ -8,6 +8,10 @@ product table travels as uint16 (every 8-bit library multiplier's
 products are < 2^16; ``lut_to_uint16`` checks) and sits in shared
 memory; see the source for the design.
 
+``lut_matmul`` also takes the expert axis (an MoE projection's experts
+in one launch, as the reference's ``pallas_call`` batched over them):
+qa (X, M, K) against qw (E, K, N), slice s against ``qw[s % E]``.
+
 Callers go through ``repro_torch.kernels.ops.approx_matmul_lut``, which
 validates the operands and sends CPU tensors to the plain version
 (``kernels.ref``).  ``lut_matmul.launches`` counts launches.
@@ -76,24 +80,40 @@ def _launcher():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _experts_launcher():
+    fn = build.load("lut_matmul").lut_matmul_experts_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def lut_matmul(qa: torch.Tensor, qw: torch.Tensor,
                lut16: torch.Tensor) -> torch.Tensor:
     """Launch K1 on the current stream of the operands' device (made
     current for the launch).  qa (M,K) int32, qw (K,N) int32, lut16
     (256,256) uint16, all contiguous on one CUDA device (checked by
-    ``ops.approx_matmul_lut``) -> (M,N) int32."""
-    m, k = qa.shape
-    n = qw.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=qa.device)
-    if m == 0 or n == 0:
+    ``ops.approx_matmul_lut``) -> (M,N) int32.  The expert form: qa
+    (X,M,K), qw (E,K,N) with E dividing X -> (X,M,N)."""
+    experts = qw.ndim == 3
+    m, k = qa.shape[-2:]
+    n = qw.shape[-1]
+    out = torch.empty((*qa.shape[:-1], n), dtype=torch.int32,
+                      device=qa.device)
+    if out.numel() == 0:
         return out
     dev = qa.get_device()
     prev = enter_device(dev)
     try:
-        err = _launcher()(
-            _ptr(qa), _ptr(qw), _ptr(lut16), _ptr(out), m, k, n,
-            sm_count(dev),
-            ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev)))
+        stream = ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev))
+        if experts:
+            err = _experts_launcher()(
+                _ptr(qa), _ptr(qw), _ptr(lut16), _ptr(out), qa.shape[0],
+                qw.shape[0], m, k, n, sm_count(dev), stream)
+        else:
+            err = _launcher()(_ptr(qa), _ptr(qw), _ptr(lut16), _ptr(out),
+                              m, k, n, sm_count(dev), stream)
     finally:
         leave_device(prev)
     build.check("lut_matmul", err)

@@ -27,6 +27,17 @@
 // dequant stay with the caller (eager PyTorch), as the TPU kernels leave
 // them to theirs.
 //
+// The expert axis (an MoE projection's E experts in one launch, as the
+// reference's batched pallas_call runs them): each lane holds `slices`
+// operand slices, and a work item's (lane, slice) pair p = lane * slices
+// + s has lane `lane`'s table, the activations at x + lane * x_lane_stride
+// + s * M * K, the weights at w + lane * w_lane_stride + (s % experts) * K
+// * N (several token blocks' buffers may follow one another, each over
+// the E experts), pair p's scalars and outputs (acc, row and column sums
+// at p).  Pairs run lane-major, slice-minor, so a block stages a lane's
+// table once for every slice it walks.  slices = experts = 1 is the
+// launch without that axis.
+//
 // Instantiated on int operands (In = int), the kernel reads x and w as
 // int32 codes, stages them as they are (no quantize, no per-lane scalars
 // are read) and keeps no code sums (row_out and col_out are not
@@ -486,9 +497,10 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
              const int* __restrict__ rcodes,
              int* __restrict__ out_lo, int* __restrict__ out_hi,
              int* __restrict__ row_out, int* __restrict__ col_out,
-             int n_lanes, int M, int K, int N, int tn, int splits) {
-  // f32 operands are quantized per lane and their code sums kept; int32
-  // codes are staged as they are
+             int n_lanes, int slices, int experts, int M, int K, int N,
+             int tn, int splits) {
+  // f32 operands are quantized per (lane, slice) pair and their code sums
+  // kept; int32 codes are staged as they are
   constexpr bool kQuant = std::is_same<In, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* s_lut = reinterpret_cast<uint16_t*>(smem);
@@ -508,20 +520,23 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   const int tiles_n = (N + tile_n - 1) / tile_n;
   const int chunks = (K + kKC - 1) / kKC;
   const bool add = splits > 1;             // partial sums: add, not store
-  // work units per lane: (row tile, column tile) items x K ranges
-  const long long per_lane = (long long)tiles_m * tiles_n * splits;
+  // work units per pair: (row tile, column tile) items x K ranges (the
+  // composed kernels have one slice a lane, so their pairs are lanes)
+  const long long per_pair = (long long)tiles_m * tiles_n * splits;
   const unsigned* cost_masks = kComposed ? masks : nullptr;
+  const int n_pairs = n_lanes * slices;
   const long long begin =
-      range_start(cost_masks, n_lanes, per_lane, blockIdx.x, gridDim.x);
+      range_start(cost_masks, n_pairs, per_pair, blockIdx.x, gridDim.x);
   const long long end =
-      range_start(cost_masks, n_lanes, per_lane, blockIdx.x + 1, gridDim.x);
+      range_start(cost_masks, n_pairs, per_pair, blockIdx.x + 1, gridDim.x);
 
-  int staged_lane = -1;
+  int staged_lane = -1, staged_pair = -1;
   float sa = 0.f, sw = 0.f, qmax = 0.f, za = 0.f, zw = 0.f;
   Tree tr = lane_tree(0u, 0, 0u);
   for (long long item = begin; item < end; ++item) {
-    const int lane = (int)(item / per_lane);
-    const long long rem = item % per_lane;
+    const int pair = (int)(item / per_pair);
+    const int lane = pair / slices, slice = pair % slices;
+    const long long rem = item % per_pair;
     const long long tile = rem / splits;
     const int part = (int)(rem % splits);  // K range: whole kKC chunks
     const int m0 = (int)(tile / tiles_n) * tm;
@@ -533,20 +548,23 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
     if (lane != staged_lane) {
       __syncthreads();                     // previous table no longer read
       stage_table(luts + (size_t)lane * kLutEntries, s_lut, tid, kThreads);
-      if (kQuant) {
-        sa = lane_scalar(sc, kSa, lane);
-        za = lane_scalar(sc, kZa, lane);
-        sw = lane_scalar(sc, kSw, lane);
-        zw = lane_scalar(sc, kZw, lane);
-        qmax = lane_scalar(sc, kQmax, lane);
-      }
       if (kComposed)
         tr = lane_tree(masks[lane], rcodes[lane * 2],
                        (unsigned)rcodes[lane * 2 + 1]);
       staged_lane = lane;
     }
-    const In* x_lane = x + (size_t)lane * x_lane_stride;
-    const In* w_lane = w + (size_t)lane * w_lane_stride;
+    if (kQuant && pair != staged_pair) {
+      sa = lane_scalar(sc, kSa, pair);
+      za = lane_scalar(sc, kZa, pair);
+      sw = lane_scalar(sc, kSw, pair);
+      zw = lane_scalar(sc, kZw, pair);
+      qmax = lane_scalar(sc, kQmax, pair);
+      staged_pair = pair;
+    }
+    const In* x_lane =
+        x + (size_t)lane * x_lane_stride + (size_t)slice * M * K;
+    const In* w_lane = w + (size_t)lane * w_lane_stride
+                     + (size_t)(slice % experts) * K * N;
 
     // unsigned: int32 sums wrap modulo 2^32 like the reference's
     unsigned acc[kNT], hi[kNT], col_sum[kNT];
@@ -640,7 +658,7 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
 
     const int m = m0 + r;
     if (m < M) {
-      const size_t o = ((size_t)lane * M + m) * N;
+      const size_t o = ((size_t)pair * M + m) * N;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + g * kNT + j;
@@ -651,13 +669,13 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
         }
       }
       if (kQuant && n0 == 0 && g == 0)
-        put(row_out + (size_t)lane * M + m, row_sum, add);
+        put(row_out + (size_t)pair * M + m, row_sum, add);
     }
     if (kQuant && m0 == 0 && r == 0) {
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + g * kNT + j;
-        if (n < N) put(col_out + (size_t)lane * N + n, col_sum[j], add);
+        if (n < N) put(col_out + (size_t)pair * N + n, col_sum[j], add);
       }
     }
   }
@@ -665,18 +683,21 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
 
 // ---- quant8_kernel: the 8-bit float kernels (K3, K4) ----
 
-// A unit of work, decoded from its index.
+// A unit of work, decoded from its index: its (lane, slice) pair, tile
+// and K range.
 struct Unit {
-  int lane, m0, n0, k_begin, k_end;
+  int pair, lane, slice, m0, n0, k_begin, k_end;
 };
 
 __device__ __forceinline__ Unit decode_unit(long long item,
-                                            long long per_lane, int splits,
-                                            int tiles_n, int tm, int tile_n,
-                                            int chunks, int K) {
+                                            long long per_pair, int slices,
+                                            int splits, int tiles_n, int tm,
+                                            int tile_n, int chunks, int K) {
   Unit u;
-  u.lane = (int)(item / per_lane);
-  const long long rem = item % per_lane;
+  u.pair = (int)(item / per_pair);
+  u.lane = u.pair / slices;
+  u.slice = u.pair % slices;
+  const long long rem = item % per_pair;
   const long long tile = rem / splits;
   const int part = (int)(rem % splits);
   u.m0 = (int)(tile / tiles_n) * tm;
@@ -699,8 +720,8 @@ struct Staged {
   float w[kWRegs];
 };
 
-// Issue thread t's loads of the chunk at k0 (kc codes deep) of unit u;
-// masked elements are 0.
+// Issue thread t's loads of the chunk at k0 (kc codes deep) of unit u,
+// whose pair's operands are x_lane and w; masked elements are 0.
 __device__ __forceinline__ void load_chunk(
     Staged& v, const float* __restrict__ x_lane, const float* __restrict__ w,
     const Unit& u, int k0, int kc, int M, int K, int N, int tm, int tile_n,
@@ -777,7 +798,7 @@ __device__ __forceinline__ void sums_out(
     for (int i = lane; i < tm / warps; i += 32) {
       const int rr = warp + i * warps;
       if (u.m0 + rr < M)
-        put(row_out + (size_t)u.lane * M + u.m0 + rr, s_row[rr], add);
+        put(row_out + (size_t)u.pair * M + u.m0 + rr, s_row[rr], add);
       s_row[rr] = 0u;
     }
   }
@@ -788,7 +809,7 @@ __device__ __forceinline__ void sums_out(
     __syncthreads();
     if (t < tile_n) {
       if (u.n0 + t < N)
-        put(col_out + (size_t)u.lane * N + u.n0 + t, s_col[t], add);
+        put(col_out + (size_t)u.pair * N + u.n0 + t, s_col[t], add);
       s_col[t] = 0u;
     }
     __syncthreads();
@@ -849,20 +870,20 @@ __device__ __forceinline__ void acc_out(const Unit& u, int M, int N,
                                         int* col_out, bool add) {
   const int m = u.m0 + r;
   if (m < M) {
-    const size_t o = ((size_t)u.lane * M + m) * N;
+    const size_t o = ((size_t)u.pair * M + m) * N;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const int n = u.n0 + g * kNT + j;
       if (n < N) put(out + o + n, acc[j], add);
     }
     if (kSumsInLoop && u.n0 == 0 && g == 0)
-      put(row_out + (size_t)u.lane * M + m, row_sum, add);
+      put(row_out + (size_t)u.pair * M + m, row_sum, add);
   }
   if (kSumsInLoop && u.m0 == 0 && r == 0) {
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const int n = u.n0 + g * kNT + j;
-      if (n < N) put(col_out + (size_t)u.lane * N + n, col_sum[j], add);
+      if (n < N) put(col_out + (size_t)u.pair * N + n, col_sum[j], add);
     }
   }
 }
@@ -876,8 +897,8 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
               const float* __restrict__ w,
               const uint16_t* __restrict__ luts, Scalars sc,
               int* __restrict__ out, int* __restrict__ row_out,
-              int* __restrict__ col_out, int n_lanes, int M, int K, int N,
-              int tn, int splits) {
+              int* __restrict__ col_out, int n_lanes, int slices,
+              int experts, int M, int K, int N, int tn, int splits) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* s_lut = reinterpret_cast<uint16_t*>(smem);
   const int tm = kThreads / tn, tile_n = tn * kNT;
@@ -891,18 +912,19 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
   const int tiles_n = (N + tile_n - 1) / tile_n;
   const int chunks = (K + kKC - 1) / kKC;
   const bool add = splits > 1;
-  const long long per_lane = (long long)tiles_m * tiles_n * splits;
+  const long long per_pair = (long long)tiles_m * tiles_n * splits;
+  const int n_pairs = n_lanes * slices;
   const long long begin =
-      range_start(nullptr, n_lanes, per_lane, blockIdx.x, gridDim.x);
+      range_start(nullptr, n_pairs, per_pair, blockIdx.x, gridDim.x);
   const long long end =
-      range_start(nullptr, n_lanes, per_lane, blockIdx.x + 1, gridDim.x);
+      range_start(nullptr, n_pairs, per_pair, blockIdx.x + 1, gridDim.x);
 
   for (int i = tid; i < tm + 8 * kNT; i += kThreads) s_row[i] = 0u;
   __syncthreads();
 
   const int r = tid / tn, g = tid % tn;    // this thread's row and group
   const unsigned char* lut = smem;
-  int staged_lane = -1;
+  int staged_lane = -1, staged_pair = -1;
   Quant q{0.f, 0.f, 0.f, 0.f, 0.f};
   long long gc = 0;                        // chunks of the block so far
   // the next chunk's loads are issued before each gather, across units
@@ -912,12 +934,14 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
   bool loaded = false;                     // v holds this unit's chunk 0
   auto load = [&](const Unit& un, int c) {  // unit un's chunk c
     const int k0 = un.k_begin + c * kKC;
-    load_chunk(v, x + (size_t)un.lane * x_lane_stride, w, un, k0,
+    load_chunk(v,
+               x + (size_t)un.lane * x_lane_stride + (size_t)un.slice * M * K,
+               w + (size_t)(un.slice % experts) * K * N, un, k0,
                min(kKC, K - k0), M, K, N, tm, tile_n, tid);
   };
   for (long long item = begin; item < end; ++item) {
-    const Unit u = decode_unit(item, per_lane, splits, tiles_n, tm, tile_n,
-                               chunks, K);
+    const Unit u = decode_unit(item, per_pair, slices, splits, tiles_n, tm,
+                               tile_n, chunks, K);
     const int n_chunks = (u.k_end - u.k_begin + kKC - 1) / kKC;
     // a first unit's loads go out before the table copy, under which
     // their latency hides
@@ -926,10 +950,13 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
     if (u.lane != staged_lane) {
       __syncthreads();                     // the old table is no longer read
       stage_table(luts + (size_t)u.lane * kLutEntries, s_lut, tid, kThreads);
-      q = Quant{lane_scalar(sc, kSa, u.lane), lane_scalar(sc, kZa, u.lane),
-                lane_scalar(sc, kSw, u.lane), lane_scalar(sc, kZw, u.lane),
-                lane_scalar(sc, kQmax, u.lane)};
       staged_lane = u.lane;
+    }
+    if (u.pair != staged_pair) {
+      q = Quant{lane_scalar(sc, kSa, u.pair), lane_scalar(sc, kZa, u.pair),
+                lane_scalar(sc, kSw, u.pair), lane_scalar(sc, kZw, u.pair),
+                lane_scalar(sc, kQmax, u.pair)};
+      staged_pair = u.pair;
     }
     unsigned acc[kNT], col_sum[kNT], row_sum = 0u, csum = 0u;
 #pragma unroll
@@ -973,8 +1000,8 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
         if (kPipelined && next) {
           load(u, c + 1);
         } else if (kPipelined && item + 1 < end) {
-          const Unit un = decode_unit(item + 1, per_lane, splits, tiles_n,
-                                      tm, tile_n, chunks, K);
+          const Unit un = decode_unit(item + 1, per_pair, slices, splits,
+                                      tiles_n, tm, tile_n, chunks, K);
           if (un.k_end > un.k_begin) {
             load(un, 0);
             loaded = true;
@@ -1008,8 +1035,8 @@ inline int run(const In* x, long long x_lane_stride, const In* w,
                long long w_lane_stride, const uint16_t* luts,
                const Scalars& sc, const unsigned* masks, const int* rcodes,
                int* out_lo, int* out_hi, int* row_out, int* col_out,
-               int n_lanes, int M, int K, int N, int grid, int splits,
-               cudaStream_t stream) {
+               int n_lanes, int slices, int experts, int M, int K, int N,
+               int grid, int splits, cudaStream_t stream) {
   constexpr bool kQuant8 = std::is_same<In, float>::value && !kComposed;
   const int tn = threads_across_n(N);
   // the opt-in acts on the current device only: one flag a device
@@ -1032,30 +1059,35 @@ inline int run(const In* x, long long x_lane_stride, const In* w,
   }
   if constexpr (kQuant8) {
     quant8_kernel<<<grid, kThreads, quant_smem_bytes(tn), stream>>>(
-        x, x_lane_stride, w, luts, sc, out_lo, row_out, col_out, n_lanes, M,
-        K, N, tn, splits);
+        x, x_lane_stride, w, luts, sc, out_lo, row_out, col_out, n_lanes,
+        slices, experts, M, K, N, tn, splits);
   } else {
     fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn, kComposed),
                                   stream>>>(
         x, x_lane_stride, w, w_lane_stride, luts, sc, masks, rcodes, out_lo,
-        out_hi, row_out, col_out, n_lanes, M, K, N, tn, splits);
+        out_hi, row_out, col_out, n_lanes, slices, experts, M, K, N, tn,
+        splits);
   }
   return (int)cudaGetLastError();
 }
 
 // The kernels on codes (K1, K2: 8-bit; K5, K6: composed).  out_lo (and
-// out_hi) are each their own allocation of n_lanes M N int32, zeroed
-// apiece where K is split.  Returns the first CUDA error of the launch.
+// out_hi) are each their own allocation of n_lanes slices M N int32,
+// zeroed apiece where K is split.  `slices` and `experts`: the expert
+// axis (K1, K2; 1 for the others).  Returns the first CUDA error of the
+// launch.
 template <bool kComposed>
 inline int launch_codes(const int* qa, long long qa_lane_stride,
                         const int* qw, long long qw_lane_stride,
                         const uint16_t* luts, const unsigned* masks,
                         const int* rcodes, int* out_lo, int* out_hi,
                         int n_lanes, int M, int K, int N, int grid,
-                        cudaStream_t stream) {
-  const int splits = launch_splits(n_lanes, M, K, N, grid);
+                        cudaStream_t stream, int slices = 1,
+                        int experts = 1) {
+  const int n_pairs = n_lanes * slices;
+  const int splits = launch_splits(n_pairs, M, K, N, grid);
   if (splits > 1) {                        // the units add into zeros
-    const size_t bytes = (size_t)n_lanes * M * N * sizeof(int);
+    const size_t bytes = (size_t)n_pairs * M * N * sizeof(int);
     int* const outs[2] = {out_lo, kComposed ? out_hi : nullptr};
     for (int* p : outs) {
       if (p == nullptr) continue;
@@ -1065,35 +1097,38 @@ inline int launch_codes(const int* qa, long long qa_lane_stride,
   }
   return run<kComposed, int>(qa, qa_lane_stride, qw, qw_lane_stride, luts,
                              Scalars{}, masks, rcodes, out_lo, out_hi,
-                             nullptr, nullptr, n_lanes, M, K, N, grid, splits,
-                             stream);
+                             nullptr, nullptr, n_lanes, slices, experts, M, K,
+                             N, grid, splits, stream);
 }
 
 // The kernels on f32 operands (K3, K4: 8-bit; K7, K8: composed).  `out`
 // is one allocation of int32: the accumulator (K7/K8: the limbs lo, then
-// hi), n_lanes M N each, then the row sums (n_lanes M), then the column
-// sums (n_lanes N); where K is split, one memset zeroes it.  Returns the
-// first CUDA error of the launch.
+// hi), P M N each, then the row sums (P M), then the column sums (P N),
+// P = n_lanes slices pairs; where K is split, one memset zeroes it.
+// `slices` and `experts`: the expert axis (K3, K4; 1 for the others).
+// Returns the first CUDA error of the launch.
 template <bool kComposed>
 inline int launch_quant(const float* x, long long x_lane_stride,
                         const float* w, const uint16_t* luts,
                         const Scalars& sc, const unsigned* masks,
                         const int* rcodes, int* out, int n_lanes, int M,
-                        int K, int N, int grid, cudaStream_t stream) {
-  const size_t mn = (size_t)n_lanes * M * N;
+                        int K, int N, int grid, cudaStream_t stream,
+                        int slices = 1, int experts = 1) {
+  const int n_pairs = n_lanes * slices;
+  const size_t mn = (size_t)n_pairs * M * N;
   int* row_out = out + (kComposed ? 2 : 1) * mn;
-  int* col_out = row_out + (size_t)n_lanes * M;
-  const int splits = launch_splits(n_lanes, M, K, N, grid);
+  int* col_out = row_out + (size_t)n_pairs * M;
+  const int splits = launch_splits(n_pairs, M, K, N, grid);
   if (splits > 1) {                        // the units add into zeros
-    const size_t words = (size_t)(col_out - out) + (size_t)n_lanes * N;
+    const size_t words = (size_t)(col_out - out) + (size_t)n_pairs * N;
     const cudaError_t err =
         cudaMemsetAsync(out, 0, words * sizeof(int), stream);
     if (err != cudaSuccess) return (int)err;
   }
   return run<kComposed, float>(x, x_lane_stride, w, 0, luts, sc, masks,
                                rcodes, out, kComposed ? out + mn : nullptr,
-                               row_out, col_out, n_lanes, M, K, N, grid,
-                               splits, stream);
+                               row_out, col_out, n_lanes, slices, experts, M,
+                               K, N, grid, splits, stream);
 }
 
 }  // namespace

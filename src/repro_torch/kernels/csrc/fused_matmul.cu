@@ -34,6 +34,21 @@ extern "C" int fused_matmul_launch(const float* x, const float* w,
                                       static_cast<cudaStream_t>(stream));
 }
 
+// The expert form: x (slices, M, K), w (experts, K, N), slice s
+// quantized with its own scalars (sc read at s) against w[s % experts]
+// -> out: acc (slices M N), row (slices M), col (slices N).
+extern "C" int fused_matmul_experts_launch(const float* x, const float* w,
+                                           const uint16_t* lut,
+                                           fusedmm::Scalars sc, int* out,
+                                           int slices, int experts, int M,
+                                           int K, int N, int grid,
+                                           void* stream) {
+  return fusedmm::launch_quant<false>(x, 0, w, lut, sc, nullptr, nullptr,
+                                      out, 1, M, K, N, grid,
+                                      static_cast<cudaStream_t>(stream),
+                                      slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

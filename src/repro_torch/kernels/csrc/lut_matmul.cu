@@ -24,6 +24,20 @@ extern "C" int lut_matmul_launch(const int* qa, const int* qw,
                                       static_cast<cudaStream_t>(stream));
 }
 
+// The expert form (one launch for an MoE projection's experts, the
+// reference's pallas_call batched over them): qa (slices, M, K), qw
+// (experts, K, N), slice s against qw[s % experts] -> out (slices, M, N).
+extern "C" int lut_matmul_experts_launch(const int* qa, const int* qw,
+                                         const uint16_t* lut, int* out,
+                                         int slices, int experts, int M,
+                                         int K, int N, int grid,
+                                         void* stream) {
+  return fusedmm::launch_codes<false>(qa, 0, qw, 0, lut, nullptr, nullptr,
+                                      out, nullptr, 1, M, K, N, grid,
+                                      static_cast<cudaStream_t>(stream),
+                                      slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

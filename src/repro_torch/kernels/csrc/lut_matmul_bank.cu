@@ -29,6 +29,21 @@ extern "C" int lut_matmul_bank_launch(const int* qa,
                                       static_cast<cudaStream_t>(stream));
 }
 
+// The expert form: qa (slices, M, K) shared (lane stride 0) or
+// (n, slices, M, K) banked, qw (experts, K, N); lane l's slice s against
+// qw[s % experts] under luts[l] -> out (n, slices, M, N), pairs walked
+// lane-major, slice-minor (one table staged a lane per block).
+extern "C" int lut_matmul_bank_experts_launch(
+    const int* qa, long long qa_lane_stride, const int* qw,
+    const uint16_t* luts, int* out, int n_lanes, int slices, int experts,
+    int M, int K, int N, int grid, void* stream) {
+  return fusedmm::launch_codes<false>(qa, qa_lane_stride, qw, 0, luts,
+                                      nullptr, nullptr, out, nullptr,
+                                      n_lanes, M, K, N, grid,
+                                      static_cast<cudaStream_t>(stream),
+                                      slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -12,13 +12,20 @@ here the datapaths run the hand-written CUDA kernels through
 for 8-bit entries and banks, K5/K6 for composed 12/16-bit entries and
 banks with wide lanes.  ``lut_fused`` runs the single-kernel path.
 ``lowrank_pallas`` runs the rank-R factored product on K9.
+
+The 8-bit tables of ``lut_pallas`` and ``lut_fused`` also run an MoE
+projection's stacked expert weights in one call (``has_expert_form``):
+one K1/K2 (K3/K4) launch for every expert and bank lane, as the
+reference's ``pallas_call`` batched over them.  The composed widths and
+``lowrank_pallas`` keep one call an expert (``backend_matmul``'s loop).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..approx.quant import calibrate, scalar_params
+from ..approx.quant import (calibrate, calibrate_slices, pair_scalars,
+                            scalar_params)
 from ..approx.registry import (Datapath, encode_reduce, pack_lowrank,
                                pack_lut, register_datapath)
 from .approx_matmul import lut_to_uint16
@@ -68,6 +75,21 @@ class LutPallasDatapath(Datapath):
             masks = consts["masks"] if banked else consts["mask"]
             return composed_matmul_lut_bank(qa, qw, luts, masks,
                                             consts["reduce"])
+        if luts is None:
+            return approx_matmul_lut(qa, qw, consts["lut16"])
+        return approx_matmul_lut_bank(qa, qw, luts)
+
+    def has_expert_form(self, consts) -> bool:
+        return not consts.get("composed", False)
+
+    def forward_q_experts(self, qa, qw, consts):
+        """qa (X,C,K) codes, or (n,X,C,K) with a lane axis; qw (E,K,N)
+        codes of the stacked expert weights, E dividing X -> (X,C,N), or
+        (n,X,C,N) when ``qa`` or the backend is banked: one K1 (K2)
+        launch, slice s against ``qw[s % E]``."""
+        luts = consts.get("luts16")
+        if luts is None and qa.ndim == 4:
+            luts = consts["lut16"].expand(qa.shape[0], 256, 256).contiguous()
         if luts is None:
             return approx_matmul_lut(qa, qw, consts["lut16"])
         return approx_matmul_lut_bank(qa, qw, luts)
@@ -126,6 +148,25 @@ class LutFusedDatapath(Datapath):
                      else consts["reduce_code"])
             return fused_composed_matmul_lut_bank(x, w, luts, masks, codes,
                                                   *sp)
+        return fused_matmul_lut_bank(x, w, luts, *sp)
+
+    def has_expert_form(self, consts) -> bool:
+        return not consts.get("composed", False)
+
+    def forward_fused_experts(self, x, w, consts):
+        """x (X,C,K), or (n,X,C,K) with a lane axis; w (E,K,N) the stacked
+        expert weights, E dividing X -> (X,C,N), or (n,X,C,N) when ``x``
+        or the backend is banked: one K3 (K4) launch, each (lane, slice)
+        pair calibrated on its own (``calibrate_slices``) and quantized
+        with its own scalars against ``w[s % E]``, whose scalars are
+        its expert's."""
+        luts = consts.get("luts16")
+        if luts is None and x.ndim == 4:
+            luts = consts["lut16"].expand(x.shape[0], 256, 256).contiguous()
+        sp = pair_scalars(calibrate_slices(x), calibrate_slices(w),
+                          1 if luts is None else luts.shape[0], x.shape[-3])
+        if luts is None:
+            return fused_matmul_lut(x, w, consts["lut16"], *sp)
         return fused_matmul_lut_bank(x, w, luts, *sp)
 
     def forward_q(self, qa, qw, consts):

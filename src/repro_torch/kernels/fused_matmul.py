@@ -18,6 +18,12 @@ Hopper counterparts of the reference's TPU kernels in
     .cu``) — K7 over a bank mixing widths (mask 0 = narrow lane) and
     reduce trees.
 
+K3 and K4 also take the expert axis (an MoE projection's experts, for
+every lane, in one launch, as the reference's ``pallas_call`` batched
+over lanes and experts): x (X,M,K), or (n,X,M,K) for K4, against w
+(E,K,N), slice ``s`` against ``w[s % E]``, each (lane, slice) pair
+quantized with its own scalars (``lane_scalars`` of ``n X`` pairs).
+
 The quantization scalars go in as the caller holds them
 (``lane_scalars``: a tensor on the device through its own pointer and
 lane stride, a number by value), so a K3 or K4 call queues its kernel
@@ -63,6 +69,12 @@ class Scalars(ctypes.Structure):
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the expert forms' launch functions (``<name>_experts_launch``)
+_EXPERT_ARGTYPES = {
+    "fused_matmul": [_P] * 3 + [Scalars, _P] + [_I] * 6 + [_P],
+    "fused_matmul_bank": ([_P, _L] + [_P] * 2 + [Scalars, _P] + [_I] * 7
+                          + [_P]),
+}
 _ARGTYPES = {
     "fused_matmul": [_P] * 3 + [Scalars, _P] + [_I] * 4 + [_P],
     "fused_matmul_bank": ([_P, _L] + [_P] * 2 + [Scalars, _P] + [_I] * 5
@@ -155,6 +167,14 @@ def k_split(n_lanes: int, m: int, k: int, n: int, grid: int) -> KSplit:
 def _launcher(name: str):
     fn = getattr(build.load(name), f"{name}_launch")
     fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _experts_launcher(name: str):
+    fn = getattr(build.load(name), f"{name}_experts_launch")
+    fn.argtypes = _EXPERT_ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -307,22 +327,26 @@ def _stream(t: torch.Tensor) -> int:
 def _launch(name: str, fn, x, w, luts16, sc, codes=()):
     """Launch one fused kernel; returns its int32 outputs (accumulator or
     limbs, row sums, column sums; with a lane axis for the banked
-    kernels), views of the one allocation the kernel takes, in the order
+    kernels, then a slice axis for the expert form: w (E,K,N)), views of
+    the one allocation the kernel takes, in the order
     ``fused_gather.cuh::launch_quant`` lays them out.  ``sc``:
     ``lane_scalars``; ``codes`` = (masks, rcodes) for the composed
     kernels."""
     banked = name.endswith("_bank")
+    experts = w.ndim == 3
     lanes = luts16.shape[0] if banked else 1
+    slices = x.shape[-3] if experts else 1
     m, k = x.shape[-2], x.shape[-1]
-    n = w.shape[1]
+    n = w.shape[-1]
+    pairs = lanes * slices
     limbs = 2 if codes else 1
-    sizes = [lanes * m * n] * limbs + [lanes * m, lanes * n]
+    sizes = [pairs * m * n] * limbs + [pairs * m, pairs * n]
     buf = torch.empty(sum(sizes), dtype=torch.int32, device=x.device)
     parts = buf.split_with_sizes(sizes)
-    shapes = ([(lanes, m, n)] * limbs + [(lanes, m), (lanes, n)] if banked
-              else [(m, n)] * limbs + [(m,), (n,)])
+    lead = ((lanes,) if banked else ()) + ((slices,) if experts else ())
+    shapes = [(*lead, m, n)] * limbs + [(*lead, m), (*lead, n)]
     outs = tuple(t.view(shape) for t, shape in zip(parts, shapes))
-    if m == 0 or n == 0 or lanes == 0:
+    if m == 0 or n == 0 or pairs == 0:
         # nothing to gather; a kernel that walks no tile writes no sum
         buf.zero_()
         return outs
@@ -333,14 +357,17 @@ def _launch(name: str, fn, x, w, luts16, sc, codes=()):
     if codes:
         masks, rcodes = _mask_bits(codes[0]), codes[1].contiguous()
         ins += [masks.data_ptr(), rcodes.data_ptr()]
-    lead = ((x.data_ptr(), m * k if x.ndim == 3 else 0) if banked
-            else (x.data_ptr(),))
-    dims = (lanes, m, k, n) if banked else (m, k, n)
+    # banked activations: one lane's slices apart; shared: stride 0
+    stride = slices * m * k if x.ndim == 3 + experts else 0
+    first = (x.data_ptr(), stride) if banked else (x.data_ptr(),)
+    dims = ((lanes,) if banked else ()) + (
+        (slices, w.shape[0]) if experts else ()) + (m, k, n)
+    launcher = _experts_launcher if experts else _launcher
     dev = x.get_device()
     prev = enter_device(dev)
     try:
-        err = _launcher(name)(
-            *lead, *ins, sc.struct, buf.data_ptr(), *dims, sm_count(dev),
+        err = launcher(name)(
+            *first, *ins, sc.struct, buf.data_ptr(), *dims, sm_count(dev),
             torch._C._cuda_getCurrentRawStream(dev))
     finally:
         leave_device(prev)
@@ -353,14 +380,16 @@ def fused_matmul(x, w, lut16, sc) -> tuple:
     """Launch K3.  x (M,K), w (K,N) f32, lut16 (256,256) uint16, all
     contiguous on one CUDA device (checked by ``ops.fused_matmul_lut``),
     sc the ``lane_scalars`` of one lane -> acc (M,N), row (M,), col (N,)
-    int32."""
+    int32.  The expert form: x (X,M,K), w (E,K,N), sc of X slices ->
+    (X,M,N), (X,M), (X,N)."""
     return _launch("fused_matmul", fused_matmul, x, w, lut16, sc)
 
 
 def fused_matmul_bank(x, w, luts16, sc) -> tuple:
     """Launch K4.  x (M,K) shared or (n,M,K) banked, luts16 (n,256,256),
     sc the ``lane_scalars`` of n lanes -> acc (n,M,N), row (n,M), col
-    (n,N) int32."""
+    (n,N) int32.  The expert form: x (X,M,K) shared or (n,X,M,K), w
+    (E,K,N), sc of n X pairs -> (n,X,M,N), (n,X,M), (n,X,N)."""
     return _launch("fused_matmul_bank", fused_matmul_bank, x, w, luts16, sc)
 
 

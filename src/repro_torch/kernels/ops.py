@@ -7,7 +7,15 @@ fallback from one to the other.
 
 The reference reaches its banked kernels through ``custom_vmap`` rules
 on the single-table ops; the port writes the bank axis out instead, so
-the banked datapaths call the ``*_bank`` wrappers directly.
+the banked datapaths call the ``*_bank`` wrappers directly.  Its batched
+weights (an MoE's experts, ``vmap``ped over ``backend_matmul``) go to
+``pallas_call``'s own batching rule, which adds the expert axis (and
+under a bank the lane axis) to the kernel's grid; the port writes that
+axis out too: K1-K4 take stacked weights ``(E, K, N)`` against
+activations ``(X, M, K)`` (banked ``(n, X, M, K)``), slice ``s`` against
+weight ``s % E``, in one launch counted under the kernel's own name
+(``approx_matmul_lut``, ``approx_matmul_lut_bank``, ``fused_matmul_lut``,
+``fused_matmul_lut_bank`` with ``w.ndim == 3``).
 
 The bitsim wrappers carry uint32 words as int32 bit patterns
 (``bitsim_planes``, ``bitsim_pop_planes``); ``bitsim`` and ``bitsim_pop``
@@ -84,6 +92,15 @@ def _check_codes(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
                          f"{qw.device}, {lut.device}")
 
 
+def _check_experts(a: torch.Tensor, w: torch.Tensor) -> None:
+    """The expert form's slices: E = w.shape[0] weights dividing the X
+    activation slices of ``a`` (..., X, M, K)."""
+    e, x = w.shape[0], a.shape[-3]
+    if e < 1 or x < 1 or x % e:
+        raise ValueError(f"{x} activation slices are no multiple of the "
+                         f"{e} stacked weights")
+
+
 def _dispatch(kernel, plain, qa, qw, lut, *rest):
     lut16 = lut_to_uint16(lut)       # raises on entries >= 2^16
     if qa.device.type == "cpu":
@@ -100,7 +117,14 @@ def approx_matmul_lut(qa: torch.Tensor, qw: torch.Tensor,
                       lut: torch.Tensor) -> torch.Tensor:
     """Bit-true approximate matmul on uint8 codes (kernel K1).
     qa (M,K) int32, qw (K,N) int32, lut (256,256) int32 or uint16
-    (entries in [0, 65535]) -> (M,N) int32."""
+    (entries in [0, 65535]) -> (M,N) int32.  The expert form, one
+    launch: qa (X,M,K), qw (E,K,N) with E dividing X -> (X,M,N), slice
+    ``s`` equal to ``approx_matmul_lut(qa[s], qw[s % E], lut)``."""
+    if qw.ndim == 3:
+        _check_codes(qa, qw, lut, (3,), (256, 256), w_ndim=(3,))
+        _check_experts(qa, qw)
+        return _dispatch(lut_matmul, ref.approx_matmul_lut_experts_ref, qa,
+                         qw, lut)
     _check_codes(qa, qw, lut, (2,), (256, 256))
     return _dispatch(lut_matmul, ref.approx_matmul_lut_ref, qa, qw, lut)
 
@@ -110,14 +134,23 @@ def approx_matmul_lut_bank(qa: torch.Tensor, qw: torch.Tensor,
     """Banked bit-true matmul, one launch for a whole LUT bank (kernel
     K2).  qa (M,K) shared or (n,M,K) banked codes; luts (n,256,256)
     int32 or uint16 -> (n,M,N) int32, lane ``b`` equal to
-    ``approx_matmul_lut(qa_b, qw, luts[b])``."""
+    ``approx_matmul_lut(qa_b, qw, luts[b])``.  The expert form, one
+    launch for every lane and expert: qa (X,M,K) shared or (n,X,M,K), qw
+    (E,K,N) with E dividing X -> (n,X,M,N), lane ``b``'s slice ``s``
+    equal to ``approx_matmul_lut(qa_b[s], qw[s % E], luts[b])``."""
     n = luts.shape[0] if luts.ndim == 3 else -1
-    _check_codes(qa, qw, luts, (2, 3), (n, 256, 256))
-    if qa.ndim == 3 and qa.shape[0] != n:
+    experts = qw.ndim == 3
+    ndims = (3, 4) if experts else (2, 3)
+    _check_codes(qa, qw, luts, ndims, (n, 256, 256),
+                 w_ndim=(3,) if experts else (2,))
+    if experts:
+        _check_experts(qa, qw)
+    if qa.ndim == ndims[1] and qa.shape[0] != n:
         raise ValueError(f"banked qa has {qa.shape[0]} lanes, the bank "
                          f"{n}")
-    return _dispatch(lut_matmul_bank, ref.approx_matmul_lut_bank_ref,
-                     qa, qw, luts)
+    return _dispatch(lut_matmul_bank,
+                     ref.approx_matmul_lut_bank_experts_ref if experts
+                     else ref.approx_matmul_lut_bank_ref, qa, qw, luts)
 
 
 def composed_matmul_lut(qa: torch.Tensor, qw: torch.Tensor,
@@ -163,17 +196,23 @@ def composed_matmul_lut_bank(qa: torch.Tensor, qw: torch.Tensor,
 
 
 def _check_fused(x: torch.Tensor, w: torch.Tensor, luts: torch.Tensor,
-                 banked: bool, bound: int, what: str) -> int:
-    """Validate fused operands; returns the lane count (1 unbanked)."""
+                 banked: bool, bound: int, what: str,
+                 experts: bool = False) -> int:
+    """Validate fused operands; returns the count of (lane, slice) pairs
+    the scalars are read for: the lanes (1 unbanked), times the slices
+    of the expert form (``experts``: w (E,K,N))."""
     n = luts.shape[0] if banked and luts.ndim == 3 else -1
-    if x.ndim not in ((2, 3) if banked else (2,)) or w.ndim != 2:
-        raise ValueError(f"x must have {'2 or 3' if banked else 2} dims "
-                         f"and w 2, got {tuple(x.shape)} and "
-                         f"{tuple(w.shape)}")
+    x_ndims = tuple(d + experts for d in ((2, 3) if banked else (2,)))
+    if x.ndim not in x_ndims or w.ndim != 2 + experts:
+        raise ValueError(f"x must have {' or '.join(map(str, x_ndims))} "
+                         f"dims and w {2 + experts}, got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
     k = x.shape[-1]
-    if w.shape[0] != k:
+    if w.shape[-2] != k:
         raise ValueError(f"contraction mismatch: x K={k}, w K="
-                         f"{w.shape[0]}")
+                         f"{w.shape[-2]}")
+    if experts:
+        _check_experts(x, w)
     if k > bound:
         raise ValueError(f"K={k} exceeds the int32-safe {what} "
                          f"accumulation bound {bound}")
@@ -181,7 +220,7 @@ def _check_fused(x: torch.Tensor, w: torch.Tensor, luts: torch.Tensor,
     if tuple(luts.shape) != lut_shape:
         raise ValueError(f"LUT shape must be {lut_shape}, got "
                          f"{tuple(luts.shape)}")
-    if banked and x.ndim == 3 and x.shape[0] != n:
+    if banked and x.ndim == x_ndims[1] and x.shape[0] != n:
         raise ValueError(f"banked x has {x.shape[0]} lanes, the bank {n}")
     for name, t in (("x", x), ("w", w)):
         if t.dtype != torch.float32:
@@ -193,7 +232,7 @@ def _check_fused(x: torch.Tensor, w: torch.Tensor, luts: torch.Tensor,
     if not x.device == w.device == luts.device:
         raise ValueError(f"operands on different devices: {x.device}, "
                          f"{w.device}, {luts.device}")
-    return n if banked else 1
+    return (n if banked else 1) * (x.shape[-3] if experts else 1)
 
 
 def _plain_fused(plain, n: int):
@@ -210,7 +249,11 @@ def _finish(out: tuple, sc, k: int, raw: bool):
         return out
     s = limbs_to_f32(*out[:2]) if len(out) == 4 else out[0].to(
         torch.float32)
-    return dequant_lanes(s, out[-2], out[-1], sc, k)
+    row, col = out[-2], out[-1]
+    if s.ndim == 4:          # lanes x slices: one axis of scalar pairs
+        return dequant_lanes(s.flatten(0, 1), row.flatten(0, 1),
+                             col.flatten(0, 1), sc, k).view(s.shape)
+    return dequant_lanes(s, row, col, sc, k)
 
 
 def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
@@ -218,11 +261,16 @@ def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     """Fused 8-bit approximate matmul on float operands (kernel K3):
     in-kernel quantize with the scalars, LUT gather, int32 accumulation
     and code sums; f32 correction and dequant here.  x (M,K), w (K,N)
-    f32, lut (256,256) int32 or uint16 -> (M,N) f32."""
-    _check_fused(x, w, lut, False, MAX_LUT_K, "LUT")
-    sc = lane_scalars(1, x.device, sa, za, sw, zw, qmax)
-    out = _dispatch(fused_matmul, _plain_fused(ref.fused_matmul_ref, 1), x,
-                    w, lut, sc)
+    f32, lut (256,256) int32 or uint16 -> (M,N) f32.  The expert form,
+    one launch: x (X,M,K), w (E,K,N) with E dividing X, scalars shared
+    or one a slice (X,) -> (X,M,N), slice ``s`` equal to
+    ``fused_matmul_lut(x[s], w[s % E], lut, <slice s's scalars>)``."""
+    pairs = _check_fused(x, w, lut, False, MAX_LUT_K, "LUT", w.ndim == 3)
+    sc = lane_scalars(pairs, x.device, sa, za, sw, zw, qmax)
+    plain = (ref.fused_matmul_experts_ref if w.ndim == 3
+             else ref.fused_matmul_ref)
+    out = _dispatch(fused_matmul, _plain_fused(plain, pairs), x, w, lut,
+                    sc)
     return _finish(out, sc, x.shape[-1], raw)
 
 
@@ -232,12 +280,18 @@ def fused_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
     """Banked fused 8-bit matmul, one launch for a whole LUT bank (kernel
     K4): x (M,K) shared or (n,M,K) banked f32, luts (n,256,256),
     scalars per lane (n,) or shared -> (n,M,N) f32, lane ``b`` equal to
-    ``fused_matmul_lut`` with lane ``b``'s table and scalars."""
-    n = _check_fused(x, w, luts, True, MAX_LUT_K, "LUT")
-    sc = lane_scalars(n, x.device, sa, za, sw, zw, qmax)
-    out = _dispatch(fused_matmul_bank,
-                    _plain_fused(ref.fused_matmul_bank_ref, n), x, w, luts,
-                    sc)
+    ``fused_matmul_lut`` with lane ``b``'s table and scalars.  The
+    expert form, one launch for every lane and expert: x (X,M,K) shared
+    or (n,X,M,K), w (E,K,N) with E dividing X, scalars shared or one a
+    (lane, slice) pair (n X,), lane-major -> (n,X,M,N), lane ``b``'s
+    slice ``s`` equal to ``fused_matmul_lut(x_b[s], w[s % E], luts[b],
+    <pair (b, s)'s scalars>)``."""
+    pairs = _check_fused(x, w, luts, True, MAX_LUT_K, "LUT", w.ndim == 3)
+    sc = lane_scalars(pairs, x.device, sa, za, sw, zw, qmax)
+    plain = (ref.fused_matmul_bank_experts_ref if w.ndim == 3
+             else ref.fused_matmul_bank_ref)
+    out = _dispatch(fused_matmul_bank, _plain_fused(plain, pairs), x, w,
+                    luts, sc)
     return _finish(out, sc, x.shape[-1], raw)
 
 

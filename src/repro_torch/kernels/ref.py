@@ -48,6 +48,28 @@ def approx_matmul_lut_bank_ref(qa: torch.Tensor, qw: torch.Tensor,
         for b in range(luts.shape[0])])
 
 
+def approx_matmul_lut_experts_ref(qa: torch.Tensor, qw: torch.Tensor,
+                                  lut: torch.Tensor) -> torch.Tensor:
+    """The expert form of K1's plain version: qa (X,M,K) codes, qw
+    (E,K,N) with E dividing X, lut (256,256) -> (X,M,N) int32, slice s
+    equal to ``approx_matmul_lut_ref(qa[s], qw[s % E], lut)``."""
+    e = qw.shape[0]
+    return torch.stack([approx_matmul_lut_ref(qa[s], qw[s % e], lut)
+                        for s in range(qa.shape[0])])
+
+
+def approx_matmul_lut_bank_experts_ref(qa: torch.Tensor, qw: torch.Tensor,
+                                       luts: torch.Tensor) -> torch.Tensor:
+    """The expert form of K2's plain version: qa (X,M,K) shared or
+    (n,X,M,K) banked codes, qw (E,K,N), luts (n,256,256) -> (n,X,M,N)
+    int32, lane l's slice s equal to ``approx_matmul_lut_ref(qa_l[s],
+    qw[s % E], luts[l])``."""
+    return torch.stack([
+        approx_matmul_lut_experts_ref(qa if qa.ndim == 3 else qa[b], qw,
+                                      luts[b])
+        for b in range(luts.shape[0])])
+
+
 def composed_matmul_ref(qa: torch.Tensor, qw: torch.Tensor,
                         lut: torch.Tensor, mask,
                         reduce: tuple = ("exact", 0)) -> torch.Tensor:
@@ -100,6 +122,35 @@ def fused_matmul_ref(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     ip (1,2) -> acc (M,N), row (M,), col (N,) int32."""
     return tuple(t[0] for t in fused_matmul_bank_ref(x, w, lut[None], fp,
                                                      ip))
+
+
+def fused_matmul_bank_experts_ref(x: torch.Tensor, w: torch.Tensor,
+                                  luts: torch.Tensor, fp: torch.Tensor,
+                                  ip: torch.Tensor) -> tuple:
+    """The expert form of K4's plain version: x (X,M,K) shared or
+    (n,X,M,K) banked f32, w (E,K,N) with E dividing X, luts (n,256,256),
+    fp (n X, 3) and ip (n X, 2) the scalars of each (lane, slice) pair,
+    lane-major -> acc (n,X,M,N), row (n,X,M), col (n,X,N) int32: pair
+    p = l X + s is ``fused_matmul_ref`` of x_l[s] and w[s % E] under
+    luts[l] with pair p's scalars."""
+    xs, e = x.shape[-3], w.shape[0]
+    out = []
+    for b in range(luts.shape[0]):
+        xl = x if x.ndim == 3 else x[b]
+        out.append(_stack([
+            fused_matmul_ref(xl[s], w[s % e], luts[b], fp[b * xs + s][None],
+                             ip[b * xs + s][None]) for s in range(xs)]))
+    return _stack(out)
+
+
+def fused_matmul_experts_ref(x: torch.Tensor, w: torch.Tensor,
+                             lut: torch.Tensor, fp: torch.Tensor,
+                             ip: torch.Tensor) -> tuple:
+    """The expert form of K3's plain version: x (X,M,K), w (E,K,N), lut
+    (256,256), fp (X,3), ip (X,2) -> acc (X,M,N), row (X,M), col (X,N)
+    int32 (``fused_matmul_bank_experts_ref`` with one lane)."""
+    return tuple(t[0] for t in fused_matmul_bank_experts_ref(
+        x, w, lut[None], fp, ip))
 
 
 def _composed_limbs(qa, qw, lut, mask: int, kind: int, k: int) -> tuple:

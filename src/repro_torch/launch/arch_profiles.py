@@ -24,10 +24,9 @@ once the record is complete (``main`` writes ``--out`` first):
     (``trace_audit``), which has no torch counterpart; the port counts
     banked datapath calls (K2 under ``pallas``, K4 under ``fused``): the
     full identity sweep and a 2-row truncated one must make equally
-    many, and exactly the sum over the forward's call sites of E for a
-    routed-expert projection (one call an expert) and 1 for any other,
-    times the eval batches — the same whatever the number of rows
-    (``banked_calls_per_forward``).
+    many, and exactly one a call site (a routed-expert projection is one
+    call for all its experts), times the eval batches — the same
+    whatever the number of rows (``banked_calls_per_forward``).
 
 Every architecture of both modes is profiled: ``--quick``'s five
 (whisper-large-v3 included) and full mode's eight and ResNet-8.
@@ -129,9 +128,10 @@ MIXER_CALLS = {"attn": 4, "mla": 8, "mamba": 2}
 
 def banked_calls_per_forward(cfg) -> int:
     """Banked datapath calls one banked prefill makes when every call
-    site is banked: 1 a projection and E for each routed-expert
-    projection (``moe.wi``/``wg``/``wo``: one call an expert; the shared
-    experts are one FFN).  An FFN is 3 projections when gated (silu), 2
+    site is banked: 1 a projection, a routed-expert projection
+    (``moe.wi``/``wg``/``wo``) included — one call, one K2 (K4) launch,
+    for all its experts (``models.moe._expert_matmul``); the shared
+    experts are one FFN.  An FFN is 3 projections when gated (silu), 2
     else.  A vlm adds its ``img_proj``; an encdec makes ``n_enc_layers x
     (4 + ffn)`` in the encoder and ``n_layers x (4 + 4 + ffn)`` in the
     decoder (self-attention, then cross-attention's wk/wv over the
@@ -146,7 +146,7 @@ def banked_calls_per_forward(cfg) -> int:
         if ffn_kind == "ffn":
             per_group += ffn
         elif ffn_kind == "moe":
-            per_group += ffn * cfg.n_experts
+            per_group += ffn
             if cfg.n_shared_experts > 0:
                 per_group += ffn
     return (per_group * (cfg.n_layers // len(pattern))

@@ -24,7 +24,7 @@ Per cell:
     global shapes; without probes on a multi-device mesh, on the
     DTensors instead (the per-device program at full depth, which costs
     about a millisecond an op on a CPU — hours for an MoE cell, whose
-    port loops over experts);
+    datapath there, without an expert form, loops over experts);
   * ``memory``: per-device argument, output and aliased (donated) bytes,
     exact from the placements (each leaf's shard shape x itemsize);
   * ``flops_per_device``, ``bytes_per_device`` and ``collectives`` from

@@ -24,9 +24,8 @@ raises ``GateError`` once the record is complete):
   * ``banked_per_step`` (the port's form of the reference's
     O(1)-compiled-programs gate): every prefill and every decode step,
     the warm-up's included, made exactly the call-site formula's banked
-    datapath calls (``banked_calls_per_step``: one a projection, one an
-    expert and projection of an MoE layer; 7 x n_layers for a dense
-    model) and no single-table call, whatever the number of policies,
+    datapath calls (``banked_calls_per_step``: one a projection, an MoE
+    layer's for all its experts; 7 x n_layers for a dense model) and no single-table call, whatever the number of policies,
     and the bank was built once.  On a GPU each such step must also have
     launched the banked kernel (K2 under ``pallas``, K4 under
     ``fused``) exactly as many times and no other kernel.
@@ -81,10 +80,10 @@ def banked_calls_per_step(cfg) -> dict:
     one decode step, ``{"prefill": .., "decode": ..}``.  A decode step
     makes one a projection of every decoder layer (``block_pattern``:
     4 an attention slot, 8 an MLA slot, 2 a mamba slot, 3 a gated FFN
-    and 2 another, E of each projection of an MoE layer's routed experts
-    and one FFN for its shared ones); an encdec's decoder layer makes 4
-    self-attention, 2 cross-attention (``wq``, ``wo``) and its FFN's.  A
-    prefill adds a vlm's ``img_proj``, an encdec's encoder and its
+    and 2 another, one for each projection of an MoE layer's routed
+    experts, all experts at once, and one FFN for its shared ones); an
+    encdec's decoder layer makes 4 self-attention, 2 cross-attention
+    (``wq``, ``wo``) and its FFN's.  A prefill adds a vlm's ``img_proj``, an encdec's encoder and its
     cross-KV's ``wk``/``wv`` (``arch_profiles.banked_calls_per_forward``,
     one banked forward)."""
     prefill = banked_calls_per_forward(cfg)

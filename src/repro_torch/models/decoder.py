@@ -329,8 +329,8 @@ def forward_decode_lanes(params, tokens, positions, cache, cfg: LMConfig,
     lane's slot: attention k/v and MLA's latent rows in pages, a mamba
     slot's conv and SSM state in dense rows.  Every mixer and FFN of
     ``block_pattern`` runs its lane form: the projections once for all
-    lanes (an MoE layer one banked call an expert and projection, each
-    lane routing its token alone), the norms, attention, the SSM step,
+    lanes (an MoE layer one banked call a projection for every expert,
+    each lane routing its token alone), the norms, attention, the SSM step,
     the routing and the unembedding lane by lane at the shapes a
     sequential B=1 ``forward_decode`` gives them, so each lane's logits
     equal that decode's bit for bit.  Returns the n (1, vocab) logits

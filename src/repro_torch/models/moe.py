@@ -9,23 +9,33 @@ gathers back with the routing weights.  Slots past the capacity
 (GShard-style).  Shared experts (DeepSeek-V2) are a dense FFN over all
 tokens, added to the routed output.
 
+``_expert_matmul`` makes ONE datapath call a projection for all the
+experts (``policy.matmul(experts=True)``), as the reference's ``vmap``
+over experts hands its kernel the batched weights: under ``lut`` with
+``variant="pallas"`` (``"fused"``) that is one K1/K2 (K3/K4) launch for
+every expert and bank lane; each expert calibrates and quantizes its own
+(C, d) buffer (zero-padded capacity rows and a starved expert's all-zero
+buffer included) and its own (d, f) weight, as each ``vmap`` lane does.
+The datapaths without an expert form run one call an expert inside that
+call.
+
 Differences from the reference, none of which changes a value:
-  * ``_expert_matmul`` calls the datapath once per expert and
-    projection where the reference ``vmap``s it over experts; each
-    expert calibrates and quantizes its own (C, d) buffer (zero-padded
-    capacity rows included) and its own (d, f) weight, as each ``vmap``
-    lane does;
   * the dispatch writes only the slots inside the capacity: a dropped
     slot's write goes to one spare row past the buffer (the reference's
     ``mode="drop"``), so every shape is known before the data and the
     prefill runs on the ``meta`` device;
   * under a banked backend every bank lane routes its own tokens, as the
     reference's ``vmap`` over lanes does: routing, top-k, dispatch and
-    combine run lane by lane at the sequential shapes, and each expert's
-    projection is ONE banked call over all lanes (K2/K4 with ``C`` rows
-    a lane) — in the continuous engine's decode step too, where each
-    running request routes its one token alone (``capacity(cfg, 1)``
-    rows a lane).
+    combine run lane by lane at the sequential shapes, and each
+    projection is ONE banked call over all lanes and experts (K2/K4 with
+    ``C`` rows a (lane, expert) pair) — in the continuous engine's
+    decode step too, where each running request routes its one token
+    alone (``capacity(cfg, 1)`` rows a pair);
+  * block-local dispatch (``moe_blocks > 1``, the reference's ``vmap``
+    over token blocks) routes and dispatches block by block and puts
+    the blocks' expert buffers one after another on the expert axis, so
+    a projection is still one call (the shared experts run block by
+    block, each block calibrated on its own).
 The reference's ``_moe_blocked`` is called by nothing in the reference
 and is not ported.
 
@@ -143,14 +153,12 @@ def combine(out_buf: torch.Tensor, r: Route, cfg: LMConfig
 
 def _expert_matmul(policy: ApproxPolicy, name: str, x: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
-    """x: (E,C,d) @ w: (E,d,f) -> (E,C,f), one datapath call an expert
-    (``policy.matmul``, so a counting policy sees each); x (n,E,C,d)
-    with a bank lane axis, or a banked backend, gives (n,E,C,f)."""
-    lanes = x.ndim == 4
-    return torch.stack([
-        policy.matmul(name, x[:, j].contiguous() if lanes else x[j], w[j],
-                      lanes=lanes)
-        for j in range(w.shape[0])], dim=-3)
+    """x: (X,C,d) @ w: (E,d,f) -> (X,C,f), buffer s against expert s % E
+    (X = E, or token blocks' buffers one after another): ONE datapath
+    call for every expert (``policy.matmul(experts=True)``, so a
+    counting policy sees one); x (n,X,C,d) with a bank lane axis, or a
+    banked backend, gives (n,X,C,f)."""
+    return policy.matmul(name, x, w, lanes=x.ndim == 4, experts=True)
 
 
 def moe_ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
@@ -171,27 +179,35 @@ def moe_ffn(params, x, cfg: LMConfig, policy: ApproxPolicy,
     lead = x.shape[:-3]
     t = b * s
     nb = cfg.moe_blocks
-    if nb > 1 and t % nb == 0 and t // nb >= cfg.top_k:
-        xb = sharded_reshape(x, (*lead, nb, t // nb, d))
-        outs = [_moe_tokens(params, xb[..., j, :, :], cfg, policy,
-                            layer_tag) for j in range(nb)]
-        y = torch.stack([o[0] for o in outs], dim=-3)
-        aux = torch.mean(torch.stack([o[1] for o in outs], dim=-1), dim=-1)
-        return (sharded_reshape(y, (*y.shape[:-3], b, s, d)).to(x.dtype),
-                aux)
+    if not (nb > 1 and t % nb == 0 and t // nb >= cfg.top_k):
+        nb = 1
     y, aux = _moe_tokens(params, sharded_reshape(x, (*lead, t, d)), cfg,
-                         policy, layer_tag)
+                         policy, layer_tag, nb)
     return sharded_reshape(y, (*y.shape[:-2], b, s, d)).to(x.dtype), aux
 
 
 def _moe_tokens(params, xf, cfg: LMConfig, policy: ApproxPolicy,
-                layer_tag: str = "moe") -> tuple[torch.Tensor, torch.Tensor]:
-    """xf: (T,D), or (n,T,D) with a bank lane axis -> the same, aux."""
+                layer_tag: str = "moe", blocks: int = 1
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xf: (T,D), or (n,T,D) with a bank lane axis -> the same, aux.
+    ``blocks`` > 1: dispatch block-locally over that many contiguous
+    token blocks (capacity a block), their buffers one after another on
+    the expert axis; aux is the blocks' mean."""
     lanes = xf.ndim == 3
     xs = [xf[i].clone() for i in range(xf.shape[0])] if lanes else [xf]
-    routes = [route(params, x, cfg) for x in xs]
-    bufs = [dispatch(x, r, cfg) for x, r in zip(xs, routes)]
-    buf = torch.stack(bufs) if lanes else bufs[0]
+    tb = xf.shape[-2] // blocks
+    # lane-major, block-minor (a lane's blocks follow one another)
+    parts = ([x[j * tb:(j + 1) * tb] for x in xs for j in range(blocks)]
+             if blocks > 1 else xs)
+    routes = [route(params, x, cfg) for x in parts]
+    bufs = [dispatch(x, r, cfg) for x, r in zip(parts, routes)]
+    if lanes or blocks > 1:             # (n,) blocks x E buffers
+        buf = torch.stack(bufs)
+        e, cap, d = buf.shape[-3:]
+        buf = sharded_reshape(buf, ((len(xs),) if lanes else ())
+                              + (blocks * e, cap, d))
+    else:
+        buf = bufs[0]
     if cfg.moe_blocks <= 1 and not lanes:
         buf = hint_axis(buf, 0, "model")   # EP: expert dim on 'model'
 
@@ -204,16 +220,37 @@ def _moe_tokens(params, xf, cfg: LMConfig, policy: ApproxPolicy,
     out_buf = _expert_matmul(policy, f"{layer_tag}.wo",
                              hidden.to(xf.dtype), params["wo"])
 
-    if out_buf.ndim == 4:               # lanes, from xf or a banked backend
-        y = torch.stack([
-            combine(out_buf[i].clone(), routes[i if lanes else 0], cfg)
-            for i in range(out_buf.shape[0])])
-    else:
-        y = combine(out_buf, routes[0], cfg)
-    aux = torch.stack([r.aux for r in routes]) if lanes else routes[0].aux
+    # one combine a (lane, block): a banked backend on unbanked tokens
+    # gives every lane its own buffers over the one routing
+    n_out = out_buf.shape[0] if out_buf.ndim == 4 else 1
+    per = out_buf.reshape(n_out * blocks, -1, *out_buf.shape[-2:])
+    ys = [combine(per[i].clone() if out_buf.ndim == 4 else per[i],
+                  routes[i if lanes else i % blocks], cfg)
+          for i in range(n_out * blocks)]
+    if blocks > 1:
+        ys = [torch.cat(ys[i:i + blocks]) for i in range(0, len(ys), blocks)]
+    y = torch.stack(ys) if out_buf.ndim == 4 else ys[0]
+    auxes = [r.aux for r in routes]
+    if lanes:
+        auxes = [torch.stack(auxes[j::blocks]) for j in range(blocks)]
+    aux = (torch.mean(torch.stack(auxes, dim=-1), dim=-1) if blocks > 1
+           else auxes[0])
 
     if cfg.n_shared_experts > 0:
-        y = y + ffn(params["shared"], xf, cfg, policy,
-                    layer_tag=f"{layer_tag}.shared",
-                    lanes=lanes).to(y.dtype)
+        y = y + _shared(params["shared"], xf, cfg, policy, layer_tag,
+                        lanes, blocks).to(y.dtype)
     return y.to(xf.dtype), aux
+
+
+def _shared(params, xf, cfg: LMConfig, policy: ApproxPolicy,
+            layer_tag: str, lanes: bool, blocks: int) -> torch.Tensor:
+    """The shared experts' FFN over xf, block by block when dispatch is
+    block-local (each block calibrated on its own, as under the
+    reference's ``vmap`` over blocks)."""
+    tag = f"{layer_tag}.shared"
+    if blocks <= 1:
+        return ffn(params, xf, cfg, policy, layer_tag=tag, lanes=lanes)
+    tb = xf.shape[-2] // blocks
+    return torch.cat([ffn(params, xf[..., j * tb:(j + 1) * tb, :], cfg,
+                          policy, layer_tag=tag, lanes=lanes)
+                      for j in range(blocks)], dim=-2)

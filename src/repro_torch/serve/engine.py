@@ -135,11 +135,11 @@ class _CountedPolicy(ApproxPolicy):
     calls: Counter = field(default_factory=Counter)
 
     def matmul(self, name: str, x: torch.Tensor, w: torch.Tensor,
-               lanes: bool = False) -> torch.Tensor:
+               lanes: bool = False, experts: bool = False) -> torch.Tensor:
         backend = self.backend_for(name)
         self.calls["banked" if as_backend(backend).lanes is not None
                    else "single"] += 1
-        return backend_matmul(x, w, backend, lanes=lanes)
+        return backend_matmul(x, w, backend, lanes=lanes, experts=experts)
 
 
 class ContinuousEngine:
@@ -163,8 +163,9 @@ class ContinuousEngine:
     and SSM state and the encoder-decoder's cross-KV are the slot's
     dense rows (the cross-KV written once at admission, the state after
     each step for the slots that ran); an MoE layer routes each slot's
-    token alone, one banked call an expert and projection; a request's
-    ``extras`` (encoder frames, image embeddings) enter its prefill.
+    token alone, one banked call a projection for all its experts; a
+    request's ``extras`` (encoder frames, image embeddings) enter its
+    prefill.
 
     Token streams equal per-request sequential ``Engine.generate`` under
     ``lane_policy(serve)`` token for token: a banked lane's integer sums

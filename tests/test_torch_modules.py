@@ -19,8 +19,9 @@ What is held:
     ``policy_for_lane`` evaluations bit for bit on reduced qwen3-moe
     and mamba2, under ``pallas`` and ``fused`` (the kernels' plain
     versions on the CPU), with the banked calls
-    ``launch.arch_profiles.banked_calls_per_forward`` counts (one an
-    expert for ``moe.*``), and a 2-row sweep makes as many;
+    ``launch.arch_profiles.banked_calls_per_forward`` counts (one a
+    projection, ``moe.*`` one for all its experts), and a 2-row sweep
+    makes as many;
   * that count equals the banked calls of one banked pass on each of
     the eight archs of ``arch_profiles``' full mode.
 """
@@ -250,7 +251,7 @@ def test_banked_module_sweep_bit_identity_and_calls(arch, variant, lib):
         verify_assignments(wl, lowered[:2], mmap.layer_counts, lib, **kw)
     name = {"pallas": "approx_matmul_lut_bank",
             "fused": "fused_matmul_lut_bank"}[variant]
-    expected = {"qwen3-moe-30b-a3b": 2 * (4 + 3 * 8),
+    expected = {"qwen3-moe-30b-a3b": 2 * (4 + 3),
                 "mamba2-780m": 2 * 2}[arch]
     assert banked_calls_per_forward(cfg) == expected
     assert full[name] == half[name] == expected

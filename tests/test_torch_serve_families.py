@@ -335,14 +335,18 @@ def test_greedy_tokens_match_reference(libs, name):
 # ----------------------------------------------------------------------
 def _projection_calls(tree, skip=()) -> int:
     """Datapath calls of one pass over a stacked parameter tree: each
-    projection weight (lead, K, N) is one call a layer (lead), an
-    (lead, E, K, N) expert stack E a layer; keys in ``skip`` left out."""
+    projection weight (lead, K, N) is one call a layer (lead), and so is
+    an MoE's (lead, E, K, N) expert stack (its experts in one call); keys
+    in ``skip`` left out."""
     n = 0
+    experts = "router" in tree
     for key, value in tree.items():
         if key in skip:
             continue
         if isinstance(value, dict):
             n += _projection_calls(value, skip)
+        elif key in PROJECTIONS and experts:
+            n += int(np.prod(value.shape[:-3]))
         elif key in PROJECTIONS:
             n += int(np.prod(value.shape[:-2]))
     return n

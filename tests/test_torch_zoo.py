@@ -9,8 +9,9 @@ numpy generators with the seeds stated.
 What is held, and how closely:
   * ``moe_ffn`` (f32): routing ids equal, outputs within ``F32_ATOL``
     (the combine sums k slots in another order than XLA); the
-    per-expert datapath (``_expert_matmul`` under ``int8`` and ``lut``)
-    bit for bit, an expert that got no token included; with
+    per-expert datapath (``_expert_matmul`` under ``int8``, ``lut`` and
+    ``lut`` with ``variant="fused"``, all experts in one call) bit for
+    bit, an expert that got no token included; with
     ``capacity_factor=1.0`` slots are dropped and the same holds.
   * ``mamba_block``: the prefill from zero, the prefill with cache
     carry-out and the ``s == 1`` decode branch within ``SSM_RTOL`` of
@@ -154,18 +155,23 @@ def test_moe_ffn_matches_reference(capacity_factor):
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["int8", "lut"])
+@pytest.mark.parametrize("mode", ["int8", "lut", "fused"])
 @pytest.mark.parametrize("capacity_factor", [None, 1.0])
 def test_moe_expert_datapath_bit_for_bit(mode, capacity_factor, libs):
     """Dispatch buffers equal the reference's, and each expert's
-    datapath call (its own calibration of its zero-padded buffer and its
+    datapath (its own calibration of its zero-padded buffer and its
     weight) gives the reference's ``vmap``ped result bit for bit — for
-    the starved expert's all-zero buffer too."""
+    the starved expert's all-zero buffer too; ``fused``: ``lut`` under
+    ``variant="fused"``, all the experts in one K3 call (its plain
+    version here) against the reference's Pallas kernel in interpret
+    mode."""
     starve = 3
     ref_cfg, cfg, rp, pp, x = _moe_case(capacity_factor, starve=starve)
     ref_lib, port_lib = libs
-    spec = dict(mode=mode, multiplier="mul8u_trunc3") if mode == "lut" \
-        else dict(mode=mode)
+    spec = {"int8": dict(mode="int8"),
+            "lut": dict(mode="lut", multiplier="mul8u_trunc3"),
+            "fused": dict(mode="lut", multiplier="mul8u_trunc3",
+                          variant="fused")}[mode]
     rpol = RefPolicy(default=RefSpec(**spec).materialize(ref_lib))
     ppol = ApproxPolicy(default=BackendSpec(**spec).materialize(port_lib))
     xf = torch.from_numpy(x).reshape(-1, cfg.d_model)
