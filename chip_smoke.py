@@ -209,9 +209,10 @@ Phases (any failure exits nonzero):
      ``torch.profiler``, with the share of a step the latent expansion
      (``wuk``/``wuv``) takes; then deepseek-v2-236b (1 of 60 layers)
      served statically under ``lowrank``/``pallas`` (``_serve_path``:
-     K9 491 times a prefill and a decode step, every K9 call of a
-     prefill and a step within the bound, logits within the tolerance of
-     ``variant="ref"``);
+     K9 14 times a prefill and a decode step, a routed-expert
+     projection one launch for its 160 experts, every K9 call of a
+     prefill and a step within the bound, per slice of the expert form,
+     logits within the tolerance of ``variant="ref"``);
  10. training (``phase_train``), its checkpoints in a temporary
      directory removed at the end: ``launch.train_resnet.train``, the
      recipe of the committed ResNet-8 (320 f32 steps at batch 64 from a
@@ -460,6 +461,23 @@ EXPERT_RAGGED = ((2, 5, 7, 577, 65), (3, 3, 1, 33, 9), (1, 4, 513, 31, 8),
                  (2, 3, 2, 100, 50))
 EXPERT_BLOCKS = 2            # the last ragged case: X = 2E slices
 EXPERT_FULL = ((15, 128, 4, 2048, 768), (24, 160, 4, 5120, 1536))
+# the expert form of K9 and K5-K8 (``phase_experts``): (E experts, rows
+# C, K, N).  K9 at E = 8 with deepseek's expert projections at C = 4 and
+# 6 capacity rows (its decode and prefill: the streaming regime) and 64
+# (the tensor-core regime), at ragged shapes (the last: two token blocks'
+# buffers over the same experts), each slice within the bound of its
+# plain version; then at deepseek's full E = 160, C = 4 against 160
+# launches without the axis (kernel against kernel), both timed.  K5-K8
+# at E = 8 with qwen3-moe's (2048, 768) at C = 4: a 12-bit entry (K5,
+# K7), the wide study's 8/12/16-bit lanes under one tree (K6, K8) and the
+# mixed-reduce bank (K8), bit for bit against the plain versions and
+# against E launches, both timed
+LOWRANK_EXPERT_CHECK = tuple((8, c, k, n) for c in (4, 6, 64)
+                             for k, n in ((5120, 1536), (1536, 5120)))
+LOWRANK_EXPERT_RAGGED = ((5, 7, 577, 65), (3, 1, 33, 9), (4, 129, 130, 1),
+                         (3, 2, 100, 50))
+LOWRANK_EXPERT_FULL = ((160, 4, 5120, 1536), (160, 4, 1536, 5120))
+COMPOSED_EXPERT = (8, 4, 2048, 768)
 # the encoder-decoder serve path: whisper-large-v3 whole (32 encoder and
 # 32 decoder layers, 1 500 frames) at the serve path's settings; K9 a
 # prefill: 6 a layer in the encoder, the cross-KV's 2 and 8 a layer in
@@ -1011,14 +1029,16 @@ def _served_factors(device):
 
 def _check_lowrank(got, plain, qa, qw, u, v, what: str) -> tuple:
     """K9 and its plain version against the bound both are held to
-    (``kernels.ref.lowrank_bound``): |y - y64| <= 2 (K R + 1) 2^-24 S
-    elementwise, y64 the sum in float64, S = Σ_r |U_r(qa)| @ |V_r(qw)|.
-    Returns max |kernel - plain|, the kernel's max |y - y64| / tol and
-    that element's y64, S, |y - y64| and tol."""
+    (``kernels.ref.lowrank_bound``, per slice of the expert form: qa
+    (X,M,K), qw (E,K,N)): |y - y64| <= 2 (K R + 1) 2^-24 S elementwise,
+    y64 the sum in float64, S = Σ_r |U_r(qa)| @ |V_r(qw)|.  Returns max
+    |kernel - plain|, the kernel's max |y - y64| / tol and that element's
+    y64, S, |y - y64| and tol."""
     import torch
     from repro_torch.kernels import ref
     torch.cuda.synchronize()
-    y64, tol = ref.lowrank_bound(qa, qw, u, v)
+    y64, tol = (ref.lowrank_bound_experts if qw.ndim == 3
+                else ref.lowrank_bound)(qa, qw, u, v)
     for name, y in (("kernel", got), ("plain", plain)):
         if not (y.shape == y64.shape and bool(torch.isfinite(y).all())
                 and bool(((y.double() - y64).abs() <= tol).all())):
@@ -1029,7 +1049,7 @@ def _check_lowrank(got, plain, qa, qw, u, v, what: str) -> tuple:
     diff = (got.double() - y64).abs()
     ratios = diff / tol.clamp_min(1e-300)
     i = int(ratios.argmax())
-    k, r = qa.shape[1], u.shape[0]
+    k, r = qa.shape[-1], u.shape[0]
     worst = {"y64": float(y64.flatten()[i]),
              "S": float(tol.flatten()[i]) / (2.0 * (k * r + 1) * 2.0 ** -24),
              "abs_err": float(diff.flatten()[i]),
@@ -1741,8 +1761,10 @@ def _checked_generate(engine, prompts, per_step: tuple, rows: list,
 
     def checked(qa, qw, u, v):
         y = real(qa, qw, u, v)
-        seen.append((qa.shape[0], *_check_lowrank(
-            y, ref.lowrank_matmul_ref(qa, qw, u, v), qa, qw, u, v,
+        plain = (ref.lowrank_matmul_experts_ref if qw.ndim == 3
+                 else ref.lowrank_matmul_ref)
+        seen.append((qa.shape[-2], *_check_lowrank(
+            y, plain(qa, qw, u, v), qa, qw, u, v,
             f"serve call {len(seen)} {tuple(qa.shape)}x{tuple(qw.shape)}"
         )[:2]))
         return y
@@ -1786,10 +1808,13 @@ def _profile_decode(engine, prompts, device, extras=None) -> dict:
 
 def _profiled(fn) -> dict:
     """``fn()`` under ``torch.profiler``: its wall, the device's busy
-    time (the kernels' own time), the kernels it ran and the top ones."""
+    time (the kernels' own time), the kernels it ran and the top ones,
+    and the device memory's peak during it (resident tensors
+    included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1810,6 +1835,7 @@ def _profiled(fn) -> dict:
     host = sorted(events, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:8]
     return {"wall_ms": wall_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "device_busy_ms": busy_ms if busy_ms > 0 else None,
             "busy_share": busy_ms / wall_ms if busy_ms > 0 else None,
             "kernels": sum(e.count for e in kernels),
@@ -1902,7 +1928,8 @@ def _serve_path(device, log, launches_total: dict, settings: dict,
     prof = _profile_decode(engines["pallas"], prompts, dev, extras)
     log(f"serve {arch}: one decode step {prof['wall_ms']:.2f} ms under the "
         f"profiler, device busy {prof['device_busy_ms']} ms (share "
-        f"{prof['busy_share']}, {prof['kernels']} kernels); top device "
+        f"{prof['busy_share']}, {prof['kernels']} kernels, peak "
+        f"{prof['peak_gb']:.2f} GB); top device "
         f"{prof['top'][:5]}; top host {prof['top_host'][:5]}")
     del engines, params, logits
     torch.cuda.empty_cache()
@@ -2015,8 +2042,9 @@ def phase_serve_families(device, log, launches_total: dict) -> dict:
     launches are printed; then one MLA decode step profiled, with the
     latent expansion's share of a step; then the static MLA serve
     (``_serve_path``: deepseek-v2-236b at 1 of 60 layers under
-    ``lowrank``/``pallas``, K9 491 times a prefill and a decode step,
-    within the bound and 2.5% of ``ref``)."""
+    ``lowrank``/``pallas``, K9 14 times a prefill and a decode step, a
+    routed-expert projection one launch for its 160 experts, within the
+    bound and 2.5% of ``ref``)."""
     import torch
     from repro_torch.launch import serve_load
     out, tokens = {}, {}
@@ -2076,17 +2104,10 @@ def phase_serve_families(device, log, launches_total: dict) -> dict:
     out["mla_step_profile"] = prof
 
     def k9_calls(cfg, b, s):
-        from repro_torch.models.decoder import block_pattern
         from repro_torch.models.moe import capacity
-        # the call-site formula counts one call a routed-expert
-        # projection; lowrank has no expert form, so K9 launches once an
-        # expert there (E where the formula counts 1)
-        pattern = block_pattern(cfg)
-        moe_layers = (sum(f == "moe" for _m, f in pattern)
-                      * (cfg.n_layers // len(pattern)))
-        ffn = 3 if cfg.act == "silu" else 2
-        per_forward = (serve_load.banked_calls_per_step(cfg)["decode"]
-                       + moe_layers * ffn * (cfg.n_experts - 1))
+        # the call-site formula: one call a projection, a routed-expert
+        # projection one K9 launch for all its experts (the expert form)
+        per_forward = serve_load.banked_calls_per_step(cfg)["decode"]
         # projections at b*s (prefill) or b (decode) rows, wuk/wuv over
         # the whole cache (the checked generate's s + 2 rows), the routed
         # experts at their capacity
@@ -3456,10 +3477,248 @@ def _expert_operands(p_, e, m, k, n, gen, device, blocks: int = 1) -> dict:
     return out
 
 
+def _experts_lowrank(device, gen, max_err: dict, fp32_rate: float) -> tuple:
+    """K9's expert form (qa (X,C,K) against qw (E,K,N), the served
+    multiplier's rank-4 factors): (a) at ``LOWRANK_EXPERT_CHECK`` and
+    ``LOWRANK_EXPERT_RAGGED`` every slice within the bound of the plain
+    version (``ref.lowrank_matmul_experts_ref``), a second call bit-equal;
+    (b) at ``LOWRANK_EXPERT_FULL`` against E launches of K9 without the
+    axis, both within the bound, each timed (CUDA events) beside the
+    bound: the codes, tables and outputs moved once at 3.35 TB/s and the
+    flops at the faster f32-accurate rate (``_lowrank_timing``'s).
+    Returns (cases, rows)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lowrank_matmul import plan
+    _, factors = _served_factors(device)
+    u, v = factors["R=4"]
+    r = u.shape[0]
+    cases, rows = [], []
+    shapes = [(c, 1) for c in LOWRANK_EXPERT_CHECK] + [
+        (c, EXPERT_BLOCKS if i == len(LOWRANK_EXPERT_RAGGED) - 1 else 1)
+        for i, c in enumerate(LOWRANK_EXPERT_RAGGED)]
+    for (e, m, k, n), blocks in shapes:
+        what = f"E={e} x{blocks} {(m, k, n)}"
+        qa = _codes((blocks * e, m, k), gen, device)
+        qw = _codes((e, k, n), gen, device)
+        got = ops.lowrank_matmul(qa, qw, u, v)
+        err, ratio, worst = _check_lowrank(
+            got, ref.lowrank_matmul_experts_ref(qa, qw, u, v), qa, qw, u, v,
+            f"expert form {what}")
+        again = ops.lowrank_matmul(qa, qw, u, v)
+        torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            raise AssertionError(f"lowrank_matmul expert form {what}: a "
+                                 "second call differs")
+        max_err["lowrank_matmul"] = max(max_err["lowrank_matmul"], err)
+        p = plan(m, k, n, r, blocks * e)
+        cases.append({"E": e, "X": blocks * e, "M": m, "K": k, "N": n,
+                      "regime": p.regime, "splits": p.splits,
+                      "workspace_bytes": p.workspace_bytes,
+                      "max_abs_err": err, "err_over_bound": ratio, **worst})
+        del qa, qw, got, again
+    print(f"[experts] K9 expert form: {len(cases)} cases within the bound "
+          f"of the plain version, per slice (max |K9 - y64| / bound "
+          f"{max(c['err_over_bound'] for c in cases):.3g}); " + json.dumps(
+              cases))
+    for e, m, k, n in LOWRANK_EXPERT_FULL:
+        what = f"E={e} {(m, k, n)}"
+        qa = _codes((e, m, k), gen, device)
+        qw = _codes((e, k, n), gen, device)
+
+        def call():
+            return ops.lowrank_matmul(qa, qw, u, v)
+
+        def loop():
+            return [ops.lowrank_matmul(qa[j], qw[j], u, v)
+                    for j in range(e)]
+        diff, ratio, _ = _check_lowrank(call(), torch.stack(loop()), qa, qw,
+                                        u, v, f"expert form {what} and its "
+                                        f"{e} launches")
+        ms = _time(call, reps=3, warmup=1)
+        loop_ms = _time(loop, reps=2, warmup=1)
+        flops = 2 * e * m * k * n * r
+        nbytes = (qa.numel() + qw.numel() + 2 * r * 256 + e * m * n) * 4
+        ops_ms = min(flops / fp32_rate, TF32_SPLIT_PRODUCTS * flops
+                     / TF32_FLOPS_PER_S) * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        p = plan(m, k, n, r, e)
+        rows.append({"kernel": "lowrank_matmul", "form": "experts",
+                     "experts": e, "M": m, "K": k, "N": n, "R": r,
+                     "regime": p.regime, "blocks": p.blocks,
+                     "splits": p.splits,
+                     "workspace_bytes": p.workspace_bytes, "ms": ms,
+                     "e_launches_ms": loop_ms,
+                     "max_abs_diff_e_launches": diff,
+                     "err_over_bound": ratio, "ops_ms": ops_ms,
+                     "bytes_ms": bytes_ms,
+                     "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms >= bytes_ms
+                     else "bytes"})
+        print(f"[experts] lowrank_matmul {what} ({p.regime}, {p.blocks} "
+              f"blocks, {p.splits} K slices, workspace "
+              f"{p.workspace_bytes / 1e6:.1f} MB): one launch {ms:.3f} ms, "
+              f"{e} launches without the axis {loop_ms:.3f} ms, bound "
+              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
+              f"both within the bound (max |K9 - y64| / bound "
+              f"{ratio:.3g}), "
+              f"max |one launch - {e} launches| {diff:.3g}")
+        del qa, qw
+        torch.cuda.empty_cache()
+    return cases, rows
+
+
+def _experts_composed(device, gen, t: dict, check, rates: tuple) -> list:
+    """K5-K8's expert form at ``COMPOSED_EXPERT``: K5/K7 on a 12-bit entry
+    of the wide study's bank, K6/K8 on its 8-, 12- and 16-bit lanes (one
+    tree), K8 on the mixed-reduce bank, each operand quantized at its
+    lane's width per (lane, slice) pair (``calibrate_slices``), as the
+    datapath does; each held bit for bit (``check``) against its plain
+    version (``ref.*_experts_ref``) and against E launches without the
+    axis (the fused kernels' raw outputs and f32 results), and each timed
+    with its E launches beside its bound (lookups, integer ops, bytes:
+    ``phase_timing``'s).  Returns the timing rows."""
+    import torch
+    from repro_torch.approx.quant import (calibrate_slices, pair_scalars,
+                                          quantize)
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import ops, ref
+    lookup_rate, int_rate = rates
+    e, m, k, n = COMPOSED_EXPERT
+    wide = t["wide"]
+    widths = wide["bits"].tolist()
+    sel = torch.tensor([widths.index(b) for b in (8, 12, 16)],
+                       device=device)
+    three = {key: v.index_select(0, sel) for key, v in wide.items()}
+    i12 = widths.index(12)
+    one = {key: v[i12:i12 + 1] for key, v in wide.items()}
+    x = _floats((e, m, k), gen, device)
+    w = _floats((e, k, n), gen, device, 0.2)
+    red = ("loa", 4)                       # the wide study's tree
+    rows = []
+
+    def per_pair(bank, kind: str, pairs: int, nbytes: int):
+        """Lookups, integer ops and bytes of ``pairs`` (lane, slice) pairs
+        of ``bank``'s lanes, lane-major."""
+        lanes = bank["masks"].shape[0]
+        lookups = logic = arith = 0
+        for mask, (kd, kk) in zip(bank["masks"].tolist(),
+                                  bank["codes"].tolist()):
+            lo_, ar_ = int_ops_per_product(mask, kd, kk)
+            each = pairs // lanes * m * k * n
+            lookups += (4 if mask else 1) * each
+            logic, arith = logic + lo_ * each, arith + ar_ * each
+        return _bounds(lookups / lookup_rate,
+                       int_seconds(logic, arith, int_rate),
+                       nbytes / HBM_BYTES_PER_S)
+
+    def timed(kernel, what, call, loop, bounds):
+        ms = _time(call, reps=3, warmup=1)
+        loop_ms = _time(loop, reps=3, warmup=1)
+        rows.append({"kernel": kernel, "form": "experts", "case": what,
+                     "experts": e, "M": m, "K": k, "N": n, "ms": ms,
+                     "e_launches_ms": loop_ms, **bounds})
+        print(f"[experts] {kernel} {what} E={e} {(m, k, n)}: one launch "
+              f"{ms:.3f} ms, {e} launches without the axis {loop_ms:.3f} "
+              f"ms, bound {bounds['bound_ms']:.4f} ms ({bounds['limit']}); "
+              f"equal bit for bit to the plain version and the launches")
+
+    # K5 and K6 on codes
+    for kernel, bank in (("composed_matmul", one),
+                         ("composed_matmul_bank", three)):
+        bits = 12 if kernel == "composed_matmul" else bank["bits"]
+        qa = quantize(x, calibrate_slices(x, bits))
+        qw = quantize(w, calibrate_slices(w, bits))
+        tab, masks, codes = bank["luts"], bank["masks"], bank["codes"]
+        if kernel == "composed_matmul":
+            mask = int(masks[0])
+
+            def call():
+                return ops.composed_matmul_lut(qa, qw, tab[0], mask, red,
+                                               raw=True)
+
+            def loop():
+                per = [ops.composed_matmul_lut(qa[s], qw[s], tab[0], mask,
+                                               red, raw=True)
+                       for s in range(e)]
+                return [torch.stack(v) for v in zip(*per)]
+            plain = ref.composed_matmul_limbs_experts_ref(
+                qa, qw, tab[0].to(torch.int32), masks, codes)
+            pairs = e
+        else:
+            def call():
+                return ops.composed_matmul_lut_bank(qa, qw, tab, masks, red,
+                                                    raw=True, experts=True)
+
+            def loop():
+                per = [ops.composed_matmul_lut_bank(
+                    qa[:, s].contiguous(), qw[:, s].contiguous(), tab,
+                    masks, red, raw=True) for s in range(e)]
+                return [torch.stack(v, dim=1) for v in zip(*per)]
+            plain = ref.composed_matmul_bank_experts_ref(
+                qa, qw, tab.to(torch.int32), masks, codes)
+            pairs = e * masks.shape[0]
+        what = f"{kernel} {tuple(qa.shape)} x {tuple(qw.shape)}"
+        check(kernel, call(), plain, f"plain {what}")
+        check(kernel, call(), loop(), f"{e} launches, {what}")
+        timed(kernel, "12-bit entry" if pairs == e else "8/12/16 bank",
+              call, loop, per_pair(bank, kernel, pairs,
+                                   (qa.numel() + qw.numel()) * 4
+                                   + masks.shape[0] * 65536 * 2
+                                   + 2 * pairs * m * n * 4))
+        del qa, qw, plain
+    # K7 and K8 on floats: one table, the 8/12/16 bank, the mixed-reduce
+    # bank (shared and banked activations against the plain version)
+    xb = _floats((t["mixed"]["luts"].shape[0], e, m, k), gen, device)
+    for kernel, bank, label in (
+            ("fused_composed_matmul", one, "12-bit entry"),
+            ("fused_composed_matmul_bank", three, "8/12/16 bank"),
+            ("fused_composed_matmul_bank", t["mixed"], "mixed-reduce bank")):
+        banked = kernel.endswith("_bank")
+        lanes = bank["luts"].shape[0]
+        bits = bank["bits"] if banked else 12
+        op = (ops.fused_composed_matmul_lut_bank if banked
+              else ops.fused_composed_matmul_lut)
+        plain_fn = (ref.fused_composed_matmul_bank_experts_ref if banked
+                    else ref.fused_composed_matmul_experts_ref)
+        tab = bank["luts"] if banked else bank["luts"][0]
+        masks, codes = bank["masks"], bank["codes"]
+        for xin in ((xb, x) if label == "mixed-reduce bank" else (x,)):
+            sp = pair_scalars(calibrate_slices(xin, bits),
+                              calibrate_slices(w, bits), lanes, e)
+            fp, ip = fm.pack_scalars(lanes * e, device, *sp)
+            what = f"{kernel} {label} x{tuple(xin.shape)}"
+            want = plain_fn(xin, w, tab.to(torch.int32), masks, codes, fp,
+                            ip)
+            check(kernel, op(xin, w, tab, masks, codes, *sp, raw=True),
+                  want, f"plain {what}")
+        # the shared activations' scalars (sp): slice s's pairs l e + s
+        at = [torch.arange(lanes, device=device) * e + s for s in range(e)]
+
+        def call(raw=True):
+            return op(x, w, tab, masks, codes, *sp, raw=raw)
+
+        def loop(raw=True):
+            dim = 1 if banked else 0
+            per = [op(x[s], w[s], tab, masks, codes,
+                      *[v[at[s]] if isinstance(v, torch.Tensor) else v
+                        for v in sp], raw=raw) for s in range(e)]
+            if raw:
+                return [torch.stack(v, dim=dim) for v in zip(*per)]
+            return [torch.stack(per, dim=dim)]
+        check(kernel, call(), loop(), f"{e} launches, {what}")
+        check(kernel, [call(False)], loop(False), f"{e} launches f32, {what}")
+        timed(kernel, label, call, loop, per_pair(
+            bank, kernel, lanes * e,
+            (x.numel() + w.numel()) * 4 + lanes * 65536 * 2
+            + lanes * e * (2 * m * n + m + n) * 4))
+    return rows
+
+
 def phase_experts(device) -> dict:
-    """The expert axis of K1-K4 (``kernels.ops`` with stacked weights
+    """The expert axis of K1-K9 (``kernels.ops`` with stacked weights
     (E, K, N): one launch for every expert and bank lane, as
-    ``models.moe._expert_matmul`` now makes one a projection).  (a) Bit
+    ``models.moe._expert_matmul`` makes one a projection).  (a) Bit
     for bit against the plain versions (``ref.*_experts_ref``: a loop
     over the pairs of the kernels' plain versions) at ``EXPERT_CHECK`` and
     ``EXPERT_RAGGED``: K1/K3 on one table, K2/K4 on P tables with banked
@@ -3467,16 +3726,21 @@ def phase_experts(device) -> dict:
     eager epilogue too.  (b) At ``EXPERT_FULL`` against E launches of
     K2/K4 without the axis, bit for bit, each form timed (CUDA events)
     beside its bound (the largest of the table lookups at 32 a clock per
-    SM, the integer adds and the bytes, ``phase_timing``'s rates)."""
+    SM, the integer adds and the bytes, ``phase_timing``'s rates).  (c)
+    K5-K8 at ``COMPOSED_EXPERT`` (``_experts_composed``) and K9 at its
+    shapes (``_experts_lowrank``)."""
     import torch
     from repro_torch.approx.quant import calibrate_slices, pair_scalars
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import ops, ref
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(3)
-    profile = _tables(device)["profile"]
-    max_err = {k: 0.0 for k in ("lut_matmul", "lut_matmul_bank",
-                                "fused_matmul", "fused_matmul_bank")}
+    tables = _tables(device)
+    profile = tables["profile"]
+    max_err = {k: 0.0 for k in (
+        "lut_matmul", "lut_matmul_bank", "fused_matmul", "fused_matmul_bank",
+        "composed_matmul", "composed_matmul_bank", "fused_composed_matmul",
+        "fused_composed_matmul_bank", "lowrank_matmul")}
     cases = 0
 
     def check(name, got, want, what):
@@ -3595,10 +3859,15 @@ def phase_experts(device) -> dict:
                   f"equal bit for bit")
             del a, w, slices, sc
             torch.cuda.empty_cache()
+    rows += _experts_composed(device, gen, tables, check,
+                              (lookup_rate, int_rate))
+    lowrank_cases, lowrank_rows = _experts_lowrank(
+        device, gen, max_err, sms * FP32_LANES_PER_SM * 2 * clock_hz)
+    rows += lowrank_rows
     wall = time.perf_counter() - t0
-    print(f"[experts] phase {wall:.1f} s")
+    print(f"[experts] {cases} cases equal bit for bit; phase {wall:.1f} s")
     return {"cases": cases, "max_abs_err": max_err, "rows": rows,
-            "wall_s": wall}
+            "lowrank_cases": lowrank_cases, "wall_s": wall}
 
 
 def _time(fn, reps: int, warmup: int) -> float:

@@ -32,13 +32,15 @@ on its own, exactly as the reference's ``vmap`` lane is, for banked and
 unbanked backends alike.
 
 Stacked expert weights (an MoE projection, ``experts=True``): ``w`` is
-``(E, K, N)`` and ``x`` ``(X, C, K)`` (``(n, X, C, K)`` with lanes), slice
-``s`` against ``w[s % E]``, each (lane, slice) pair calibrated on its own
-as the reference's ``vmap`` over experts does.  A datapath with an
-expert form (``has_expert_form``: the 8-bit ``lut_pallas`` / ``lut_fused``
-tables) runs them in one kernel launch, as the reference's batched
-``pallas_call`` does; the others, and an STE backend under autograd,
-run one call a slice.
+``(E, K, N)`` (or ``prepare_tree``'s stacked prepared dict) and ``x``
+``(X, C, K)`` (``(n, X, C, K)`` with lanes), slice ``s`` against
+``w[s % E]``, each (lane, slice) pair calibrated on its own (at its
+lane's width) as the reference's ``vmap`` over experts does.  Every mode
+runs them in one call: the float modes and prepared weights as one
+batched product, a quantized datapath through its expert form
+(``forward_q_experts`` / ``forward_fused_experts``: one kernel launch
+under ``pallas``/``fused``, as the reference's batched ``pallas_call``);
+an STE backend under autograd runs one call a slice.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ import torch
 from ..launch.mesh import reduce_partial, sharded_reshape
 from .quant import (calibrate, calibrate_slices, dequant_sums, quantize,
                     slice_params)
+from .registry import experts_product, experts_view
 from .specs import BackendSpec, MaterializedBackend, materialize
 
 # ----------------------------------------------------------------------
@@ -195,23 +198,37 @@ def _quantized_experts(x: torch.Tensor, w: torch.Tensor,
     """x (X,C,K), or (n,X,C,K) with a lane axis; w (E,K,N), E dividing X
     -> (X,C,N), or (n,X,C,N) when ``x`` or the backend is banked, through
     the datapath's expert form: one call for every (lane, slice) pair,
-    each calibrated and quantized on its own (zero-padded capacity rows
-    and a starved expert's all-zero buffer included), its sums and
-    dequant per pair with the ``_quantized_matmul`` formula."""
+    each calibrated and quantized on its own at its lane's width
+    (zero-padded capacity rows and a starved expert's all-zero buffer
+    included), its sums and dequant per pair with the
+    ``_quantized_matmul`` formula (the int32 one for an exact
+    datapath)."""
     dp = backend.datapath
     consts = backend.device_consts(x.device)
     if dp.fused:
         return dp.forward_fused_experts(x, w, consts)
-    qp_a, qp_w = calibrate_slices(x), calibrate_slices(w)
+    bits = consts.get("bits", 8)
+    qp_a, qp_w = calibrate_slices(x, bits), calibrate_slices(w, bits)
     qa, qw = quantize(x, qp_a), quantize(w, qp_w)
     s = dp.forward_q_experts(qa, qw, consts)
-    slices = x.shape[-3]
+    slices, k = x.shape[-3], x.shape[-1]
     row = torch.sum(qa, dim=-1, dtype=torch.int32)[..., None]
-    col = slice_params(torch.sum(qw, dim=-2, dtype=torch.int32)[:, None],
+    col = slice_params(torch.sum(qw, dim=-2, dtype=torch.int32)[..., None, :],
                        slices)
-    return dequant_sums(s.to(torch.float32), row, col, qp_a.zero_point,
-                        slice_params(qp_w.zero_point, slices), qp_a.scale,
-                        slice_params(qp_w.scale, slices), x.shape[-1])
+    za, zw = qp_a.zero_point, slice_params(qp_w.zero_point, slices)
+    sa, sw = qp_a.scale, slice_params(qp_w.scale, slices)
+    if dp.exact_int32:
+        acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
+        return acc * (sa * sw)
+    return dequant_sums(s.to(torch.float32), row, col, za, zw, sa, sw, k)
+
+
+def _float_experts(x: torch.Tensor, w: torch.Tensor,
+                   backend: MaterializedBackend) -> torch.Tensor:
+    """The ``f32`` / ``bf16`` expert form: one batched matmul of x
+    (..., X, C, K) against w (E, K, N), differentiable as it stands."""
+    return experts_product(x, w, lambda a, w_: _forward(a, w_, backend,
+                                                        False))
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor,
@@ -268,6 +285,40 @@ def prepare_weight(w, backend: BackendLike) -> dict:
 
 def is_prepared(w) -> bool:
     return isinstance(w, dict) and "tabs" in w
+
+
+def _prepared_experts(x: torch.Tensor, pw: dict,
+                      backend: MaterializedBackend) -> torch.Tensor:
+    """``_prepared_matmul`` of each slice of x (..., X, C, K) against
+    expert ``s % E`` of a stacked prepared weight (``prepare_tree`` of an
+    (E, K, N) stack: tabs (E, R, K, N), colsum (E, N), w_scale and w_zp
+    (E,)), each slice calibrated and quantized on its own, as the
+    reference's ``vmap`` over experts runs it: one batched product."""
+    tabs = pw["tabs"]                                     # (E,R,K,N)
+    e = tabs.shape[0]
+    qp_a = calibrate_slices(x)
+    qa = quantize(x, qp_a)
+    u = backend.device_consts(x.device)["u"]              # (R,256)
+    ua = u[:, experts_view(qa, e).long()].to(torch.bfloat16)
+    ua = ua.movedim(0, -3)                                # (B,E,R,C,K)
+    # bf16 operands, f32 accumulation, as in _prepared_matmul; the f32
+    # copy of the tables is made for about 2^27 entries at a time
+    step = max(1, (1 << 27) // max(1, tabs[0].numel()))
+    y_q = torch.cat([
+        torch.matmul(ua[:, i:i + step].to(torch.float32),
+                     tabs[i:i + step].to(torch.float32)).sum(dim=2)
+        for i in range(0, e, step)], dim=1)
+    y_q = sharded_reshape(y_q, (*x.shape[:-1], y_q.shape[-1]))
+    slices, k = x.shape[-3], x.shape[-1]
+
+    def per_slice(t):                     # (E,) or (E, N) -> (X, 1, 1 or N)
+        return slice_params(t.reshape(e, 1, -1), slices)
+    row = torch.sum(qa, dim=-1, dtype=torch.int32).to(torch.float32)
+    zaf = qp_a.zero_point.to(torch.float32)               # (..., X, 1, 1)
+    w_zp = per_slice(pw["w_zp"])
+    acc = (y_q - w_zp * row[..., None] - zaf * per_slice(pw["colsum"])
+           + k * zaf * w_zp)
+    return acc * (qp_a.scale * per_slice(pw["w_scale"]))
 
 
 def _prepared_matmul(x2d: torch.Tensor, pw: dict,
@@ -327,13 +378,17 @@ def prepare_tree(params, backend: BackendLike):
     return walk(params)
 
 
-def _expert_matmul(x: torch.Tensor, w: torch.Tensor,
-                   mb: MaterializedBackend, lanes: bool) -> torch.Tensor:
-    """``backend_matmul(experts=True)``: the datapath's expert form where
-    it has one and no gradient is asked for, else one call a slice."""
-    if (mb.spec.is_quantized and mb.datapath.has_expert_form(mb.consts)
-            and not (torch.is_grad_enabled()
-                     and (x.requires_grad or w.requires_grad))):
+def _expert_matmul(x: torch.Tensor, w, mb: MaterializedBackend,
+                   lanes: bool) -> torch.Tensor:
+    """``backend_matmul(experts=True)``: the float modes' batched matmul,
+    prepared weights' batched product, or the datapath's expert form
+    where no gradient is asked for; else (an STE backend under autograd)
+    one call a slice."""
+    if is_prepared(w):
+        return _prepared_experts(x.to(torch.float32), w, mb)
+    if not mb.spec.is_quantized:
+        return _float_experts(x, w, mb)
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         return _quantized_experts(x.to(torch.float32), w.to(torch.float32),
                                   mb)
     e = w.shape[0]

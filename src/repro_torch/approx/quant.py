@@ -106,23 +106,39 @@ def calibrate(x: torch.Tensor, bits: Bits = 8, eps: float = 1e-8,
     return QuantParams(scale=scale, zero_point=zp, qmax=qmax)
 
 
-def calibrate_slices(x: torch.Tensor, bits: int = 8) -> QuantParams:
+def calibrate_slices(x: torch.Tensor, bits: Bits = 8) -> QuantParams:
     """``calibrate`` of each trailing ``(M, K)`` slice of ``x`` on its own
     (an MoE's experts, with or without a lane axis in front, as the
     reference's ``vmap`` over them calibrates each): scale and zero
-    point of shape ``(..., 1, 1)``."""
-    qp = calibrate(x.reshape(-1, *x.shape[-2:]), bits, lanes=True)
+    point of shape ``(..., 1, 1)``.  Per-lane widths ``bits`` (n,) (a
+    mixed-width bank): ``x`` is ``(n, X, M, K)``, lane l's slices at
+    width ``bits[l]``, or ``(X, M, K)`` shared (the stacked weights),
+    each slice calibrated once a lane width; parameters and ``qmax``
+    ``(n, X, 1, 1)`` and ``(n, 1, 1, 1)``."""
+    if isinstance(bits, int):
+        qp = calibrate(x.reshape(-1, *x.shape[-2:]), bits, lanes=True)
+        lead = (*x.shape[:-2], 1, 1)
+        return QuantParams(qp.scale.reshape(lead),
+                           qp.zero_point.reshape(lead), qp.qmax)
+    # calibrate's ops with the lane width broadcast over the slices
+    lo, hi = _lane_extremes(x.reshape(-1, *x.shape[-2:]), True)
     lead = (*x.shape[:-2], 1, 1)
-    return QuantParams(qp.scale.reshape(lead), qp.zero_point.reshape(lead),
-                       qp.qmax)
+    lo = torch.clamp_max(lo, 0.0).to(torch.float32).reshape(lead)
+    hi = torch.clamp_min(hi, 0.0).to(torch.float32).reshape(lead)
+    bits = torch.as_tensor(bits, device=x.device).reshape(-1, 1, 1, 1)
+    qmax = qmax_for(bits)
+    scale = torch.clamp_min((hi - lo) * _select(bits, _recip), 1e-8)
+    zp = clip_codes(torch.round(-lo / scale), qmax).to(torch.int32)
+    return QuantParams(scale=scale, zero_point=zp, qmax=qmax)
 
 
 def slice_params(t: torch.Tensor, slices: int) -> torch.Tensor:
-    """Per-expert values ``t`` (E, ...) for ``slices`` activation slices,
-    E dividing them, slice s taking ``t[s % E]`` (several token blocks'
-    buffers over the same experts, one after another)."""
-    e = t.shape[0]
-    return t if e == slices else t.repeat(slices // e, *(1,) * (t.ndim - 1))
+    """Per-expert values ``t`` (..., E, a, b) for ``slices`` activation
+    slices, E dividing them, slice s taking expert ``s % E``'s (several
+    token blocks' buffers over the same experts, one after another)."""
+    e = t.shape[-3]
+    return t if e == slices else t.repeat(*(1,) * (t.ndim - 3),
+                                          slices // e, 1, 1)
 
 
 def pair_scalars(qp_a: QuantParams, qp_w: QuantParams, lanes: int,
@@ -131,12 +147,15 @@ def pair_scalars(qp_a: QuantParams, qp_w: QuantParams, lanes: int,
     one value a (lane, slice) pair, lane-major, from ``calibrate_slices``
     of the activations (``(lanes, slices, M, K)``, or ``(slices, M, K)``
     shared by the lanes) and of the stacked weights (E, K, N), slice s
-    taking expert ``s % E``'s."""
+    taking expert ``s % E``'s; per-lane widths give per-lane weight
+    parameters and a ``qmax`` a pair too."""
     def per_pair(t):
         return t.expand(lanes, slices, 1, 1).reshape(-1)
+    qmax = qp_a.qmax
     return (per_pair(qp_a.scale), per_pair(qp_a.zero_point),
             per_pair(slice_params(qp_w.scale, slices)),
-            per_pair(slice_params(qp_w.zero_point, slices)), qp_a.qmax)
+            per_pair(slice_params(qp_w.zero_point, slices)),
+            per_pair(qmax) if isinstance(qmax, torch.Tensor) else qmax)
 
 
 def clip_codes(q: torch.Tensor, qmax) -> torch.Tensor:

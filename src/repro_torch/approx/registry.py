@@ -46,6 +46,7 @@ import torch
 
 from ..core.families import parse_reduce
 from ..core.luts import decompose_lut, rank_for_tolerance
+from ..launch.mesh import sharded_reshape
 
 MAX_LUT_K = 33030  # int32-safe accumulation bound: 2^31 / 255^2
 # Composed wide products accumulate as two 16-bit limbs (DESIGN.md
@@ -96,13 +97,33 @@ class Datapath:
                   ) -> torch.Tensor:
         raise NotImplementedError
 
-    def has_expert_form(self, consts: dict) -> bool:
-        """Whether this datapath runs stacked expert weights in one call
-        (``forward_q_experts``, or ``forward_fused_experts`` for a fused
-        one): an MoE projection's experts for every lane at once, as the
-        reference's batched ``pallas_call`` does.  Without it,
-        ``backend_matmul(experts=True)`` calls it once an expert."""
-        return False
+    def forward_q_experts(self, qa: torch.Tensor, qw: torch.Tensor,
+                          consts: dict) -> torch.Tensor:
+        """Stacked expert weights in one call, as the reference's ``vmap``
+        over experts runs them: qa (..., X, C, K) codes, qw (..., E, K,
+        N) (per lane in a mixed-width bank), E dividing X -> (..., X, C,
+        N).  This default runs ``forward_q`` of each slice against expert
+        ``s % E``; a datapath with a batched product overrides it (a
+        fused one implements ``forward_fused_experts`` instead)."""
+        e = qw.shape[-3]
+        return torch.stack([
+            self.forward_q(qa[..., s, :, :], qw[..., s % e, :, :], consts)
+            for s in range(qa.shape[-3])], dim=-3)
+
+
+def experts_view(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x (..., X, C, K) as (B, E, C, K): every leading index and slice in
+    one run of blocks over the same E experts (E dividing X), so a
+    product with (E, K, N) weights broadcasts over the blocks, slice s
+    of each against expert s % E."""
+    return sharded_reshape(x, (-1, e, *x.shape[-2:]))
+
+
+def experts_product(qa: torch.Tensor, qw: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(a, qw)`` of ``experts_view(qa, E)`` against stacked weights
+    qw (E, K, N), back in qa's lead: (..., X, C, N)."""
+    y = fn(experts_view(qa, qw.shape[0]), qw)
+    return sharded_reshape(y, (*qa.shape[:-1], qw.shape[-1]))
 
 
 _REGISTRY: dict[str, Datapath] = {}
@@ -482,8 +503,19 @@ class Int8Datapath(Datapath):
     spec_fields = ()
 
     def forward_q(self, qa, qw, consts):
-        wide = torch.float64 if qa.is_cuda else torch.int64
-        return torch.matmul(qa.to(wide), qw.to(wide)).to(torch.int32)
+        return _exact_product(qa, qw)
+
+    def forward_q_experts(self, qa, qw, consts):
+        """qa (..., X, C, K) codes, qw (E, K, N), E dividing X ->
+        (..., X, C, N) int32: one batched product, slice s against
+        ``qw[s % E]``."""
+        return experts_product(qa, qw, _exact_product)
+
+
+def _exact_product(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """Σ_k qa·qw exactly, as int32 (broadcasting over leading dims)."""
+    wide = torch.float64 if qa.is_cuda else torch.int64
+    return torch.matmul(qa.to(wide), qw.to(wide)).to(torch.int32)
 
 
 def _lut_gather_block(qa_blk: torch.Tensor, qw: torch.Tensor,
@@ -550,7 +582,16 @@ def lowrank_gather(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Σ_r U_r(qa) @ V_r(qw) in f32: qa (M,K), qw (K,N) int32 codes,
     u, v (R,256) f32 -> (M,N) f32 (the reference's gathers and
-    ``einsum("rmk,rkn->mn")``)."""
+    ``einsum("rmk,rkn->mn")``).  Stacked (E,K,N) weights: qa (B,E,M,K)
+    -> (B,E,M,N), slice (b, e) against ``qw[e]``, one rank at a time (the
+    gathered (E,K,N) table is the largest temporary: 5 GB at
+    deepseek-v2-236b's expert widths)."""
+    if qw.ndim == 3:
+        qa, qw = qa.long(), qw.long()
+        y = torch.matmul(u[0][qa], v[0][qw])
+        for r in range(1, u.shape[0]):
+            y = y + torch.matmul(u[r][qa], v[r][qw])
+        return y
     ua = u[:, qa.long()]                 # (R,M,K)
     vw = v[:, qw.long()]                 # (R,K,N)
     return torch.einsum("rmk,rkn->mn", ua, vw)
@@ -568,3 +609,9 @@ class LowRankDatapath(Datapath):
 
     def forward_q(self, qa, qw, consts):
         return lowrank_gather(qa, qw, consts["u"], consts["v"])
+
+    def forward_q_experts(self, qa, qw, consts):
+        """qa (..., X, C, K) codes, qw (E, K, N) -> (..., X, C, N) f32:
+        the gathers and batched products (``lowrank_gather``)."""
+        return experts_product(qa, qw, lambda a, w: lowrank_gather(
+            a, w, consts["u"], consts["v"]))

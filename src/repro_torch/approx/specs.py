@@ -158,6 +158,12 @@ class MaterializedBackend:
         return self.spec.multiplier
 
     @property
+    def rank(self) -> int:
+        """Effective rank after auto-resolution (0 if not low-rank)."""
+        u = self.consts.get("u")
+        return int(u.shape[0]) if u is not None else int(self.spec.rank or 0)
+
+    @property
     def lanes(self) -> Optional[int]:
         """Bank lane count of a banked backend, None otherwise."""
         luts = self.consts.get("luts")

@@ -13,6 +13,12 @@ Hopper counterparts of the reference's TPU kernels in
     over a bank of n tile LUTs with per-lane masks, qa and qw shared or
     banked (a bank mixing widths quantizes both per lane): (n,M,N) limbs.
 
+Both also take the expert axis (an MoE projection's experts, for every
+lane, in one launch, as the reference's ``pallas_call`` batched over
+lanes and experts): qa (X,M,K), or (n,X,M,K) for K6, against qw (E,K,N),
+or (n,E,K,N) for K6's per-lane weight codes, slice ``s`` against weight
+``s % E``: limbs (X,M,N), or (n,X,M,N).
+
 They run K7/K8's body (``csrc/fused_gather.cuh``) on codes, without the
 quantize step and the code sums.  The reference's kernels take a static
 tree; here it travels as its ``registry.encode_reduce`` code, which
@@ -38,37 +44,49 @@ from .fused_matmul import _mask_bits, _stream
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {"composed_matmul": [_P] * 7 + [_I] * 4 + [_P],
              "composed_matmul_bank": [_P, _L, _P, _L] + [_P] * 5 + [_I] * 5
-             + [_P]}
+             + [_P],
+             # the expert forms (``<name>_experts_launch``)
+             "composed_matmul_experts": [_P] * 7 + [_I] * 6 + [_P],
+             "composed_matmul_bank_experts": [_P, _L, _P, _L] + [_P] * 5
+             + [_I] * 7 + [_P]}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str):
-    fn = getattr(build.load(name), f"{name}_launch")
-    fn.argtypes = _ARGTYPES[name]
+def _launcher(name: str, experts: bool = False):
+    key = f"{name}_experts" if experts else name
+    fn = getattr(build.load(name), f"{key}_launch")
+    fn.argtypes = _ARGTYPES[key]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, fn, qa, qw, luts16, masks, rcodes) -> tuple:
+def _launch(name: str, fn, qa, qw, luts16, masks, rcodes,
+            experts: bool = False) -> tuple:
     banked = name.endswith("_bank")
     n_lanes = luts16.shape[0] if banked else 1
+    slices = qa.shape[-3] if experts else 1
     m, k = qa.shape[-2:]
     n = qw.shape[-1]
-    lo, hi = (torch.empty((n_lanes, m, n), dtype=torch.int32,
+    lead = (n_lanes, slices) if experts else (n_lanes,)
+    lo, hi = (torch.empty((*lead, m, n), dtype=torch.int32,
                           device=qa.device) for _ in range(2))
-    if m == 0 or n == 0 or n_lanes == 0:
+    if lo.numel() == 0:
         return lo.zero_(), hi.zero_()
     # every operand stays referenced until the launch is queued
     ins = [luts16, _mask_bits(masks), rcodes.contiguous(), lo, hi]
-    lead = ((_ptr(qa), m * k if qa.ndim == 3 else 0, _ptr(qw),
-             k * n if qw.ndim == 3 else 0) if banked
-            else (_ptr(qa), _ptr(qw)))
-    dims = (n_lanes, m, k, n) if banked else (m, k, n)
+    # banked codes: one lane's slices (weights) apart; shared: stride 0
+    a_stride = slices * m * k if qa.ndim == 3 + experts else 0
+    w_stride = ((qw.shape[-3] if experts else 1) * k * n
+                if qw.ndim == 3 + experts else 0)
+    first = ((_ptr(qa), a_stride, _ptr(qw), w_stride) if banked
+             else (_ptr(qa), _ptr(qw)))
+    dims = (((n_lanes,) if banked else ())
+            + ((slices, qw.shape[-3]) if experts else ()) + (m, k, n))
     dev = qa.get_device()
     prev = enter_device(dev)
     try:
-        err = _launcher(name)(*lead, *(_ptr(t) for t in ins), *dims,
-                              sm_count(dev), _stream(qa))
+        err = _launcher(name, experts)(*first, *(_ptr(t) for t in ins),
+                                       *dims, sm_count(dev), _stream(qa))
     finally:
         leave_device(prev)
     build.check(name, err)
@@ -80,17 +98,20 @@ def composed_matmul(qa, qw, lut16, masks, rcodes) -> tuple:
     """Launch K5.  qa (M,K), qw (K,N) int32 codes, lut16 (256,256)
     uint16, masks (1,) int64, rcodes (1,2) int32, all contiguous on one
     CUDA device (checked by ``ops.composed_matmul_lut``) -> lo, hi (M,N)
-    int32."""
+    int32.  The expert form: qa (X,M,K), qw (E,K,N) -> (X,M,N)."""
     return tuple(t[0] for t in _launch("composed_matmul", composed_matmul,
-                                       qa, qw, lut16, masks, rcodes))
+                                       qa, qw, lut16, masks, rcodes,
+                                       qw.ndim == 3))
 
 
-def composed_matmul_bank(qa, qw, luts16, masks, rcodes) -> tuple:
+def composed_matmul_bank(qa, qw, luts16, masks, rcodes,
+                         experts: bool = False) -> tuple:
     """Launch K6.  qa (M,K) shared or (n,M,K) banked, qw (K,N) or (n,K,N),
     luts16 (n,256,256), masks (n,) int64, rcodes (n,2) int32 -> lo, hi
-    (n,M,N) int32."""
+    (n,M,N) int32.  The expert form (``experts``): qa (X,M,K) or
+    (n,X,M,K), qw (E,K,N) or (n,E,K,N) -> (n,X,M,N)."""
     return _launch("composed_matmul_bank", composed_matmul_bank, qa, qw,
-                   luts16, masks, rcodes)
+                   luts16, masks, rcodes, experts)
 
 
 composed_matmul.launches = 0

@@ -35,6 +35,19 @@ extern "C" int composed_matmul_launch(const int* qa, const int* qw,
                                      static_cast<cudaStream_t>(stream));
 }
 
+// The expert form: qa (slices, M, K), qw (experts, K, N); slice s against
+// qw[s % experts] under the one table, mask and reduce code -> lo, hi
+// (slices, M, N).
+extern "C" int composed_matmul_experts_launch(
+    const int* qa, const int* qw, const uint16_t* lut, const unsigned* mask,
+    const int* rcode, int* lo, int* hi, int slices, int experts, int M,
+    int K, int N, int grid, void* stream) {
+  return fusedmm::launch_codes<true>(qa, 0, qw, 0, lut, mask, rcode, lo,
+                                     hi, 1, M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream),
+                                     slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -29,6 +29,23 @@ extern "C" int composed_matmul_bank_launch(
                                      static_cast<cudaStream_t>(stream));
 }
 
+// The expert form: qa (slices, M, K) shared (lane stride 0) or (n,
+// slices, M, K) banked, qw (experts, K, N) shared or (n, experts, K, N)
+// banked; lane l's slice s against its qw[s % experts] under luts[l],
+// masks[l] and rcodes[l] -> lo, hi (n, slices, M, N), pairs walked
+// lane-major (one table staged a lane per block).
+extern "C" int composed_matmul_bank_experts_launch(
+    const int* qa, long long qa_lane_stride, const int* qw,
+    long long qw_lane_stride, const uint16_t* luts, const unsigned* masks,
+    const int* rcodes, int* lo, int* hi, int n_lanes, int slices,
+    int experts, int M, int K, int N, int grid, void* stream) {
+  return fusedmm::launch_codes<true>(qa, qa_lane_stride, qw,
+                                     qw_lane_stride, luts, masks, rcodes,
+                                     lo, hi, n_lanes, M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream),
+                                     slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

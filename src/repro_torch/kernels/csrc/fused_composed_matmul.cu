@@ -36,6 +36,19 @@ extern "C" int fused_composed_matmul_launch(const float* x, const float* w,
                                      static_cast<cudaStream_t>(stream));
 }
 
+// The expert form: x (slices, M, K), w (experts, K, N); slice s
+// quantized with the scalars at s against w[s % experts] -> out: lo, hi
+// (slices M N each), row (slices M), col (slices N).
+extern "C" int fused_composed_matmul_experts_launch(
+    const float* x, const float* w, const uint16_t* lut,
+    const unsigned* mask, const int* rcode, fusedmm::Scalars sc, int* out,
+    int slices, int experts, int M, int K, int N, int grid, void* stream) {
+  return fusedmm::launch_quant<true>(x, 0, w, lut, sc, mask, rcode, out, 1,
+                                     M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream),
+                                     slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -30,6 +30,22 @@ extern "C" int fused_composed_matmul_bank_launch(
                                      static_cast<cudaStream_t>(stream));
 }
 
+// The expert form: x (slices, M, K) shared (lane stride 0) or (n, slices,
+// M, K) banked, w (experts, K, N); pair p = l slices + s quantized with
+// the scalars at p against w[s % experts] under luts[l], masks[l] and
+// rcodes[l] -> out: lo, hi (n slices M N each), row (n slices M), col
+// (n slices N).
+extern "C" int fused_composed_matmul_bank_experts_launch(
+    const float* x, long long x_lane_stride, const float* w,
+    const uint16_t* luts, const unsigned* masks, const int* rcodes,
+    fusedmm::Scalars sc, int* out, int n_lanes, int slices, int experts,
+    int M, int K, int N, int grid, void* stream) {
+  return fusedmm::launch_quant<true>(x, x_lane_stride, w, luts, sc, masks,
+                                     rcodes, out, n_lanes, M, K, N, grid,
+                                     static_cast<cudaStream_t>(stream),
+                                     slices, experts);
+}
+
 extern "C" const char* lutmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -35,8 +35,9 @@
 // * N (several token blocks' buffers may follow one another, each over
 // the E experts), pair p's scalars and outputs (acc, row and column sums
 // at p).  Pairs run lane-major, slice-minor, so a block stages a lane's
-// table once for every slice it walks.  slices = experts = 1 is the
-// launch without that axis.
+// table once for every slice it walks; a composed pair has its lane's
+// mask and reduce code and costs as its lane does in the split.  slices
+// = experts = 1 is the launch without that axis.
 //
 // Instantiated on int operands (In = int), the kernel reads x and w as
 // int32 codes, stages them as they are (no quantize, no per-lane scalars
@@ -400,24 +401,27 @@ __device__ __forceinline__ long long lane_cost(const unsigned* masks,
 
 // First item of block b's range out of G: the number of items whose
 // cost, summed from item 0 through the item itself, is at most b / G of
-// the total.  The ranges are contiguous and lane-major and cover every
-// item once; a block's cost exceeds total / G by at most one item's;
-// with equal lanes the start is total * b / G, the even split.
-// (Mirrored by kernels.fused_matmul.split_starts.)
-__device__ long long range_start(const unsigned* masks, int n_lanes,
-                                 long long per_lane, long long b,
-                                 long long G) {
+// the total.  Items come in n_pairs runs of per_pair, one run a (lane,
+// slice) pair p, which costs as its lane p / slices does.  The ranges
+// are contiguous and pair-major and cover every item once; a block's
+// cost exceeds total / G by at most one item's; with equal lanes the
+// start is total * b / G, the even split.  (Mirrored by
+// kernels.fused_matmul.split_starts, given each pair's cost.)
+__device__ long long range_start(const unsigned* masks, int n_pairs,
+                                 int slices, long long per_pair,
+                                 long long b, long long G) {
   long long total_cost = 0;
-  for (int l = 0; l < n_lanes; ++l) total_cost += lane_cost(masks, l);
-  const long long target = b * total_cost * per_lane;
-  long long start = 0, before = 0;          // before: cost of lanes < l
-  for (int l = 0; l < n_lanes; ++l) {
-    const long long c = lane_cost(masks, l);
+  for (int p = 0; p < n_pairs; ++p)
+    total_cost += lane_cost(masks, p / slices);
+  const long long target = b * total_cost * per_pair;
+  long long start = 0, before = 0;          // before: cost of pairs < p
+  for (int p = 0; p < n_pairs; ++p) {
+    const long long c = lane_cost(masks, p / slices);
     long long n = (target - G * before) / (G * c);
-    n = n < 0 ? 0 : n > per_lane ? per_lane : n;
+    n = n < 0 ? 0 : n > per_pair ? per_pair : n;
     start += n;
-    if (n < per_lane) break;
-    before += per_lane * c;
+    if (n < per_pair) break;
+    before += per_pair * c;
   }
   return start;
 }
@@ -520,15 +524,16 @@ fused_kernel(const In* __restrict__ x, long long x_lane_stride,
   const int tiles_n = (N + tile_n - 1) / tile_n;
   const int chunks = (K + kKC - 1) / kKC;
   const bool add = splits > 1;             // partial sums: add, not store
-  // work units per pair: (row tile, column tile) items x K ranges (the
-  // composed kernels have one slice a lane, so their pairs are lanes)
+  // work units per pair: (row tile, column tile) items x K ranges; the
+  // composed kernels weigh a pair's items by its lane's mask
   const long long per_pair = (long long)tiles_m * tiles_n * splits;
   const unsigned* cost_masks = kComposed ? masks : nullptr;
   const int n_pairs = n_lanes * slices;
   const long long begin =
-      range_start(cost_masks, n_pairs, per_pair, blockIdx.x, gridDim.x);
-  const long long end =
-      range_start(cost_masks, n_pairs, per_pair, blockIdx.x + 1, gridDim.x);
+      range_start(cost_masks, n_pairs, slices, per_pair, blockIdx.x,
+                  gridDim.x);
+  const long long end = range_start(cost_masks, n_pairs, slices, per_pair,
+                                    blockIdx.x + 1, gridDim.x);
 
   int staged_lane = -1, staged_pair = -1;
   float sa = 0.f, sw = 0.f, qmax = 0.f, za = 0.f, zw = 0.f;
@@ -915,9 +920,9 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
   const long long per_pair = (long long)tiles_m * tiles_n * splits;
   const int n_pairs = n_lanes * slices;
   const long long begin =
-      range_start(nullptr, n_pairs, per_pair, blockIdx.x, gridDim.x);
+      range_start(nullptr, n_pairs, 1, per_pair, blockIdx.x, gridDim.x);
   const long long end =
-      range_start(nullptr, n_pairs, per_pair, blockIdx.x + 1, gridDim.x);
+      range_start(nullptr, n_pairs, 1, per_pair, blockIdx.x + 1, gridDim.x);
 
   for (int i = tid; i < tm + 8 * kNT; i += kThreads) s_row[i] = 0u;
   __syncthreads();
@@ -1074,7 +1079,7 @@ inline int run(const In* x, long long x_lane_stride, const In* w,
 // The kernels on codes (K1, K2: 8-bit; K5, K6: composed).  out_lo (and
 // out_hi) are each their own allocation of n_lanes slices M N int32,
 // zeroed apiece where K is split.  `slices` and `experts`: the expert
-// axis (K1, K2; 1 for the others).  Returns the first CUDA error of the
+// axis (1 and 1 without it).  Returns the first CUDA error of the
 // launch.
 template <bool kComposed>
 inline int launch_codes(const int* qa, long long qa_lane_stride,
@@ -1105,7 +1110,7 @@ inline int launch_codes(const int* qa, long long qa_lane_stride,
 // is one allocation of int32: the accumulator (K7/K8: the limbs lo, then
 // hi), P M N each, then the row sums (P M), then the column sums (P N),
 // P = n_lanes slices pairs; where K is split, one memset zeroes it.
-// `slices` and `experts`: the expert axis (K3, K4; 1 for the others).
+// `slices` and `experts`: the expert axis (1 and 1 without it).
 // Returns the first CUDA error of the launch.
 template <bool kComposed>
 inline int launch_quant(const float* x, long long x_lane_stride,

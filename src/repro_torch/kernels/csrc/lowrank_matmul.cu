@@ -49,11 +49,23 @@
 //
 // Split K in both regimes reduces inside the same launch, in a fixed
 // order, with no float atomics: each block writes its partial tile to a
-// workspace (splits, M, N) the caller allocates, then thread 0 bumps an
-// int counter per output tile (an acq_rel atomic after a barrier); the
-// last block to arrive sums the partials in split order 0..S-1, writes
-// the output and resets the counter to 0 for the next launch.  Two
-// launches on the same inputs give the same bits.
+// workspace (slices, splits, M, N) the caller allocates, then thread 0
+// bumps an int counter per (slice, output tile) (an acq_rel atomic after
+// a barrier); the last block to arrive sums the partials in split order
+// 0..S-1, writes the output and resets the counter to 0 for the next
+// launch.  Two launches on the same inputs give the same bits.
+//
+// The slice axis (an MoE projection's experts in one launch, as the
+// reference's pallas_call batched over stacked expert weights runs
+// them): qa holds `slices` (M, K) slices, qw `experts` (K, N) slices, and
+// slice s computes out[s] = qa[s] x qw[s % experts] through the shared
+// u and v.  Both regimes fold the slices into a grid dimension (stream:
+// gridDim.z = slices x row groups; mma: gridDim.y = slices x row tiles),
+// so a block finds its slice, offsets its three pointers and its
+// workspace, and runs as before; slices = experts = 1 is the launch
+// without the axis.  The reference subtracts each slice's K pad term
+// pk * sum_r U[r,0]V[r,0]; the masked edges here leave it nothing to
+// subtract.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -198,14 +210,14 @@ size_t stream_smem(int R, int kps) {
           + (size_t)kps * kStreamCols) * sizeof(float);
 }
 
-// grid (col tiles of 128, splits, row groups of MB); block 256
+// grid (col tiles of 128, splits, slices x row groups of MB); block 256
 template <int MB>
 __global__ void __launch_bounds__(kStreamThreads)
 stream_kernel(const int* __restrict__ qa, const int* __restrict__ qw,
               const float* __restrict__ u, const float* __restrict__ v,
               float* __restrict__ out, float* __restrict__ ws,
               int* __restrict__ counters, int M, int K, int N, int R,
-              int kps, bool vec) {
+              int kps, int experts, bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int rp = round4(R);
   float* s_u = smem;                            // (256, rp)
@@ -216,8 +228,14 @@ stream_kernel(const int* __restrict__ qa, const int* __restrict__ qw,
                                                 // (kps, 128) codes
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int n0 = blockIdx.x * kStreamCols, m0 = blockIdx.z * MB;
+  const int groups = (M + MB - 1) / MB;
+  const int slice = blockIdx.z / groups;
+  const int n0 = blockIdx.x * kStreamCols, m0 = (blockIdx.z % groups) * MB;
   const int splits = gridDim.y;
+  qa += (size_t)slice * M * K;
+  qw += (size_t)(slice % experts) * K * N;
+  out += (size_t)slice * M * N;
+  if (splits > 1) ws += (size_t)slice * splits * M * N;
   const int kb = blockIdx.y * kps, ke = min(K, kb + kps);
   const int rows = max(ke - kb, 0);
 
@@ -352,14 +370,14 @@ size_t mma_smem(int R) {
           + (size_t)R * (BM * (BK + 4) + BK * kSB)) * sizeof(float);
 }
 
-// grid (col tiles of 64, row tiles of 64, splits)
+// grid (col tiles of 64, slices x row tiles of 64, splits)
 template <int BK>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_kernel(const int* __restrict__ qa, const int* __restrict__ qw,
            const float* __restrict__ u, const float* __restrict__ v,
            float* __restrict__ out, float* __restrict__ ws,
            int* __restrict__ counters, int M, int K, int N, int R,
-           int kps, bool vec_a, bool vec_b) {
+           int kps, int experts, bool vec_a, bool vec_b) {
   constexpr int BM = kBM, kThreads = kMmaThreads;
   constexpr int MI = BM / kWM / 16, NJ = kBN / kWN / 8;
   constexpr int SA = BK + 4;                    // A' row stride (floats)
@@ -377,8 +395,14 @@ mma_kernel(const int* __restrict__ qa, const int* __restrict__ qw,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp / kWN) * (BM / kWM), wn = (warp % kWN) * (kBN / kWN);
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
+  const int tiles_m = (M + BM - 1) / BM;
+  const int slice = blockIdx.y / tiles_m;
+  const int n0 = blockIdx.x * kBN, m0 = (blockIdx.y % tiles_m) * BM;
   const int splits = gridDim.z;
+  qa += (size_t)slice * M * K;
+  qw += (size_t)(slice % experts) * K * N;
+  out += (size_t)slice * M * N;
+  if (splits > 1) ws += (size_t)slice * splits * M * N;
   const int kb = blockIdx.z * kps, ke = min(K, kb + kps);
   const int chunks = (ke - kb + BK - 1) / BK;
 
@@ -537,38 +561,41 @@ template <int MB>
 int launch_stream(const int* qa, const int* qw, const float* u,
                   const float* v, float* out, float* ws, int* counters,
                   int n_counters, int M, int K, int N, int R, int kps,
-                  int splits, cudaStream_t stream) {
+                  int splits, int slices, int experts, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
   if (int err = set_smem(stream_kernel<MB>, configured)) return err;
   const size_t smem = stream_smem<MB>(R, kps);
+  const long long z = (long long)slices * ((M + MB - 1) / MB);
   const dim3 grid((N + kStreamCols - 1) / kStreamCols, splits,
-                  (M + MB - 1) / MB);
-  if (smem > (size_t)kMaxSmem || kps > kStreamMaxK
+                  (unsigned)z);
+  if (smem > (size_t)kMaxSmem || kps > kStreamMaxK || z > 65535
+      || splits > 65535
       || (splits > 1 && (ws == nullptr || counters == nullptr
-                         || (int)(grid.x * grid.z) > n_counters)))
+                         || (long long)grid.x * z > n_counters)))
     return (int)cudaErrorInvalidValue;
   const bool vec = N % 4 == 0 && aligned16(qw);
   stream_kernel<MB><<<grid, kStreamThreads, smem, stream>>>(
-      qa, qw, u, v, out, ws, counters, M, K, N, R, kps, vec);
+      qa, qw, u, v, out, ws, counters, M, K, N, R, kps, experts, vec);
   return (int)cudaGetLastError();
 }
 
 template <int BK>
 int launch_mma(const int* qa, const int* qw, const float* u, const float* v,
                float* out, float* ws, int* counters, int n_counters, int M,
-               int K, int N, int R, int kps, int splits,
-               cudaStream_t stream) {
+               int K, int N, int R, int kps, int splits, int slices,
+               int experts, cudaStream_t stream) {
   constexpr auto kernel = mma_kernel<BK>;
   static bool configured[kMaxDevices] = {};
   if (int err = set_smem(kernel, configured)) return err;
   const size_t smem = mma_smem<BK>(R);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  if (smem > (size_t)kMaxSmem
+  const long long y = (long long)slices * ((M + kBM - 1) / kBM);
+  const dim3 grid((N + kBN - 1) / kBN, (unsigned)y, splits);
+  if (smem > (size_t)kMaxSmem || y > 65535 || splits > 65535
       || (splits > 1 && (ws == nullptr || counters == nullptr
-                         || (int)(grid.x * grid.y) > n_counters)))
+                         || (long long)grid.x * y > n_counters)))
     return (int)cudaErrorInvalidValue;
   kernel<<<grid, kMmaThreads, smem, stream>>>(
-      qa, qw, u, v, out, ws, counters, M, K, N, R, kps,
+      qa, qw, u, v, out, ws, counters, M, K, N, R, kps, experts,
       K % 4 == 0 && kps % 4 == 0 && aligned16(qa),
       N % 4 == 0 && aligned16(qw));
   return (int)cudaGetLastError();
@@ -577,9 +604,10 @@ int launch_mma(const int* qa, const int* qw, const float* u, const float* v,
 }  // namespace
 
 // One launch's arguments, every field 8 bytes (packed by the Python
-// wrapper as 15 int64, ``lowrank_matmul._ARGS``).  ws: (splits, M, N)
-// f32 partials and counters: n_counters ints, all 0, one per output
-// tile; both unused when splits == 1.  The K slices are
+// wrapper as 17 int64, ``lowrank_matmul._ARGS``).  qa: (slices, M, K),
+// qw: (experts, K, N), out: (slices, M, N); ws: (slices, splits, M, N)
+// f32 partials and counters: n_counters ints, all 0, one per (slice,
+// output tile); both unused when splits == 1.  The K slices are
 // [s * kps, min(K, (s + 1) * kps)) for s < splits.
 struct LowrankArgs {
   const int* qa;
@@ -589,23 +617,26 @@ struct LowrankArgs {
   float* out;
   float* ws;
   int* counters;
-  int64_t n_counters, M, K, N, R, kps, splits;
+  int64_t n_counters, M, K, N, R, kps, splits, slices, experts;
   void* stream;
 };
 
 extern "C" int lowrank_matmul_launch(const LowrankArgs* a) {
   const int64_t M = a->M, K = a->K, N = a->N, R = a->R, kps = a->kps,
-                splits = a->splits;
+                splits = a->splits, slices = a->slices,
+                experts = a->experts;
   if (R < 1 || R > kMaxRank || kps < 1 || splits < 1 || M < 1 || N < 1
       || K < 0 || K > INT32_MAX || splits * kps < K
       || (splits > 1 && (splits - 1) * kps >= K)
-      || M * N > INT32_MAX)
+      || M * N > INT32_MAX || experts < 1 || slices < experts
+      || slices % experts != 0 || slices > INT32_MAX
+      || a->n_counters > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(a->stream);
 #define LOWRANK_ARGS                                                      \
   a->qa, a->qw, a->u, a->v, a->out, a->ws, a->counters,                   \
       (int)a->n_counters, (int)M, (int)K, (int)N, (int)R, (int)kps,       \
-      (int)splits, s
+      (int)splits, (int)slices, (int)experts, s
   if (M > kStreamRows && K * R >= kMinMmaTerms) {
     if (R <= 4) return launch_mma<16>(LOWRANK_ARGS);
     return launch_mma<8>(LOWRANK_ARGS);

@@ -13,11 +13,12 @@ for 8-bit entries and banks, K5/K6 for composed 12/16-bit entries and
 banks with wide lanes.  ``lut_fused`` runs the single-kernel path.
 ``lowrank_pallas`` runs the rank-R factored product on K9.
 
-The 8-bit tables of ``lut_pallas`` and ``lut_fused`` also run an MoE
-projection's stacked expert weights in one call (``has_expert_form``):
-one K1/K2 (K3/K4) launch for every expert and bank lane, as the
-reference's ``pallas_call`` batched over them.  The composed widths and
-``lowrank_pallas`` keep one call an expert (``backend_matmul``'s loop).
+Every datapath here also runs an MoE projection's stacked expert weights
+in one call (``forward_q_experts``, ``forward_fused_experts``): one
+launch for every expert and bank lane, as the reference's
+``pallas_call`` batched over them — K1/K2 or K5/K6 under
+``lut_pallas``, K3/K4 or K7/K8 under ``lut_fused`` (a composed entry or
+a mixed-width bank at each lane's width), K9 under ``lowrank_pallas``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,16 @@ from .ops import (approx_matmul_lut, approx_matmul_lut_bank,
                   composed_matmul_lut, composed_matmul_lut_bank,
                   fused_composed_matmul_lut, fused_composed_matmul_lut_bank,
                   fused_matmul_lut, fused_matmul_lut_bank, lowrank_matmul)
+
+
+def _bank_tables(consts: dict, lanes: int):
+    """The banked tables a call runs: the bank's, the one table repeated
+    for codes that carry a lane axis of ``lanes`` (the reference's vmap
+    rule), or None (one table)."""
+    luts = consts.get("luts16")
+    if luts is None and lanes:
+        return consts["lut16"].expand(lanes, 256, 256).contiguous()
+    return luts
 
 
 @register_datapath("lut_pallas")
@@ -64,32 +75,28 @@ class LutPallasDatapath(Datapath):
                 "luts16": lut_to_uint16(torch.from_numpy(bank.luts))}
 
     def forward_q(self, qa, qw, consts):
-        banked = "luts16" in consts
-        luts = consts.get("luts16")
-        if luts is None and qa.ndim == 3:
-            luts = consts["lut16"].expand(qa.shape[0], 256, 256).contiguous()
+        return self._call(qa, qw, consts, False)
+
+    def forward_q_experts(self, qa, qw, consts):
+        """qa (X,C,K) codes, or (n,X,C,K) with a lane axis; qw (E,K,N)
+        codes of the stacked expert weights (a mixed-width bank's
+        (n,E,K,N), per lane), E dividing X -> (X,C,N), or (n,X,C,N) when
+        ``qa`` or the backend is banked: one K1 (K2) launch, or K5 (K6)
+        for a composed entry or a bank with wide lanes (f32, limbs
+        recombined), slice s against expert ``s % E``."""
+        return self._call(qa, qw, consts, True)
+
+    @staticmethod
+    def _call(qa, qw, consts, experts: bool):
+        lanes = qa.ndim == 3 + experts
+        luts = _bank_tables(consts, qa.shape[0] if lanes else 0)
         if consts.get("composed"):
             if luts is None:
                 return composed_matmul_lut(qa, qw, consts["lut16"],
                                            consts["mask"], consts["reduce"])
-            masks = consts["masks"] if banked else consts["mask"]
+            masks = consts["masks"] if "luts16" in consts else consts["mask"]
             return composed_matmul_lut_bank(qa, qw, luts, masks,
-                                            consts["reduce"])
-        if luts is None:
-            return approx_matmul_lut(qa, qw, consts["lut16"])
-        return approx_matmul_lut_bank(qa, qw, luts)
-
-    def has_expert_form(self, consts) -> bool:
-        return not consts.get("composed", False)
-
-    def forward_q_experts(self, qa, qw, consts):
-        """qa (X,C,K) codes, or (n,X,C,K) with a lane axis; qw (E,K,N)
-        codes of the stacked expert weights, E dividing X -> (X,C,N), or
-        (n,X,C,N) when ``qa`` or the backend is banked: one K1 (K2)
-        launch, slice s against ``qw[s % E]``."""
-        luts = consts.get("luts16")
-        if luts is None and qa.ndim == 4:
-            luts = consts["lut16"].expand(qa.shape[0], 256, 256).contiguous()
+                                            consts["reduce"], experts=experts)
         if luts is None:
             return approx_matmul_lut(qa, qw, consts["lut16"])
         return approx_matmul_lut_bank(qa, qw, luts)
@@ -129,11 +136,29 @@ class LutFusedDatapath(Datapath):
         bits = consts.get("bits", 8)
         sp = scalar_params(calibrate(x, bits, lanes=lanes),
                            calibrate(w, bits))
-        luts = consts.get("luts16")
-        if luts is None and x.ndim == 3:
-            # lane-carrying x through one table: the banked kernel with
-            # the table repeated per lane (the reference's vmap rule)
-            luts = consts["lut16"].expand(x.shape[0], 256, 256).contiguous()
+        return self._call(x, w, consts, _bank_tables(
+            consts, x.shape[0] if x.ndim == 3 else 0), sp)
+
+    def forward_fused_experts(self, x, w, consts):
+        """x (X,C,K), or (n,X,C,K) with a lane axis; w (E,K,N) the stacked
+        expert weights, E dividing X -> (X,C,N), or (n,X,C,N) when ``x``
+        or the backend is banked: one K3 (K4) launch, or K7 (K8) for a
+        composed entry or a bank with wide lanes, each (lane, slice) pair
+        calibrated on its own at its lane's width (``calibrate_slices``)
+        and quantized with its own scalars against ``w[s % E]``, whose
+        scalars are its expert's at that width."""
+        bits = consts.get("bits", 8)
+        luts = _bank_tables(consts, x.shape[0] if x.ndim == 4 else 0)
+        sp = pair_scalars(calibrate_slices(x, bits),
+                          calibrate_slices(w, bits),
+                          1 if luts is None else luts.shape[0], x.shape[-3])
+        return self._call(x, w, consts, luts, sp)
+
+    @staticmethod
+    def _call(x, w, consts, luts, sp):
+        """K3/K7 on one table (``luts`` None), else K4/K8; lane-carrying x
+        through one table runs the banked kernel with the table repeated
+        per lane (``_bank_tables``, the reference's vmap rule)."""
         composed = consts.get("composed", False)
         if luts is None:
             if composed:
@@ -148,25 +173,6 @@ class LutFusedDatapath(Datapath):
                      else consts["reduce_code"])
             return fused_composed_matmul_lut_bank(x, w, luts, masks, codes,
                                                   *sp)
-        return fused_matmul_lut_bank(x, w, luts, *sp)
-
-    def has_expert_form(self, consts) -> bool:
-        return not consts.get("composed", False)
-
-    def forward_fused_experts(self, x, w, consts):
-        """x (X,C,K), or (n,X,C,K) with a lane axis; w (E,K,N) the stacked
-        expert weights, E dividing X -> (X,C,N), or (n,X,C,N) when ``x``
-        or the backend is banked: one K3 (K4) launch, each (lane, slice)
-        pair calibrated on its own (``calibrate_slices``) and quantized
-        with its own scalars against ``w[s % E]``, whose scalars are
-        its expert's."""
-        luts = consts.get("luts16")
-        if luts is None and x.ndim == 4:
-            luts = consts["lut16"].expand(x.shape[0], 256, 256).contiguous()
-        sp = pair_scalars(calibrate_slices(x), calibrate_slices(w),
-                          1 if luts is None else luts.shape[0], x.shape[-3])
-        if luts is None:
-            return fused_matmul_lut(x, w, consts["lut16"], *sp)
         return fused_matmul_lut_bank(x, w, luts, *sp)
 
     def forward_q(self, qa, qw, consts):
@@ -187,3 +193,11 @@ class LowRankPallasDatapath(Datapath):
 
     def forward_q(self, qa, qw, consts):
         return lowrank_matmul(qa, qw, consts["u"], consts["v"])
+
+    def forward_q_experts(self, qa, qw, consts):
+        """qa (..., X, C, K) codes, qw (E, K, N), E dividing X ->
+        (..., X, C, N) f32: one K9 launch, any lane axis folded into the
+        slices, slice s against ``qw[s % E]``."""
+        y = lowrank_matmul(qa.reshape(-1, *qa.shape[-2:]), qw, consts["u"],
+                           consts["v"])
+        return y.reshape(*qa.shape[:-1], qw.shape[-1])

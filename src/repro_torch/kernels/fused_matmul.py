@@ -18,11 +18,12 @@ Hopper counterparts of the reference's TPU kernels in
     .cu``) — K7 over a bank mixing widths (mask 0 = narrow lane) and
     reduce trees.
 
-K3 and K4 also take the expert axis (an MoE projection's experts, for
+All four also take the expert axis (an MoE projection's experts, for
 every lane, in one launch, as the reference's ``pallas_call`` batched
-over lanes and experts): x (X,M,K), or (n,X,M,K) for K4, against w
+over lanes and experts): x (X,M,K), or (n,X,M,K) for K4/K8, against w
 (E,K,N), slice ``s`` against ``w[s % E]``, each (lane, slice) pair
-quantized with its own scalars (``lane_scalars`` of ``n X`` pairs).
+quantized with its own scalars (``lane_scalars`` of ``n X`` pairs); K7/K8
+keep one mask and reduce code a lane.
 
 The quantization scalars go in as the caller holds them
 (``lane_scalars``: a tensor on the device through its own pointer and
@@ -74,6 +75,9 @@ _EXPERT_ARGTYPES = {
     "fused_matmul": [_P] * 3 + [Scalars, _P] + [_I] * 6 + [_P],
     "fused_matmul_bank": ([_P, _L] + [_P] * 2 + [Scalars, _P] + [_I] * 7
                           + [_P]),
+    "fused_composed_matmul": [_P] * 5 + [Scalars, _P] + [_I] * 6 + [_P],
+    "fused_composed_matmul_bank": ([_P, _L] + [_P] * 4 + [Scalars, _P]
+                                   + [_I] * 7 + [_P]),
 }
 _ARGTYPES = {
     "fused_matmul": [_P] * 3 + [Scalars, _P] + [_I] * 4 + [_P],
@@ -96,7 +100,8 @@ def split_starts(costs, per_lane: int, grid: int) -> list[int]:
     ``fused_gather.cuh::range_start`` computes it on the device: block
     ``b`` walks items ``[starts[b], starts[b + 1])``, the items whose
     cost summed from item 0 through themselves lies in ``(b / grid, (b +
-    1) / grid]`` of the total.  ``costs``: each lane's item cost."""
+    1) / grid]`` of the total.  ``costs``: each lane's item cost (of the
+    expert form: each (lane, slice) pair's, its lane's, lane-major)."""
     total = sum(costs) * per_lane
     starts = []
     for b in range(grid + 1):
@@ -395,14 +400,17 @@ def fused_matmul_bank(x, w, luts16, sc) -> tuple:
 
 def fused_composed_matmul(x, w, lut16, masks, rcodes, sc) -> tuple:
     """Launch K7.  As K3 plus masks (1,) int64 and rcodes (1,2) int32
-    -> lo, hi (M,N), row (M,), col (N,) int32."""
+    -> lo, hi (M,N), row (M,), col (N,) int32.  The expert form: x
+    (X,M,K), w (E,K,N), sc of X slices -> (X,M,N) x 2, (X,M), (X,N)."""
     return _launch("fused_composed_matmul", fused_composed_matmul, x, w,
                    lut16, sc, (masks, rcodes))
 
 
 def fused_composed_matmul_bank(x, w, luts16, masks, rcodes, sc) -> tuple:
     """Launch K8.  As K4 plus masks (n,) int64 and rcodes (n,2) int32
-    -> lo, hi (n,M,N), row (n,M), col (n,N) int32."""
+    -> lo, hi (n,M,N), row (n,M), col (n,N) int32.  The expert form: x
+    (X,M,K) or (n,X,M,K), w (E,K,N), sc of n X pairs -> (n,X,M,N) x 2,
+    (n,X,M), (n,X,N)."""
     return _launch("fused_composed_matmul_bank", fused_composed_matmul_bank,
                    x, w, luts16, sc, (masks, rcodes))
 

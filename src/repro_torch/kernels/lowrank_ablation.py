@@ -119,7 +119,7 @@ def main() -> None:
         args = lm._ARGS.pack(
             qa.data_ptr(), qw.data_ptr(), u.data_ptr(), v.data_ptr(),
             out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
-            counters.numel(), m, k, n, RANK, p.k_per_split, p.splits,
+            counters.numel(), m, k, n, RANK, p.k_per_split, p.splits, 1, 1,
             torch.cuda.current_stream().cuda_stream)
 
         def call(fn):

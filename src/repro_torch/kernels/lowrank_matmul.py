@@ -8,6 +8,12 @@ has two regimes: a streaming split-K SIMT kernel for few rows (decode)
 and a 3xTF32 tensor-core kernel for many (prefill); ``plan`` picks the
 regime and the K split, and the source holds the design.
 
+The expert form (an MoE projection's experts in one launch, as the
+reference's ``pallas_call`` batched over stacked expert weights): qa
+(X,M,K) against qw (E,K,N), E dividing X, slice ``s`` against ``qw[s %
+E]`` with the shared factors -> (X,M,N).  Its split-K workspace is
+(X, splits, M, N) f32, sized a launch (``plan(...).workspace_bytes``).
+
 Callers go through ``repro_torch.kernels.ops.lowrank_matmul``, which
 validates the operands and sends CPU tensors to the plain version
 (``kernels.ref.lowrank_matmul_ref``).  ``lowrank_matmul.launches``
@@ -49,16 +55,24 @@ MMA_MIN_K = 128
 
 class Plan(NamedTuple):
     """How one call is cut: ``regime`` "stream" or "mma", ``tiles`` output
-    tiles, ``splits`` K slices of ``k_per_split`` codes each (the last
-    one ragged)."""
+    tiles over all its slices, ``splits`` K slices of ``k_per_split``
+    codes each (the last one ragged); ``outputs`` the f32 outputs over
+    all slices."""
     regime: str
     tiles: int
     splits: int
     k_per_split: int
+    outputs: int = 0
 
     @property
     def blocks(self) -> int:
         return self.tiles * self.splits
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The split-K workspace a launch needs: (slices, splits, M, N)
+        f32 partials, none without a split."""
+        return 4 * self.splits * self.outputs if self.splits > 1 else 0
 
 
 def mma_chunk(r: int) -> int:
@@ -68,11 +82,12 @@ def mma_chunk(r: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(m: int, k: int, n: int, r: int) -> Plan:
-    """The regime and K split of an (m,k) x (k,n) call at rank ``r``:
-    the regime as ``lowrank_matmul_launch`` picks it, and the fewest K
-    slices (each a multiple of the regime's step, within its size
-    limits) that give the grid about ``TARGET_BLOCKS`` blocks."""
+def plan(m: int, k: int, n: int, r: int, slices: int = 1) -> Plan:
+    """The regime and K split of an (m,k) x (k,n) call at rank ``r``, on
+    each of ``slices`` slices (the expert form): the regime as
+    ``lowrank_matmul_launch`` picks it, and the fewest K slices (each a
+    multiple of the regime's step, within its size limits) that give the
+    grid, every slice's tiles counted, about ``TARGET_BLOCKS`` blocks."""
     if m > STREAM_ROWS and k * r >= MIN_MMA_TERMS:
         regime, (bm, bn) = "mma", MMA_TILE
         step, lo, hi = mma_chunk(r), MMA_MIN_K, None
@@ -81,7 +96,7 @@ def plan(m: int, k: int, n: int, r: int) -> Plan:
         if m <= STREAM_ROWS:
             bm = m
         step, lo, hi = STREAM_K_STEP, STREAM_K_STEP, STREAM_MAX_K
-    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    tiles = math.ceil(m / bm) * math.ceil(n / bn) * slices
     want = max(1, math.ceil(TARGET_BLOCKS / tiles))
     kps = step * math.ceil(math.ceil(max(k, 1) / want) / step)
     kps = max(kps, lo)
@@ -90,13 +105,14 @@ def plan(m: int, k: int, n: int, r: int) -> Plan:
     splits = max(1, math.ceil(k / kps))
     if splits == 1:
         kps = max(k, 1)
-    return Plan(regime, tiles, splits, kps)
+    return Plan(regime, tiles, splits, kps, slices * m * n)
 
 
 #: The launch's arguments as the C side's ``LowrankArgs``: 7 pointers,
-#: n_counters, M, K, N, R, k_per_split, splits and the stream, all 8
-#: bytes; one packed buffer costs less host time than 15 ctypes args.
-_ARGS = struct.Struct("=15q")
+#: n_counters, M, K, N, R, k_per_split, splits, slices, experts and the
+#: stream, all 8 bytes; one packed buffer costs less host time than 17
+#: ctypes args.
+_ARGS = struct.Struct("=17q")
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,14 +153,17 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Launch K9 on the current stream.  qa (M,K) int32, qw (K,N) int32,
     u, v (R,256) f32 with 1 <= R <= ``MAX_RANK``, all contiguous on one
-    CUDA device (checked by ``ops.lowrank_matmul``) -> (M,N) f32."""
-    m, k = qa.shape
-    n = qw.shape[1]
+    CUDA device (checked by ``ops.lowrank_matmul``) -> (M,N) f32.  The
+    expert form: qa (X,M,K), qw (E,K,N) with E dividing X -> (X,M,N)."""
+    m, k = qa.shape[-2:]
+    n = qw.shape[-1]
     r = u.shape[0]
-    out = qa.new_empty((m, n), dtype=torch.float32)
-    if m == 0 or n == 0:
+    slices = qa.shape[0] if qw.ndim == 3 else 1
+    experts = qw.shape[0] if qw.ndim == 3 else 1
+    out = qa.new_empty((*qa.shape[:-1], n), dtype=torch.float32)
+    if out.numel() == 0:
         return out
-    p = plan(m, k, n, r)
+    p = plan(m, k, n, r, slices)
     dev = qa.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ws = counters = n_counters = 0
@@ -152,8 +171,9 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
         scratch = _SCRATCH.get((dev, stream))
         if scratch is None:
             scratch = _SCRATCH[(dev, stream)] = _Scratch(dev)
-        if scratch.n_ws < p.splits * m * n or scratch.n_counters < p.tiles:
-            scratch.grow(p.splits * m * n, p.tiles)
+        n_ws = p.splits * p.outputs
+        if scratch.n_ws < n_ws or scratch.n_counters < p.tiles:
+            scratch.grow(n_ws, p.tiles)
         ws, counters = scratch.ws_ptr, scratch.counters_ptr
         n_counters = scratch.n_counters
     prev = enter_device(dev)
@@ -161,7 +181,7 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
         err = _launcher()(_ARGS.pack(
             qa.data_ptr(), qw.data_ptr(), u.data_ptr(), v.data_ptr(),
             out.data_ptr(), ws, counters, n_counters, m, k, n, r,
-            p.k_per_split, p.splits, stream))
+            p.k_per_split, p.splits, slices, experts, stream))
     finally:
         leave_device(prev)
     if err:

@@ -11,11 +11,11 @@ the banked datapaths call the ``*_bank`` wrappers directly.  Its batched
 weights (an MoE's experts, ``vmap``ped over ``backend_matmul``) go to
 ``pallas_call``'s own batching rule, which adds the expert axis (and
 under a bank the lane axis) to the kernel's grid; the port writes that
-axis out too: K1-K4 take stacked weights ``(E, K, N)`` against
+axis out too: K1-K9 take stacked weights ``(E, K, N)`` against
 activations ``(X, M, K)`` (banked ``(n, X, M, K)``), slice ``s`` against
 weight ``s % E``, in one launch counted under the kernel's own name
-(``approx_matmul_lut``, ``approx_matmul_lut_bank``, ``fused_matmul_lut``,
-``fused_matmul_lut_bank`` with ``w.ndim == 3``).
+(``w.ndim == 3``, or ``experts=True`` for ``composed_matmul_lut_bank``,
+whose weight codes may carry a lane axis of their own).
 
 The bitsim wrappers carry uint32 words as int32 bit patterns
 (``bitsim_planes``, ``bitsim_pop_planes``); ``bitsim`` and ``bitsim_pop``
@@ -93,9 +93,9 @@ def _check_codes(qa: torch.Tensor, qw: torch.Tensor, lut: torch.Tensor,
 
 
 def _check_experts(a: torch.Tensor, w: torch.Tensor) -> None:
-    """The expert form's slices: E = w.shape[0] weights dividing the X
+    """The expert form's slices: E = w.shape[-3] weights dividing the X
     activation slices of ``a`` (..., X, M, K)."""
-    e, x = w.shape[0], a.shape[-3]
+    e, x = w.shape[-3], a.shape[-3]
     if e < 1 or x < 1 or x % e:
         raise ValueError(f"{x} activation slices are no multiple of the "
                          f"{e} stacked weights")
@@ -162,36 +162,61 @@ def composed_matmul_lut(qa: torch.Tensor, qw: torch.Tensor,
     tree, ``mask`` the 2W-bit product mask (0 = narrow lane: the plain
     tile sum), exact int32 limbs recombined as ``lo + 65536 * hi`` in
     f32.  qa (M,K), qw (K,N) int32, lut (256,256) int32 or uint16 ->
-    (M,N) f32 (``raw=True``: the limbs)."""
-    _check_codes(qa, qw, lut, (2,), (256, 256), MAX_COMPOSED_K,
-                 "composed limb accumulation")
+    (M,N) f32 (``raw=True``: the limbs).  The expert form, one launch:
+    qa (X,M,K), qw (E,K,N) with E dividing X -> (X,M,N), slice ``s``
+    equal to ``composed_matmul_lut(qa[s], qw[s % E], ...)``."""
+    experts = qa.ndim == qw.ndim == 3
+    if qa.ndim != qw.ndim:
+        raise ValueError(f"qa must have 2 dims and qw 2, or both 3 (the "
+                         f"expert form), got {tuple(qa.shape)} and "
+                         f"{tuple(qw.shape)}")
+    _check_codes(qa, qw, lut, (2 + experts,), (256, 256), MAX_COMPOSED_K,
+                 "composed limb accumulation", (2 + experts,))
+    if experts:
+        _check_experts(qa, qw)
     masks, rcodes = pack_codes(1, qa.device, mask, encode_reduce(reduce))
-    lo, hi = _dispatch(composed_matmul, ref.composed_matmul_limbs_ref, qa,
-                       qw, lut, masks, rcodes)
+    lo, hi = _dispatch(composed_matmul,
+                       ref.composed_matmul_limbs_experts_ref if experts
+                       else ref.composed_matmul_limbs_ref, qa, qw, lut,
+                       masks, rcodes)
     return (lo, hi) if raw else limbs_to_f32(lo, hi)
 
 
 def composed_matmul_lut_bank(qa: torch.Tensor, qw: torch.Tensor,
                              luts: torch.Tensor, masks,
                              reduce: tuple = ("exact", 0), *,
-                             raw: bool = False):
+                             raw: bool = False, experts: bool = False):
     """Banked composed matmul, one launch for a whole mixed-width bank
     (kernel K6): qa (M,K) shared or (n,M,K) banked codes, qw (K,N) shared
     or (n,K,N) banked (a bank mixing widths quantizes the weights per
     lane), luts (n,256,256) tile LUTs, masks (n,) per-lane 2W-bit masks
     (0 = narrow lane), one static ``reduce`` tree for every lane ->
     (n,M,N) f32, lane ``b`` equal to ``composed_matmul_lut(qa_b, qw_b,
+    luts[b], masks[b], reduce)``.  The expert form (``experts``), one
+    launch for every lane and expert: qa (X,M,K) shared or (n,X,M,K), qw
+    (E,K,N) shared or (n,E,K,N), E dividing X -> (n,X,M,N), lane ``b``'s
+    slice ``s`` equal to ``composed_matmul_lut(qa_b[s], qw_b[s % E],
     luts[b], masks[b], reduce)``."""
     n = luts.shape[0] if luts.ndim == 3 else -1
-    _check_codes(qa, qw, luts, (2, 3), (n, 256, 256), MAX_COMPOSED_K,
-                 "composed limb accumulation", (2, 3))
+    ndims = (3, 4) if experts else (2, 3)
+    _check_codes(qa, qw, luts, ndims, (n, 256, 256), MAX_COMPOSED_K,
+                 "composed limb accumulation", ndims)
+    if experts:
+        _check_experts(qa, qw)
     for name, t in (("qa", qa), ("qw", qw)):
-        if t.ndim == 3 and t.shape[0] != n:
+        if t.ndim == ndims[1] and t.shape[0] != n:
             raise ValueError(f"banked {name} has {t.shape[0]} lanes, the "
                              f"bank {n}")
     masks, rcodes = pack_codes(n, qa.device, masks, encode_reduce(reduce))
-    lo, hi = _dispatch(composed_matmul_bank, ref.composed_matmul_bank_ref,
-                       qa, qw, luts, masks, rcodes)
+    if experts:
+        lo, hi = _dispatch(
+            lambda *a: composed_matmul_bank(*a, experts=True),
+            ref.composed_matmul_bank_experts_ref, qa, qw, luts, masks,
+            rcodes)
+    else:
+        lo, hi = _dispatch(composed_matmul_bank,
+                           ref.composed_matmul_bank_ref, qa, qw, luts,
+                           masks, rcodes)
     return (lo, hi) if raw else limbs_to_f32(lo, hi)
 
 
@@ -302,13 +327,19 @@ def fused_composed_matmul_lut(x: torch.Tensor, w: torch.Tensor,
     digit products through the 256x256 tile LUT, the reduce tree named
     by ``rcode`` (``registry.encode_reduce`` (kind, k)), ``mask`` the
     2W-bit product mask (0 = narrow lane), int32 limbs recombined and
-    dequantized here -> (M,N) f32."""
-    _check_fused(x, w, lut, False, MAX_COMPOSED_K, "composed limb")
-    sc = lane_scalars(1, x.device, sa, za, sw, zw, qmax)
+    dequantized here -> (M,N) f32.  The expert form, one launch: x
+    (X,M,K), w (E,K,N) with E dividing X, scalars shared or one a slice
+    (X,) -> (X,M,N), slice ``s`` equal to ``fused_composed_matmul_lut(
+    x[s], w[s % E], ...)`` with slice ``s``'s scalars."""
+    experts = w.ndim == 3
+    pairs = _check_fused(x, w, lut, False, MAX_COMPOSED_K, "composed limb",
+                         experts)
+    sc = lane_scalars(pairs, x.device, sa, za, sw, zw, qmax)
     codes = pack_codes(1, x.device, mask, rcode)
-    out = _dispatch(fused_composed_matmul,
-                    _plain_fused(ref.fused_composed_matmul_ref, 1), x, w, lut,
-                    *codes, sc)
+    plain = (ref.fused_composed_matmul_experts_ref if experts
+             else ref.fused_composed_matmul_ref)
+    out = _dispatch(fused_composed_matmul, _plain_fused(plain, pairs), x, w,
+                    lut, *codes, sc)
     return _finish(out, sc, x.shape[-1], raw)
 
 
@@ -317,13 +348,21 @@ def fused_composed_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
                                    za, sw, zw, qmax, *, raw: bool = False):
     """Banked fused composed matmul (kernel K8): per-lane masks (n,),
     reduce codes (n,2) and scalars (n,) in one launch, so one call
-    evaluates a bank mixing widths and reduce trees -> (n,M,N) f32."""
-    n = _check_fused(x, w, luts, True, MAX_COMPOSED_K, "composed limb")
-    sc = lane_scalars(n, x.device, sa, za, sw, zw, qmax)
+    evaluates a bank mixing widths and reduce trees -> (n,M,N) f32.  The
+    expert form, one launch for every lane and expert: x (X,M,K) shared
+    or (n,X,M,K), w (E,K,N) with E dividing X, masks and codes a lane,
+    scalars shared or one a (lane, slice) pair (n X,), lane-major ->
+    (n,X,M,N)."""
+    experts = w.ndim == 3
+    pairs = _check_fused(x, w, luts, True, MAX_COMPOSED_K, "composed limb",
+                         experts)
+    n = luts.shape[0]
+    sc = lane_scalars(pairs, x.device, sa, za, sw, zw, qmax)
     codes = pack_codes(n, x.device, masks, rcodes)
-    out = _dispatch(fused_composed_matmul_bank,
-                    _plain_fused(ref.fused_composed_matmul_bank_ref, n), x, w,
-                    luts, *codes, sc)
+    plain = (ref.fused_composed_matmul_bank_experts_ref if experts
+             else ref.fused_composed_matmul_bank_ref)
+    out = _dispatch(fused_composed_matmul_bank, _plain_fused(plain, pairs),
+                    x, w, luts, *codes, sc)
     return _finish(out, sc, x.shape[-1], raw)
 
 
@@ -333,10 +372,17 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
     Σ_r U_r(qa) @ V_r(qw) in f32.  qa (M,K), qw (K,N) int32 codes in
     [0,255]; u, v (R,256) f32 -> (M,N) f32.  The kernel takes
     1 <= R <= ``lowrank_matmul.MAX_RANK`` (its tables live in shared
-    memory); a larger R raises on every device."""
-    if qa.ndim != 2 or qw.ndim != 2 or qa.shape[1] != qw.shape[0]:
-        raise ValueError(f"qa (M,K) and qw (K,N) expected, got "
-                         f"{tuple(qa.shape)} and {tuple(qw.shape)}")
+    memory); a larger R raises on every device.  The expert form, one
+    launch: qa (X,M,K), qw (E,K,N) with E dividing X -> (X,M,N), slice
+    ``s`` equal to ``lowrank_matmul(qa[s], qw[s % E], u, v)``."""
+    experts = qw.ndim == 3
+    if (qa.ndim != 2 + experts or qw.ndim not in (2, 3)
+            or qa.shape[-1] != qw.shape[-2]):
+        raise ValueError(f"qa (M,K) and qw (K,N), or qa (X,M,K) and qw "
+                         f"(E,K,N), expected, got {tuple(qa.shape)} and "
+                         f"{tuple(qw.shape)}")
+    if experts:
+        _check_experts(qa, qw)
     if u.ndim != 2 or u.shape != v.shape or u.shape[1] != 256:
         raise ValueError(f"u and v must both be (R, 256), got "
                          f"{tuple(u.shape)} and {tuple(v.shape)}")
@@ -365,7 +411,8 @@ def lowrank_matmul(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
     if cuda:
         return lowrank_kernel(qa, qw, u, v)
     if qa.device.type == "cpu":
-        return ref.lowrank_matmul_ref(qa, qw, u, v)
+        return (ref.lowrank_matmul_experts_ref if experts
+                else ref.lowrank_matmul_ref)(qa, qw, u, v)
     raise ValueError(f"no kernel for device {qa.device}")
 
 

@@ -214,6 +214,64 @@ def composed_matmul_limbs_ref(qa: torch.Tensor, qw: torch.Tensor,
         qa, qw, lut[None], masks, rcodes))
 
 
+def composed_matmul_bank_experts_ref(qa: torch.Tensor, qw: torch.Tensor,
+                                     luts: torch.Tensor, masks: torch.Tensor,
+                                     rcodes: torch.Tensor) -> tuple:
+    """The expert form of K6's plain version: qa (X,M,K) shared or
+    (n,X,M,K) banked codes, qw (E,K,N) shared or (n,E,K,N) banked, E
+    dividing X -> lo, hi (n,X,M,N), lane b's slice s equal to
+    ``composed_matmul_bank_ref`` of qa_b[s] and qw_b[s % E] under lane b's
+    table, mask and code."""
+    xs, e = qa.shape[-3], qw.shape[-3]
+    return _stack([_stack([
+        _composed_limbs(qa[s] if qa.ndim == 3 else qa[b, s],
+                        qw[s % e] if qw.ndim == 3 else qw[b, s % e],
+                        luts[b], mask, kind, k) for s in range(xs)])
+        for b, (mask, (kind, k)) in enumerate(zip(masks.tolist(),
+                                                  rcodes.tolist()))])
+
+
+def composed_matmul_limbs_experts_ref(qa: torch.Tensor, qw: torch.Tensor,
+                                      lut: torch.Tensor, masks: torch.Tensor,
+                                      rcodes: torch.Tensor) -> tuple:
+    """The expert form of K5's plain version: qa (X,M,K), qw (E,K,N) ->
+    lo, hi (X,M,N)."""
+    return tuple(t[0] for t in composed_matmul_bank_experts_ref(
+        qa, qw, lut[None], masks, rcodes))
+
+
+def fused_composed_matmul_bank_experts_ref(
+        x: torch.Tensor, w: torch.Tensor, luts: torch.Tensor,
+        masks: torch.Tensor, rcodes: torch.Tensor, fp: torch.Tensor,
+        ip: torch.Tensor) -> tuple:
+    """The expert form of K8's plain version: x (X,M,K) shared or
+    (n,X,M,K) banked f32, w (E,K,N), masks (n,), rcodes (n,2), fp (n X,
+    3) and ip (n X, 2) the scalars of each (lane, slice) pair, lane-major
+    -> lo, hi (n,X,M,N), row (n,X,M), col (n,X,N) int32: pair p = l X +
+    s is ``fused_composed_matmul_ref`` of x_l[s] and w[s % E] under lane
+    l's table, mask and code with pair p's scalars."""
+    xs, e = x.shape[-3], w.shape[0]
+    out = []
+    for b in range(luts.shape[0]):
+        xl = x if x.ndim == 3 else x[b]
+        out.append(_stack([
+            fused_composed_matmul_ref(
+                xl[s], w[s % e], luts[b], masks[b:b + 1], rcodes[b:b + 1],
+                fp[b * xs + s][None], ip[b * xs + s][None])
+            for s in range(xs)]))
+    return _stack(out)
+
+
+def fused_composed_matmul_experts_ref(x: torch.Tensor, w: torch.Tensor,
+                                      lut: torch.Tensor, masks: torch.Tensor,
+                                      rcodes: torch.Tensor, fp: torch.Tensor,
+                                      ip: torch.Tensor) -> tuple:
+    """The expert form of K7's plain version: x (X,M,K), w (E,K,N), fp
+    (X,3), ip (X,2) -> lo, hi (X,M,N), row (X,M), col (X,N) int32."""
+    return tuple(t[0] for t in fused_composed_matmul_bank_experts_ref(
+        x, w, lut[None], masks, rcodes, fp, ip))
+
+
 # the ten gate functions of core/gates.py on int32 words (uint32 bit
 # patterns): identity, not, and, or, xor, nand, nor, xnor, const0, const1
 _GATES = (lambda a, b: a, lambda a, b: ~a, lambda a, b: a & b,
@@ -256,6 +314,17 @@ def lowrank_matmul_ref(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
     return lowrank_gather(qa, qw, u, v)
 
 
+def lowrank_matmul_experts_ref(qa: torch.Tensor, qw: torch.Tensor,
+                               u: torch.Tensor, v: torch.Tensor
+                               ) -> torch.Tensor:
+    """The expert form of K9's plain version: qa (X,M,K), qw (E,K,N) with
+    E dividing X -> (X,M,N) f32, slice s equal to
+    ``lowrank_matmul_ref(qa[s], qw[s % E], u, v)``."""
+    e = qw.shape[0]
+    return torch.stack([lowrank_matmul_ref(qa[s], qw[s % e], u, v)
+                        for s in range(qa.shape[0])])
+
+
 def lowrank_bound(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
                   v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The error bound every f32 evaluation of ``lowrank_matmul_ref``'s
@@ -270,3 +339,15 @@ def lowrank_bound(qa: torch.Tensor, qw: torch.Tensor, u: torch.Tensor,
     s = torch.einsum("rmk,rkn->mn", ua.abs(), vw.abs())
     k, r = qa.shape[1], u.shape[0]
     return y64, 2.0 * (k * r + 1) * 2.0 ** -24 * s
+
+
+def lowrank_bound_experts(qa: torch.Tensor, qw: torch.Tensor,
+                          u: torch.Tensor, v: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lowrank_bound`` per slice of the expert form: qa (X,M,K), qw
+    (E,K,N) -> ``(y64, tol)``, each (X,M,N), slice s the bound of
+    ``lowrank_matmul_ref(qa[s], qw[s % E], u, v)``."""
+    e = qw.shape[0]
+    per = [lowrank_bound(qa[s], qw[s % e], u, v)
+           for s in range(qa.shape[0])]
+    return torch.stack([p[0] for p in per]), torch.stack([p[1] for p in per])

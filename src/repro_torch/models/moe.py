@@ -11,13 +11,16 @@ tokens, added to the routed output.
 
 ``_expert_matmul`` makes ONE datapath call a projection for all the
 experts (``policy.matmul(experts=True)``), as the reference's ``vmap``
-over experts hands its kernel the batched weights: under ``lut`` with
-``variant="pallas"`` (``"fused"``) that is one K1/K2 (K3/K4) launch for
-every expert and bank lane; each expert calibrates and quantizes its own
-(C, d) buffer (zero-padded capacity rows and a starved expert's all-zero
-buffer included) and its own (d, f) weight, as each ``vmap`` lane does.
-The datapaths without an expert form run one call an expert inside that
-call.
+over experts hands its kernel the batched weights, in every mode: under
+``lut`` with ``variant="pallas"`` (``"fused"``) one K1/K2 or K5/K6
+(K3/K4 or K7/K8) launch for every expert and bank lane, under
+``lowrank``/``pallas`` one K9 launch, ``int8`` one exact batched
+product, ``f32``/``bf16`` one batched matmul and prepared ``lowrank``
+weights one batched product; each expert calibrates and quantizes its
+own (C, d) buffer (zero-padded capacity rows and a starved expert's
+all-zero buffer included) and its own (d, f) weight, as each ``vmap``
+lane does.  Only a quantized backend under autograd (the STE) runs one
+call an expert inside that call.
 
 Differences from the reference, none of which changes a value:
   * the dispatch writes only the slots inside the capacity: a dropped
