@@ -51,6 +51,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..launch.mesh import reduce_partial, sharded_reshape
 from .quant import (calibrate, calibrate_slices, dequant_sums, quantize,
                     slice_params)
@@ -172,10 +173,11 @@ def _quantized_matmul(x: torch.Tensor, w: torch.Tensor,
     # (n,) in a mixed-width bank (then every lane quantizes at its own
     # width and the codes carry the lane axis)
     bits = consts.get("bits", 8)
-    qp_a = calibrate(x, bits, lanes=lanes)
-    qp_w = calibrate(w, bits)
-    qa = quantize(x, qp_a)
-    qw = quantize(w, qp_w)
+    with obs.span("datapath.calibrate"):
+        qp_a = calibrate(x, bits, lanes=lanes)
+        qp_w = calibrate(w, bits)
+        qa = quantize(x, qp_a)
+        qw = quantize(w, qp_w)
     za, zw = qp_a.zero_point, qp_w.zero_point
     k = x.shape[-1]
     # int32 sums, or f32 already for composed datapaths (limbs
@@ -185,12 +187,13 @@ def _quantized_matmul(x: torch.Tensor, w: torch.Tensor,
         torch.sum(qa, dim=-1, dtype=torch.int32)[..., None])
     col = reduce_partial(                                       # (.., 1, N)
         torch.sum(qw, dim=-2, dtype=torch.int32)[..., None, :])
-    if dp.exact_int32:
-        # exact datapath: Σ (qa-za)(qw-zw) with int32 accumulation
-        acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
-        return acc * (qp_a.scale * qp_w.scale)
-    return dequant_sums(s.to(torch.float32), row, col, za, zw,
-                        qp_a.scale, qp_w.scale, k)
+    with obs.span("datapath.epilogue"):
+        if dp.exact_int32:
+            # exact datapath: Σ (qa-za)(qw-zw) with int32 accumulation
+            acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
+            return acc * (qp_a.scale * qp_w.scale)
+        return dequant_sums(s.to(torch.float32), row, col, za, zw,
+                            qp_a.scale, qp_w.scale, k)
 
 
 def _quantized_experts(x: torch.Tensor, w: torch.Tensor,
@@ -208,8 +211,9 @@ def _quantized_experts(x: torch.Tensor, w: torch.Tensor,
     if dp.fused:
         return dp.forward_fused_experts(x, w, consts)
     bits = consts.get("bits", 8)
-    qp_a, qp_w = calibrate_slices(x, bits), calibrate_slices(w, bits)
-    qa, qw = quantize(x, qp_a), quantize(w, qp_w)
+    with obs.span("datapath.calibrate"):
+        qp_a, qp_w = calibrate_slices(x, bits), calibrate_slices(w, bits)
+        qa, qw = quantize(x, qp_a), quantize(w, qp_w)
     s = dp.forward_q_experts(qa, qw, consts)
     slices, k = x.shape[-3], x.shape[-1]
     row = torch.sum(qa, dim=-1, dtype=torch.int32)[..., None]
@@ -217,10 +221,12 @@ def _quantized_experts(x: torch.Tensor, w: torch.Tensor,
                        slices)
     za, zw = qp_a.zero_point, slice_params(qp_w.zero_point, slices)
     sa, sw = qp_a.scale, slice_params(qp_w.scale, slices)
-    if dp.exact_int32:
-        acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
-        return acc * (sa * sw)
-    return dequant_sums(s.to(torch.float32), row, col, za, zw, sa, sw, k)
+    with obs.span("datapath.epilogue"):
+        if dp.exact_int32:
+            acc = (s - zw * row - za * col + k * za * zw).to(torch.float32)
+            return acc * (sa * sw)
+        return dequant_sums(s.to(torch.float32), row, col, za, zw, sa, sw,
+                            k)
 
 
 def _float_experts(x: torch.Tensor, w: torch.Tensor,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..device import device_key
 from .backend import (BackendLike, MatmulBackend, as_backend,
                       backend_matmul)
@@ -62,8 +63,9 @@ class ApproxPolicy:
         """``backend_matmul`` under ``name``'s backend; ``experts``: w is
         an MoE projection's stacked (E, K, N) expert weights, one call
         for every expert."""
-        return backend_matmul(x, w, self.backend_for(name), lanes=lanes,
-                              experts=experts)
+        with obs.span("datapath", layer=name):
+            return backend_matmul(x, w, self.backend_for(name), lanes=lanes,
+                                  experts=experts)
 
     def with_override(self, pattern: str, backend: BackendLike
                       ) -> "ApproxPolicy":
@@ -160,8 +162,9 @@ def bank_backend(bank: LutBank, mode: str = "lut",
         raise ValueError(f"datapath {name!r} is not bankable")
     spec = BackendSpec(mode=mode, multiplier="<bank>",
                        block_m=bank.block_m, ste=False, variant=variant)
-    return MaterializedBackend(spec=spec, datapath=dp,
-                               consts=dp.bank_consts(bank))
+    with obs.span("bank.pack"):
+        consts = dp.bank_consts(bank)
+    return MaterializedBackend(spec=spec, datapath=dp, consts=consts)
 
 
 def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
@@ -200,24 +203,25 @@ def bank_eval(fn, bank: LutBank, *, mode: str = "lut",
     that shard's lanes.  A count the mesh does not divide runs whole on
     the first device.
     """
-    mb = bank_backend(bank, mode, variant)
-    if layer_pattern is not None and base is None:
-        base = BackendSpec.golden().materialize()
+    with obs.span("bank_eval"):
+        mb = bank_backend(bank, mode, variant)
+        if layer_pattern is not None and base is None:
+            base = BackendSpec.golden().materialize()
 
-    def run(f, start: int, stop: int) -> dict:
-        sub = (mb if (start, stop) == (0, bank.n_mult)
-               else _lane_slice(mb, start, stop))
-        if layer_pattern is None:
-            policy = ApproxPolicy(default=sub)
-        else:
-            policy = ApproxPolicy(default=as_backend(base),
-                                  overrides=[(layer_pattern, sub)])
-        return _lane_outputs(f, policy, stop - start)
+        def run(f, start: int, stop: int) -> dict:
+            sub = (mb if (start, stop) == (0, bank.n_mult)
+                   else _lane_slice(mb, start, stop))
+            if layer_pattern is None:
+                policy = ApproxPolicy(default=sub)
+            else:
+                policy = ApproxPolicy(default=as_backend(base),
+                                      overrides=[(layer_pattern, sub)])
+            return _lane_outputs(f, policy, stop - start)
 
-    if sharding is None:
-        return run(fn, 0, bank.n_mult)
-    return sharded_lanes(fn, bank.n_mult, sharding.shards(bank.n_mult),
-                         run)
+        if sharding is None:
+            return run(fn, 0, bank.n_mult)
+        return sharded_lanes(fn, bank.n_mult,
+                             sharding.shards(bank.n_mult), run)
 
 
 def _lane_slice(mb: MaterializedBackend, start: int,

@@ -32,6 +32,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.families import parse_reduce
 from .quant import TRACED_WIDTHS
 from .registry import Datapath, encode_reduce, get_datapath, lane_mask_np
@@ -173,15 +174,20 @@ class MaterializedBackend:
         key = str(device)
         out = self._on_device.get(key)
         if out is None:
-            out = {k: _to_device(v, device) for k, v in self.consts.items()}
+            with obs.span("bank.upload"):
+                out = {k: _to_device(v, device)
+                       for k, v in self.consts.items()}
             self._on_device[key] = out
         return out
 
 
 def _to_device(v, device: torch.device):
+    """``v`` as a tensor on ``device`` (plain values as they are); its
+    bytes count as ``bytes_to_device`` of the open span."""
     if isinstance(v, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        v = torch.from_numpy(np.ascontiguousarray(v))
     if isinstance(v, torch.Tensor):
+        obs.count("bytes_to_device", v.numel() * v.element_size())
         return v.to(device)
     return v
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..approx.quant import (calibrate, calibrate_slices, pair_scalars,
                             scalar_params)
 from ..approx.registry import (Datapath, encode_reduce, pack_lowrank,
@@ -134,8 +135,9 @@ class LutFusedDatapath(Datapath):
         """x (M,K), or (n,M,K) with ``lanes``; w (K,N) -> (M,N), or
         (n,M,N) when ``x`` or the backend is banked."""
         bits = consts.get("bits", 8)
-        sp = scalar_params(calibrate(x, bits, lanes=lanes),
-                           calibrate(w, bits))
+        with obs.span("datapath.calibrate"):
+            sp = scalar_params(calibrate(x, bits, lanes=lanes),
+                               calibrate(w, bits))
         return self._call(x, w, consts, _bank_tables(
             consts, x.shape[0] if x.ndim == 3 else 0), sp)
 
@@ -149,9 +151,11 @@ class LutFusedDatapath(Datapath):
         scalars are its expert's at that width."""
         bits = consts.get("bits", 8)
         luts = _bank_tables(consts, x.shape[0] if x.ndim == 4 else 0)
-        sp = pair_scalars(calibrate_slices(x, bits),
-                          calibrate_slices(w, bits),
-                          1 if luts is None else luts.shape[0], x.shape[-3])
+        with obs.span("datapath.calibrate"):
+            sp = pair_scalars(calibrate_slices(x, bits),
+                              calibrate_slices(w, bits),
+                              1 if luts is None else luts.shape[0],
+                              x.shape[-3])
         return self._call(x, w, consts, luts, sp)
 
     @staticmethod

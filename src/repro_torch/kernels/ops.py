@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..approx.registry import MAX_COMPOSED_K, MAX_LUT_K, encode_reduce
 from ..core.gates import GATE_ARITY
 from ..core.netlist import stack_netlists
@@ -270,15 +271,18 @@ def _plain_fused(plain, n: int):
 
 
 def _finish(out: tuple, sc, k: int, raw: bool):
+    """A fused kernel's outputs dequantized to f32 (the epilogue), or as
+    they are with ``raw``."""
     if raw:
         return out
-    s = limbs_to_f32(*out[:2]) if len(out) == 4 else out[0].to(
-        torch.float32)
-    row, col = out[-2], out[-1]
-    if s.ndim == 4:          # lanes x slices: one axis of scalar pairs
-        return dequant_lanes(s.flatten(0, 1), row.flatten(0, 1),
-                             col.flatten(0, 1), sc, k).view(s.shape)
-    return dequant_lanes(s, row, col, sc, k)
+    with obs.span("datapath.epilogue"):
+        s = limbs_to_f32(*out[:2]) if len(out) == 4 else out[0].to(
+            torch.float32)
+        row, col = out[-2], out[-1]
+        if s.ndim == 4:          # lanes x slices: one axis of scalar pairs
+            return dequant_lanes(s.flatten(0, 1), row.flatten(0, 1),
+                                 col.flatten(0, 1), sc, k).view(s.shape)
+        return dequant_lanes(s, row, col, sc, k)
 
 
 def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,

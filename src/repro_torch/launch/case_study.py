@@ -21,7 +21,8 @@ or ``"fused"`` (quantize and gather in one kernel, K3/K4):
 Run: ``PYTHONPATH=src python -m repro_torch.launch.case_study`` (GPU;
 ``--device cpu --eval-n 16 --batch 8`` runs a small version on the CPU
 through the kernels' plain versions; ``--profile`` breaks one batched
-all-layers sweep down by operator under ``torch.profiler``).
+all-layers sweep down by kernel and by the port's own spans under
+``torch.profiler``).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from ..approx.dse import ExploreResult, explore
 from ..approx.layers import ApproxPolicy
 from ..approx.resilience import all_layers_sweep
@@ -161,7 +163,10 @@ def profile_batched_sweep(device: DeviceLike = None, eval_n: int = 256,
     """Where the time of the batched all-layers sweep goes: one warm-up
     sweep, then one under ``torch.profiler``.  Reports the wall time,
     the device's busy share (summed kernel time over wall time; one
-    stream) and the ``top`` kernels by device time."""
+    stream), the ``top`` kernels by device time and the port's own
+    spans (``obs``): stream ms self time by span, stream ms of each
+    layer's datapath call and the bytes moved to the device (host ms on
+    the CPU)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev, lib, names, wl = _setup(device, eval_n, batch, n_mult)
@@ -171,8 +176,9 @@ def profile_batched_sweep(device: DeviceLike = None, eval_n: int = 256,
                                 mode="lut", variant=variant, batch=True)
 
     _timed(sweep, dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=activities) as prof:
         _, wall = _timed(sweep, dev)
     events = [e for e in prof.key_averages()     # kernels, not host ops
               if e.device_type == DeviceType.CUDA]
@@ -187,8 +193,28 @@ def profile_batched_sweep(device: DeviceLike = None, eval_n: int = 256,
     for r in rows:
         log(f"  {r['device_ms']:9.3f} ms  {r['calls']:6d} calls  "
             f"{r['name'][:90]}")
+    spans = _span_table(obs.snapshot(), log)
     return {"wall_ms": wall * 1e3, "device_busy_ms": device_ms,
-            "top": rows}
+            "top": rows, "spans": spans}
+
+
+def _span_table(snap: dict, log) -> dict:
+    """Log and return a recording's stream ms self time by span, stream
+    ms of the datapath by layer and the bytes moved to the device."""
+    by_span = obs.self_ms(snap)
+    by_layer = obs.stream_ms_by(snap, "datapath", "layer")
+    moved = obs.total(snap, "bytes_to_device")
+    log(f"the port's spans ({snap['clock']} clock): self ms by span")
+    for name, ms in sorted(by_span.items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:9.3f} ms  {name}")
+    log("datapath ms by layer")
+    for layer, ms in by_layer.items():
+        log(f"  {ms:9.3f} ms  {layer}")
+    log(f"moved to the device: {moved} bytes; kernel launches "
+        f"{snap['launches']}; kernels built or loaded {snap['builds']}")
+    return {"self_ms": by_span, "datapath_ms": by_layer,
+            "bytes_to_device": moved, "launches": snap["launches"],
+            "builds": snap["builds"]}
 
 
 def _log_table(result: ExploreResult, log) -> None:

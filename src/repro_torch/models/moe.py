@@ -54,6 +54,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..approx.layers import ApproxPolicy
 from ..launch.mesh import sharded_reshape
 from .common import (LMConfig, activation, dense_init, ffn, hint_axis,
@@ -202,8 +203,10 @@ def _moe_tokens(params, xf, cfg: LMConfig, policy: ApproxPolicy,
     # lane-major, block-minor (a lane's blocks follow one another)
     parts = ([x[j * tb:(j + 1) * tb] for x in xs for j in range(blocks)]
              if blocks > 1 else xs)
-    routes = [route(params, x, cfg) for x in parts]
-    bufs = [dispatch(x, r, cfg) for x, r in zip(parts, routes)]
+    with obs.span("model.moe.route"):
+        routes = [route(params, x, cfg) for x in parts]
+    with obs.span("model.moe.dispatch"):
+        bufs = [dispatch(x, r, cfg) for x, r in zip(parts, routes)]
     if lanes or blocks > 1:             # (n,) blocks x E buffers
         buf = torch.stack(bufs)
         e, cap, d = buf.shape[-3:]
@@ -227,9 +230,10 @@ def _moe_tokens(params, xf, cfg: LMConfig, policy: ApproxPolicy,
     # gives every lane its own buffers over the one routing
     n_out = out_buf.shape[0] if out_buf.ndim == 4 else 1
     per = out_buf.reshape(n_out * blocks, -1, *out_buf.shape[-2:])
-    ys = [combine(per[i].clone() if out_buf.ndim == 4 else per[i],
-                  routes[i if lanes else i % blocks], cfg)
-          for i in range(n_out * blocks)]
+    with obs.span("model.moe.combine"):
+        ys = [combine(per[i].clone() if out_buf.ndim == 4 else per[i],
+                      routes[i if lanes else i % blocks], cfg)
+              for i in range(n_out * blocks)]
     if blocks > 1:
         ys = [torch.cat(ys[i:i + blocks]) for i in range(0, len(ys), blocks)]
     y = torch.stack(ys) if out_buf.ndim == 4 else ys[0]

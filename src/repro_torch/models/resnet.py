@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import obs
 from ..approx.layers import ApproxPolicy, EXACT_POLICY, conv2d, per_lane
 from ..approx.workload import layer_mult_counts as _unified_mult_counts
 
@@ -122,11 +123,12 @@ def _bn(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     """Batch-statistics BN over (B, H, W), per lane; population
     variance (``correction=0``) as ``jnp.var``."""
     lanes = x.ndim == 5
-    mu = per_lane(lambda t: torch.mean(t, dim=(0, 1, 2), keepdim=True),
-                  x, lanes)
-    var = per_lane(lambda t: torch.var(t, dim=(0, 1, 2), keepdim=True,
-                                       correction=0), x, lanes)
-    return (x - mu) * torch.rsqrt(var + eps) * g + b
+    with obs.span("model.bn"):
+        mu = per_lane(lambda t: torch.mean(t, dim=(0, 1, 2), keepdim=True),
+                      x, lanes)
+        var = per_lane(lambda t: torch.var(t, dim=(0, 1, 2), keepdim=True,
+                                           correction=0), x, lanes)
+        return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
 def forward(model: ResNet, images: torch.Tensor,
