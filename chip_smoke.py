@@ -124,6 +124,11 @@ Phases (any failure exits nonzero):
      them), then at full E (P = 15 x E = 128 at qwen3-moe's (2048, 768),
      P = 24 x E = 160 at deepseek's (5120, 1536)) against E launches of
      K2/K4 without the axis, bit for bit, each timed beside its bound;
+     K4's expert form at the benchmark's qwen3-moe cell (``EXPERT_CELL``:
+     8 lanes x 128 experts, C = 80 capacity rows, 2048 -> 768 and 768 ->
+     2048; ``phase_experts_cell``, callable alone on another tree's
+     ``src/`` to time its kernel in the same call), timed beside its
+     bound and its tile, two pairs held to the plain version;
      then timings — each kernel and its plain version at the main-path
      shapes (CUDA events after warm-up) beside its bound, the largest of
      its table lookups, its integer ops and its bytes (K9 also beside
@@ -461,6 +466,9 @@ EXPERT_RAGGED = ((2, 5, 7, 577, 65), (3, 3, 1, 33, 9), (1, 4, 513, 31, 8),
                  (2, 3, 2, 100, 50))
 EXPERT_BLOCKS = 2            # the last ragged case: X = 2E slices
 EXPERT_FULL = ((15, 128, 4, 2048, 768), (24, 160, 4, 5120, 1536))
+# K4's expert form as the benchmark's qwen3moe.ppl_fused cell runs it:
+# (lanes, experts, capacity rows C = ceil(1024 x 8 / 128 x 1.25), K, N)
+EXPERT_CELL = ((8, 128, 80, 2048, 768), (8, 128, 80, 768, 2048))
 # the expert form of K9 and K5-K8 (``phase_experts``): (E experts, rows
 # C, K, N).  K9 at E = 8 with deepseek's expert projections at C = 4 and
 # 6 capacity rows (its decode and prefill: the streaming regime) and 64
@@ -3326,7 +3334,9 @@ def _profile_step_timing(device) -> list:
             rows.append({"kernel": kernel, "lanes": p_, "M": m, "K": k,
                          "N": n, "ms": _time(call, reps=reps,
                                              warmup=warmup),
-                         "items": fm.k_split(p_, m, k, n, sms).items,
+                         "items": fm.k_split(
+                             p_, m, k, n, sms,
+                             quant8=kernel == "fused_matmul_bank").items,
                          **_bounds(products / lookup_rate,
                                    int_seconds(0, 2 * products, int_rate),
                                    nbytes / HBM_BYTES_PER_S)})
@@ -3715,6 +3725,69 @@ def _experts_composed(device, gen, t: dict, check, rates: tuple) -> list:
     return rows
 
 
+def phase_experts_cell(device, shapes=EXPERT_CELL) -> list:
+    """K4's expert form at ``shapes`` (``EXPERT_CELL``: the 8 lanes' 128
+    experts' capacity buffers of the qwen3-moe cell; (lanes, experts, C,
+    K, N) each) in one launch (banked activations, each pair's scalars),
+    timed (CUDA events, 1 warm-up, 3 calls) beside its bound, its tile
+    (``fused_matmul.quant8_tile``) and the share of the slots its tiles
+    gather that are padding; the first and the last (lane, expert) pair
+    held bit for bit to the plain version."""
+    import torch
+    from repro_torch.approx.quant import calibrate_slices, pair_scalars
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(35)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
+    lookup_rate = sms * LOOKUPS_PER_SM_CLOCK * clock_hz
+    tables = torch.randint(0, 1 << 16, (max(s[0] for s in shapes), 256,
+                                        256), generator=gen,
+                           dtype=torch.int32, device=device)
+    rows = []
+    for p_, e, m, k, n in shapes:
+        what = f"P={p_} E={e} C={m} {(k, n)}"
+        tabs = tables[:p_]
+        x = _floats((p_, e, m, k), gen, device)
+        w = _floats((e, k, n), gen, device, 0.05)
+        sp = pair_scalars(calibrate_slices(x), calibrate_slices(w), p_, e)
+        luts16 = tabs.to(torch.uint16)
+        got = ops.fused_matmul_lut_bank(x, w, luts16, *sp, raw=True)
+        for lane, ex in ((0, 0), (p_ - 1, e - 1)):
+            pair = lane * e + ex
+            one = [v.reshape(-1)[pair:pair + 1] if isinstance(
+                v, torch.Tensor) and v.numel() > 1 else v for v in sp]
+            want = ref.fused_matmul_ref(
+                x[lane, ex].contiguous(), w[ex].contiguous(), tabs[lane],
+                *fm.pack_scalars(1, device, *one))
+            for g_, v_ in zip(got, want):
+                if not torch.equal(g_[lane, ex], v_.reshape(
+                        g_[lane, ex].shape)):
+                    raise AssertionError(f"fused_matmul_bank expert form "
+                                         f"!= plain at {what}, pair "
+                                         f"{(lane, ex)}")
+        del got
+        ms = _time(lambda: ops.fused_matmul_lut_bank(x, w, luts16, *sp,
+                                                     raw=True),
+                   reps=3, warmup=1)
+        products = p_ * e * m * k * n
+        tile = fm.quant8_tile(m, n)
+        rows.append({"kernel": "fused_matmul_bank", "form": "experts",
+                     "cell": "qwen3moe.ppl_fused", "lanes": p_,
+                     "experts": e, "M": m, "K": k, "N": n, "ms": ms,
+                     "tile": [tile.tm, tile.tile_n],
+                     "pad_share": 1 - m * n / tile.slots(m, n),
+                     "bound_ms": products / lookup_rate * 1e3})
+        print(f"[experts] fused_matmul_bank {what}: one launch {ms:.3f} ms "
+              f"at a {tile.tm} x {tile.tile_n} tile (padded share "
+              f"{rows[-1]['pad_share']:.3f}), lookup bound "
+              f"{rows[-1]['bound_ms']:.3f} ms; two pairs equal the plain "
+              f"version bit for bit", flush=True)
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_experts(device) -> dict:
     """The expert axis of K1-K9 (``kernels.ops`` with stacked weights
     (E, K, N): one launch for every expert and bank lane, as
@@ -3849,7 +3922,9 @@ def phase_experts(device) -> dict:
             rows.append({"kernel": kernel, "form": "experts", "lanes": p_,
                          "experts": e, "M": m, "K": k, "N": n, "ms": ms,
                          "e_launches_ms": loop_ms,
-                         "items": fm.k_split(p_ * e, m, k, n, sms).items,
+                         "items": fm.k_split(
+                             p_ * e, m, k, n, sms,
+                             quant8=kernel == "fused_matmul_bank").items,
                          **_bounds(products / lookup_rate,
                                    int_seconds(0, 2 * products, int_rate),
                                    nbytes / HBM_BYTES_PER_S)})
@@ -3859,6 +3934,7 @@ def phase_experts(device) -> dict:
                   f"equal bit for bit")
             del a, w, slices, sc
             torch.cuda.empty_cache()
+    rows += phase_experts_cell(device)
     rows += _experts_composed(device, gen, tables, check,
                               (lookup_rate, int_rate))
     lowrank_cases, lowrank_rows = _experts_lowrank(
@@ -3924,7 +4000,8 @@ def phase_timing(shapes: dict, device) -> dict:
     def row(kernel, label, mkn, lanes, lookups, int_ops, nbytes, call,
             plain, launch=None):
         reps, plain_reps = (20, 2) if kernel.startswith("lut") else (10, 1)
-        split = fm.k_split(lanes, *mkn, sms)
+        split = fm.k_split(lanes, *mkn, sms, quant8=kernel in (
+            "fused_matmul", "fused_matmul_bank"))
         if launch is not None:                  # the launch alone, and
             launch_ms = {                       # its device time
                 "launch_ms": _time(launch, reps=reps, warmup=3),

@@ -115,8 +115,8 @@
 //    read four k steps a 32-bit load; a chunk's W codes are kKC x tile_n
 //    bytes, a thread's eight columns one 8-byte load a k step (the int32
 //    tiles took an A load a step and two 16-byte W loads).  Two buffers
-//    then fit beside the table at every tile (quant_smem_bytes(1) =
-//    170 752 bytes; the int32 A tile alone was 67 584 at tn = 1).
+//    then fit beside the table at every tile (170 528 bytes at tn = 1;
+//    the int32 A tile alone was 67 584 there).
 //  * Code sums where the codes are made: a warp quantizes whole rows (row
 //    e / kKC, k e % kKC of element e = t + i kThreads), so a row's chunk
 //    sum is one __reduce_add_sync, kept in shared memory by the lane that
@@ -132,6 +132,16 @@
 //  * Outputs (of K7/K8 too, launch_quant): one allocation, the
 //    accumulator (K7/K8: the limbs lo, hi), then the row sums, then the
 //    column sums, so where K is split one memset zeroes them.
+//  * The tile follows M as well as N (quant8_tile): of a few compiled
+//    tiles (kQuant8Tiles: tn threads across N, `rows` rows a thread), the
+//    one whose tiles gather the fewest padded rows and columns, the
+//    tile above (one row a thread, tm = kThreads / tn) on a tie.  An
+//    MoE expert's capacity buffer (qwen3-moe: M = 80 rows) takes 80 x
+//    256 (tn 32, five rows a thread) where the 64-row tile gathered 128
+//    rows for 80; each step's eight W codes are read once for a thread's
+//    rows, and a chunk's W codes are quantized once for all 80.  M = 4
+//    (a decode step) takes 16 x 256.  A warp then shares one row set, so
+//    its A reads are broadcasts.
 #pragma once
 
 #include <cstdint>
@@ -193,10 +203,54 @@ inline int threads_across_n(int n) {
   return 8;
 }
 
+// A launch's tile: tn threads across N, each gathering `rows` rows of kNT
+// columns, so tm = kThreads / tn * rows rows by tile_n = tn kNT columns.
+struct Tile {
+  int tn, rows;
+  int tm() const { return kThreads / tn * rows; }
+  int tile_n() const { return tn * kNT; }
+};
+
+// The tile of every kernel but quant8_kernel: one row a thread, the
+// column tile sized to N.
+inline Tile gather_tile(int N) { return Tile{threads_across_n(N), 1}; }
+
+// quant8_kernel's compiled tiles, {tn, rows}, in the order the plan
+// prefers them on a tie; tn 0 is gather_tile(N), the tile above.  (Each
+// is an instantiation of quant8_kernel; mirrored by
+// kernels.fused_matmul.QUANT8_TILES.)
+constexpr int kQuant8Tiles[][2] = {{0, 1}, {32, 5}, {32, 1}};
+constexpr int kNumQuant8Tiles = 3;
+
+inline Tile quant8_tile_at(int i, int N) {
+  return kQuant8Tiles[i][0] ? Tile{kQuant8Tiles[i][0], kQuant8Tiles[i][1]}
+                            : gather_tile(N);
+}
+
+// (Row, column) slots the tiles of one (lane, slice) pair gather: M x N
+// and the padded rows and columns of its edge tiles.
+inline long long gathered_slots(int M, int N, Tile t) {
+  const int tm = t.tm(), tile_n = t.tile_n();
+  return (long long)((M + tm - 1) / tm) * tm
+       * ((N + tile_n - 1) / tile_n) * tile_n;
+}
+
+// quant8_kernel's tile for an M x N launch: the index in kQuant8Tiles of
+// the tile that gathers the fewest slots, the first listed on a tie (so
+// gather_tile(N) wherever it pads no more than the others).  (Mirrored by
+// kernels.fused_matmul.quant8_tile.)
+inline int quant8_tile(int M, int N) {
+  int best = 0;
+  for (int i = 1; i < kNumQuant8Tiles; ++i)
+    if (gathered_slots(M, N, quant8_tile_at(i, N))
+        < gathered_slots(M, N, quant8_tile_at(best, N)))
+      best = i;
+  return best;
+}
+
 // Work items (lane, row tile, column tile) of a launch.
-inline long long gather_items(int n_lanes, int M, int N) {
-  const int tn = threads_across_n(N);
-  const int tm = kThreads / tn, tile_n = tn * kNT;
+inline long long gather_items(int n_lanes, int M, int N, Tile t) {
+  const int tm = t.tm(), tile_n = t.tile_n();
   return (long long)n_lanes * ((M + tm - 1) / tm)
        * ((N + tile_n - 1) / tile_n);
 }
@@ -234,13 +288,12 @@ inline size_t smem_bytes(int tn, bool composed) {
 }
 
 // quant8_kernel's table, kStages byte buffers of the A and W codes, the
-// row sums (tm) and the column sums (at most 64), all offsets multiples
-// of 16
-inline size_t quant_smem_bytes(int tn) {
-  const int tm = kThreads / tn;
+// row sums (tm) and the column sums (tile_n), all offsets multiples of 16
+inline size_t quant_smem_bytes(Tile t) {
+  const int tm = t.tm(), tile_n = t.tile_n();
   return kLutEntries * sizeof(uint16_t)
-       + kStages * ((size_t)tm * kARow + (size_t)kKC * tn * kNT)
-       + (size_t)tm * sizeof(unsigned) + 8 * kNT * sizeof(unsigned);
+       + kStages * ((size_t)tm * kARow + (size_t)kKC * tile_n)
+       + (size_t)(tm + tile_n) * sizeof(unsigned);
 }
 
 __device__ __forceinline__ int quantize(float v, float scale, float zp,
@@ -719,23 +772,25 @@ struct Quant {
 
 // A thread's raw operands of a chunk: a[j] the A element of its warp's
 // row j (row warp + j warps of the tile, k = lane), w[j] the W element
-// e = t + j kThreads.
+// e = t + j kThreads; kA and kW are the most a tile of the kernel stages.
+template <int kA, int kW>
 struct Staged {
-  float a[kARegs];
-  float w[kWRegs];
+  float a[kA];
+  float w[kW];
 };
 
 // Issue thread t's loads of the chunk at k0 (kc codes deep) of unit u,
 // whose pair's operands are x_lane and w; masked elements are 0.
+template <int kA, int kW>
 __device__ __forceinline__ void load_chunk(
-    Staged& v, const float* __restrict__ x_lane, const float* __restrict__ w,
-    const Unit& u, int k0, int kc, int M, int K, int N, int tm, int tile_n,
-    int t) {
+    Staged<kA, kW>& v, const float* __restrict__ x_lane,
+    const float* __restrict__ w, const Unit& u, int k0, int kc, int M,
+    int K, int N, int tm, int tile_n, int t) {
   const int lane = t & 31, warp = t >> 5, warps = kThreads >> 5;
   const int rows = tm / warps;             // rows a warp quantizes
   const bool k_in = lane < kc;
 #pragma unroll
-  for (int j = 0; j < kARegs; ++j) {
+  for (int j = 0; j < kA; ++j) {
     const int m = u.m0 + warp + j * warps;
     v.a[j] = j < rows && m < M && k_in ? x_lane[(size_t)m * K + k0 + lane]
                                        : 0.0f;
@@ -743,7 +798,7 @@ __device__ __forceinline__ void load_chunk(
   const int nn = t % tile_n;               // this thread's column
   const bool n_in = u.n0 + nn < N;
 #pragma unroll
-  for (int j = 0; j < kWRegs; ++j) {
+  for (int j = 0; j < kW; ++j) {
     const int e = t + j * kThreads, kk = e / tile_n;
     v.w[j] = e < kKC * tile_n && n_in && kk < kc
                  ? w[(size_t)(k0 + kk) * N + u.n0 + nn] : 0.0f;
@@ -755,8 +810,9 @@ __device__ __forceinline__ void load_chunk(
 // reduction, added to s_row by lane j % 32, which writes it out
 // (sums_out); every W element of thread t lies in column t % tile_n, so
 // csum keeps their sum.
+template <int kA, int kW>
 __device__ __forceinline__ void store_chunk(
-    const Staged& v, const Unit& u, int kc, int M, int N, int tm,
+    const Staged<kA, kW>& v, const Unit& u, int kc, int M, int N, int tm,
     int tile_n, const Quant& q, unsigned char* a_buf, unsigned char* w_buf,
     unsigned* s_row, unsigned& csum, int t) {
   const int lane = t & 31, warp = t >> 5, warps = kThreads >> 5;
@@ -765,7 +821,7 @@ __device__ __forceinline__ void store_chunk(
   const bool col_on = !kSumsInLoop && u.m0 == 0;
   const bool k_in = lane < kc;
 #pragma unroll
-  for (int j = 0; j < kARegs; ++j) {
+  for (int j = 0; j < kA; ++j) {
     if (j < rows) {                        // uniform across the warp
       const int rr = warp + j * warps;
       const unsigned c = u.m0 + rr < M && k_in
@@ -779,7 +835,7 @@ __device__ __forceinline__ void store_chunk(
   }
   const bool n_in = u.n0 + t % tile_n < N;
 #pragma unroll
-  for (int j = 0; j < kWRegs; ++j) {
+  for (int j = 0; j < kW; ++j) {
     const int e = t + j * kThreads, kk = e / tile_n;
     if (e < kKC * tile_n) {
       const unsigned c = n_in && kk < kc
@@ -821,68 +877,94 @@ __device__ __forceinline__ void sums_out(
   }
 }
 
-// One step k of the thread's row (table row offset r0) against its eight
-// columns' codes (bytes of wv): acc[j] += LUT[a, w_j].
-__device__ __forceinline__ void narrow8_step(unsigned r0, uint2 wv,
-                                             const unsigned char* lut,
-                                             unsigned (&acc)[kNT]) {
+// A step's eight column codes (bytes of wv) as doubled table offsets.
+__device__ __forceinline__ void w_offsets(uint2 wv, unsigned (&wo)[kNT]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    acc[j] += lookup(lut, r0 ^ ((wv.x >> (8 * j) << 1) & 0x1FEu));
-    acc[j + 4] += lookup(lut, r0 ^ ((wv.y >> (8 * j) << 1) & 0x1FEu));
+    wo[j] = (wv.x >> (8 * j) << 1) & 0x1FEu;
+    wo[j + 4] = (wv.y >> (8 * j) << 1) & 0x1FEu;
   }
 }
 
-// One K chunk (kc steps) of a gathering thread: its row's codes a_row
-// (bytes, four a load) and its columns' w_grp (8 bytes a step, row
-// stride tile_n); with kSumsInLoop, the sums its row (g == 0) and
-// columns (r == 0) need.
-__device__ __forceinline__ void narrow8_chunk(
-    const unsigned char* a_row, const unsigned char* w_grp, int tile_n,
-    int kc, const unsigned char* lut, unsigned (&acc)[kNT],
-    bool row_sum_on, bool col_sum_on, unsigned& row_sum,
-    unsigned (&col_sum)[kNT]) {
-  const unsigned* a4 = reinterpret_cast<const unsigned*>(a_row);
-  int kk = 0;
-#pragma unroll 2
-  for (; kk + 4 <= kc; kk += 4) {
-    const unsigned av = a4[kk >> 2];
+// One step k of a row (table row offset r0) against the eight columns
+// (offsets wo): acc[j] += LUT[a, w_j].
+__device__ __forceinline__ void narrow8_step(unsigned r0,
+                                             const unsigned (&wo)[kNT],
+                                             const unsigned char* lut,
+                                             unsigned (&acc)[kNT]) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s)
-      narrow8_step(row_addr((av >> (8 * s)) & 255u),
-                   *reinterpret_cast<const uint2*>(w_grp + (kk + s) * tile_n),
-                   lut, acc);
+  for (int j = 0; j < kNT; ++j) acc[j] += lookup(lut, r0 ^ wo[j]);
+}
+
+// One K chunk (kc steps) of a gathering thread: its kR rows' codes (row i
+// at a_row + i a_step, bytes, four a load) against its columns' w_grp (8
+// bytes a step, row stride tile_n), each step's column codes read once
+// for all kR rows; with kSumsInLoop, the sums its rows (g == 0) and
+// columns (the thread of row 0) need.
+template <int kR>
+__device__ __forceinline__ void narrow8_chunk(
+    const unsigned char* a_row, int a_step, const unsigned char* w_grp,
+    int tile_n, int kc, const unsigned char* lut, unsigned (&acc)[kR][kNT],
+    bool row_sum_on, bool col_sum_on, unsigned (&row_sum)[kR],
+    unsigned (&col_sum)[kNT]) {
+  int kk = 0;
+  // two steps of four unrolled on one row; on several, one (registers)
+#pragma unroll (kR == 1 ? 2 : 1)
+  for (; kk + 4 <= kc; kk += 4) {
+    unsigned av[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+      av[i] = *reinterpret_cast<const unsigned*>(a_row + i * a_step + kk);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      unsigned wo[kNT];
+      w_offsets(*reinterpret_cast<const uint2*>(w_grp + (kk + s) * tile_n),
+                wo);
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+        narrow8_step(row_addr((av[i] >> (8 * s)) & 255u), wo, lut, acc[i]);
+    }
   }
-  for (; kk < kc; ++kk)
-    narrow8_step(row_addr(a_row[kk]),
-                 *reinterpret_cast<const uint2*>(w_grp + kk * tile_n), lut,
-                 acc);
+  for (; kk < kc; ++kk) {
+    unsigned wo[kNT];
+    w_offsets(*reinterpret_cast<const uint2*>(w_grp + kk * tile_n), wo);
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+      narrow8_step(row_addr(a_row[i * a_step + kk]), wo, lut, acc[i]);
+  }
   if (kSumsInLoop && row_sum_on)
-    for (kk = 0; kk < kc; ++kk) row_sum += a_row[kk];
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+      for (kk = 0; kk < kc; ++kk) row_sum[i] += a_row[i * a_step + kk];
   if (kSumsInLoop && col_sum_on)
     for (kk = 0; kk < kc; ++kk)
 #pragma unroll
       for (int j = 0; j < kNT; ++j) col_sum[j] += w_grp[kk * tile_n + j];
 }
 
-// A gathering thread's outputs of unit u (row r, column group g).
-__device__ __forceinline__ void acc_out(const Unit& u, int M, int N,
-                                        int tm, int r, int g,
-                                        const unsigned (&acc)[kNT],
-                                        unsigned row_sum,
+// A gathering thread's outputs of unit u: rows r + i row_step (i < kR),
+// column group g.
+template <int kR>
+__device__ __forceinline__ void acc_out(const Unit& u, int M, int N, int r,
+                                        int row_step, int g,
+                                        const unsigned (&acc)[kR][kNT],
+                                        const unsigned (&row_sum)[kR],
                                         const unsigned (&col_sum)[kNT],
                                         int* out, int* row_out,
                                         int* col_out, bool add) {
-  const int m = u.m0 + r;
-  if (m < M) {
-    const size_t o = ((size_t)u.pair * M + m) * N;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int n = u.n0 + g * kNT + j;
-      if (n < N) put(out + o + n, acc[j], add);
+  for (int i = 0; i < kR; ++i) {
+    const int m = u.m0 + r + i * row_step;
+    if (m < M) {
+      const size_t o = ((size_t)u.pair * M + m) * N;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = u.n0 + g * kNT + j;
+        if (n < N) put(out + o + n, acc[i][j], add);
+      }
+      if (kSumsInLoop && u.n0 == 0 && g == 0)
+        put(row_out + (size_t)u.pair * M + m, row_sum[i], add);
     }
-    if (kSumsInLoop && u.n0 == 0 && g == 0)
-      put(row_out + (size_t)u.pair * M + m, row_sum, add);
   }
   if (kSumsInLoop && u.m0 == 0 && r == 0) {
 #pragma unroll
@@ -894,19 +976,33 @@ __device__ __forceinline__ void acc_out(const Unit& u, int M, int N,
 }
 
 // K3/K4: fused_kernel<false, float>'s function (see the file comment for
-// the staging).  Every thread stages its share of a chunk and gathers
-// (row tid / tn, column group tid % tn); chunk c of a unit is in buffer
-// (gc + c) % kStages, gc the block's chunks so far.
+// the staging) at the tile {kTN, kR} of kQuant8Tiles (kTN 0: tn threads
+// across N as the launch gives it, one row a thread).  Every thread
+// stages its share of a chunk and gathers rows r + i kThreads / tn of
+// the tile (i < kR, r = tid / tn) by column group tid % tn; chunk c of a
+// unit is in buffer (gc + c) % kStages, gc the block's chunks so far.
+template <int kTN, int kR>
 __global__ void __launch_bounds__(kThreads, 1)
 quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
               const float* __restrict__ w,
               const uint16_t* __restrict__ luts, Scalars sc,
               int* __restrict__ out, int* __restrict__ row_out,
               int* __restrict__ col_out, int n_lanes, int slices,
-              int experts, int M, int K, int N, int tn, int splits) {
+              int experts, int M, int K, int N, int tn_given, int splits) {
+  // A rows a warp and W elements a thread stage a chunk, at most
+  constexpr int kTNor1 = kTN ? kTN : 1;
+  constexpr int kA = kTN ? 32 * kR / kTNor1 : kARegs;
+  constexpr int kW = kTN ? kKC * kNT * kTN / kThreads : kWRegs;
+  static_assert(kTN ? (32 * kR) % kTNor1 == 0 && kA >= 1
+                          && (kKC * kNT * kTN) % kThreads == 0
+                          && kThreads % (kTNor1 * kNT) == 0
+                    : kR == 1,
+                "a warp stages whole rows and a thread one column");
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* s_lut = reinterpret_cast<uint16_t*>(smem);
-  const int tm = kThreads / tn, tile_n = tn * kNT;
+  const int tn = kTN ? kTN : tn_given;
+  const int step = kThreads / tn;          // rows between a thread's rows
+  const int tm = step * kR, tile_n = tn * kNT;
   unsigned char* s_a = smem + kLutEntries * sizeof(uint16_t);
   unsigned char* s_w = s_a + kStages * tm * kARow;
   unsigned* s_row = reinterpret_cast<unsigned*>(s_w + kStages * kKC * tile_n);
@@ -924,7 +1020,7 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
   const long long end =
       range_start(nullptr, n_pairs, 1, per_pair, blockIdx.x + 1, gridDim.x);
 
-  for (int i = tid; i < tm + 8 * kNT; i += kThreads) s_row[i] = 0u;
+  for (int i = tid; i < tm + tile_n; i += kThreads) s_row[i] = 0u;
   __syncthreads();
 
   const int r = tid / tn, g = tid % tn;    // this thread's row and group
@@ -935,7 +1031,7 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
   // the next chunk's loads are issued before each gather, across units
   // too (v holds them)
   constexpr bool kPipelined = kStages > 1 && kPrefetch;
-  Staged v;
+  Staged<kA, kW> v;
   bool loaded = false;                     // v holds this unit's chunk 0
   auto load = [&](const Unit& un, int c) {  // unit un's chunk c
     const int k0 = un.k_begin + c * kKC;
@@ -963,9 +1059,15 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
                 lane_scalar(sc, kQmax, u.pair)};
       staged_pair = u.pair;
     }
-    unsigned acc[kNT], col_sum[kNT], row_sum = 0u, csum = 0u;
+    unsigned acc[kR][kNT], row_sum[kR], col_sum[kNT], csum = 0u;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[j] = col_sum[j] = 0u;
+    for (int i = 0; i < kR; ++i) {
+      row_sum[i] = 0u;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) acc[i][j] = 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) col_sum[j] = 0u;
     auto a_buf = [&](long long c) { return s_a + (c % kStages) * tm * kARow; };
     auto w_buf = [&](long long c) {
       return s_w + (c % kStages) * kKC * tile_n;
@@ -980,9 +1082,10 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
     };
     auto gather = [&](int c) {
       const int k0 = u.k_begin + c * kKC;
-      narrow8_chunk(a_buf(gc + c) + r * kARow, w_buf(gc + c) + g * kNT,
-                    tile_n, min(kKC, K - k0), lut, acc, u.n0 == 0 && g == 0,
-                    u.m0 == 0 && r == 0, row_sum, col_sum);
+      narrow8_chunk<kR>(a_buf(gc + c) + r * kARow, step * kARow,
+                        w_buf(gc + c) + g * kNT, tile_n, min(kKC, K - k0),
+                        lut, acc, u.n0 == 0 && g == 0, u.m0 == 0 && r == 0,
+                        row_sum, col_sum);
     };
 
     if (kStages == 1) {
@@ -1022,19 +1125,36 @@ quant8_kernel(const float* __restrict__ x, long long x_lane_stride,
     gc += n_chunks;
     sums_out(u, M, N, tm, tile_n, s_row, s_col, csum, row_out, col_out, add,
              tid);
-    acc_out(u, M, N, tm, r, g, acc, row_sum, col_sum, out, row_out, col_out,
-            add);
+    acc_out<kR>(u, M, N, r, step, g, acc, row_sum, col_sum, out, row_out,
+                col_out, add);
   }
 }
 
-// K ranges of a launch's items (k_splits).
-inline int launch_splits(int n_lanes, int M, int K, int N, int grid) {
-  return k_splits(gather_items(n_lanes, M, N), (K + kKC - 1) / kKC, grid);
+// K ranges of a launch's items at tile t (k_splits).
+inline int launch_splits(int n_lanes, int M, int K, int N, int grid,
+                         Tile t) {
+  return k_splits(gather_items(n_lanes, M, N, t), (K + kKC - 1) / kKC, grid);
 }
 
-// Configure the kernel once (the largest tile's shared memory) and
-// launch it on `stream` with `grid` persistent blocks: quant8_kernel for
-// the 8-bit float kernels (K3, K4), fused_kernel for the others.
+// Opt kernel `fn` into `bytes` of dynamic shared memory on the current
+// device, once a device (`configured`: the kernel's flag a device; the
+// opt-in acts on the current device only).
+inline int opt_in(const void* fn, size_t bytes,
+                  bool (&configured)[kMaxDevices]) {
+  int dev = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev)) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  return 0;
+}
+
+// fused_kernel (K1, K2, K5-K8) on `stream` with `grid` persistent blocks,
+// configured for the largest tile's shared memory.
 template <bool kComposed, typename In>
 inline int run(const In* x, long long x_lane_stride, const In* w,
                long long w_lane_stride, const uint16_t* luts,
@@ -1042,37 +1162,38 @@ inline int run(const In* x, long long x_lane_stride, const In* w,
                int* out_lo, int* out_hi, int* row_out, int* col_out,
                int n_lanes, int slices, int experts, int M, int K, int N,
                int grid, int splits, cudaStream_t stream) {
-  constexpr bool kQuant8 = std::is_same<In, float>::value && !kComposed;
-  const int tn = threads_across_n(N);
-  // the opt-in acts on the current device only: one flag a device
   static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  if (const cudaError_t err = cudaGetDevice(&dev)) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    const cudaError_t err =
-        kQuant8 ? cudaFuncSetAttribute(
-                      quant8_kernel,
-                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                      (int)quant_smem_bytes(1))
-                : cudaFuncSetAttribute(
-                      fused_kernel<kComposed, In>,
-                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                      (int)smem_bytes(1, kComposed));
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  if constexpr (kQuant8) {
-    quant8_kernel<<<grid, kThreads, quant_smem_bytes(tn), stream>>>(
-        x, x_lane_stride, w, luts, sc, out_lo, row_out, col_out, n_lanes,
-        slices, experts, M, K, N, tn, splits);
-  } else {
-    fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn, kComposed),
-                                  stream>>>(
-        x, x_lane_stride, w, w_lane_stride, luts, sc, masks, rcodes, out_lo,
-        out_hi, row_out, col_out, n_lanes, slices, experts, M, K, N, tn,
-        splits);
-  }
+  if (const int err = opt_in((const void*)fused_kernel<kComposed, In>,
+                             smem_bytes(1, kComposed), configured))
+    return err;
+  const int tn = threads_across_n(N);
+  fused_kernel<kComposed, In><<<grid, kThreads, smem_bytes(tn, kComposed),
+                                stream>>>(
+      x, x_lane_stride, w, w_lane_stride, luts, sc, masks, rcodes, out_lo,
+      out_hi, row_out, col_out, n_lanes, slices, experts, M, K, N, tn,
+      splits);
+  return (int)cudaGetLastError();
+}
+
+// quant8_kernel (K3, K4) at the tile {kTN, kR} of kQuant8Tiles on
+// `stream` with `grid` persistent blocks, configured for the
+// instantiation's largest tile (tn = 1 at kTN 0).
+template <int kTN, int kR>
+inline int run_quant8(const float* x, long long x_lane_stride,
+                      const float* w, const uint16_t* luts,
+                      const Scalars& sc, int* out, int* row_out,
+                      int* col_out, int n_lanes, int slices, int experts,
+                      int M, int K, int N, int grid, int splits,
+                      cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  const Tile t = kTN ? Tile{kTN, kR} : gather_tile(N);
+  if (const int err = opt_in((const void*)quant8_kernel<kTN, kR>,
+                             quant_smem_bytes(kTN ? t : Tile{1, 1}),
+                             configured))
+    return err;
+  quant8_kernel<kTN, kR><<<grid, kThreads, quant_smem_bytes(t), stream>>>(
+      x, x_lane_stride, w, luts, sc, out, row_out, col_out, n_lanes, slices,
+      experts, M, K, N, t.tn, splits);
   return (int)cudaGetLastError();
 }
 
@@ -1090,7 +1211,8 @@ inline int launch_codes(const int* qa, long long qa_lane_stride,
                         cudaStream_t stream, int slices = 1,
                         int experts = 1) {
   const int n_pairs = n_lanes * slices;
-  const int splits = launch_splits(n_pairs, M, K, N, grid);
+  const int splits =
+      launch_splits(n_pairs, M, K, N, grid, gather_tile(N));
   if (splits > 1) {                        // the units add into zeros
     const size_t bytes = (size_t)n_pairs * M * N * sizeof(int);
     int* const outs[2] = {out_lo, kComposed ? out_hi : nullptr};
@@ -1106,12 +1228,13 @@ inline int launch_codes(const int* qa, long long qa_lane_stride,
                              N, grid, splits, stream);
 }
 
-// The kernels on f32 operands (K3, K4: 8-bit; K7, K8: composed).  `out`
-// is one allocation of int32: the accumulator (K7/K8: the limbs lo, then
-// hi), P M N each, then the row sums (P M), then the column sums (P N),
-// P = n_lanes slices pairs; where K is split, one memset zeroes it.
-// `slices` and `experts`: the expert axis (1 and 1 without it).
-// Returns the first CUDA error of the launch.
+// The kernels on f32 operands (K3, K4: 8-bit, quant8_kernel at the tile
+// quant8_tile picks; K7, K8: composed).  `out` is one allocation of
+// int32: the accumulator (K7/K8: the limbs lo, then hi), P M N each,
+// then the row sums (P M), then the column sums (P N), P = n_lanes
+// slices pairs; where K is split, one memset zeroes it.  `slices` and
+// `experts`: the expert axis (1 and 1 without it).  Returns the first
+// CUDA error of the launch.
 template <bool kComposed>
 inline int launch_quant(const float* x, long long x_lane_stride,
                         const float* w, const uint16_t* luts,
@@ -1123,17 +1246,33 @@ inline int launch_quant(const float* x, long long x_lane_stride,
   const size_t mn = (size_t)n_pairs * M * N;
   int* row_out = out + (kComposed ? 2 : 1) * mn;
   int* col_out = row_out + (size_t)n_pairs * M;
-  const int splits = launch_splits(n_pairs, M, K, N, grid);
+  const int tile = kComposed ? 0 : quant8_tile(M, N);
+  const Tile t = kComposed ? gather_tile(N) : quant8_tile_at(tile, N);
+  const int splits = launch_splits(n_pairs, M, K, N, grid, t);
   if (splits > 1) {                        // the units add into zeros
     const size_t words = (size_t)(col_out - out) + (size_t)n_pairs * N;
     const cudaError_t err =
         cudaMemsetAsync(out, 0, words * sizeof(int), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  return run<kComposed, float>(x, x_lane_stride, w, 0, luts, sc, masks,
-                               rcodes, out, kComposed ? out + mn : nullptr,
-                               row_out, col_out, n_lanes, slices, experts, M,
-                               K, N, grid, splits, stream);
+  if constexpr (kComposed) {
+    return run<true, float>(x, x_lane_stride, w, 0, luts, sc, masks, rcodes,
+                            out, out + mn, row_out, col_out, n_lanes, slices,
+                            experts, M, K, N, grid, splits, stream);
+  } else {
+    switch (tile) {
+#define FUSEDMM_QUANT8(i)                                                   \
+  case i:                                                                   \
+    return run_quant8<kQuant8Tiles[i][0], kQuant8Tiles[i][1]>(              \
+        x, x_lane_stride, w, luts, sc, out, row_out, col_out, n_lanes,      \
+        slices, experts, M, K, N, grid, splits, stream);
+      FUSEDMM_QUANT8(1)
+      FUSEDMM_QUANT8(2)
+      default:
+      FUSEDMM_QUANT8(0)
+#undef FUSEDMM_QUANT8
+    }
+  }
 }
 
 }  // namespace

@@ -36,7 +36,9 @@ split their (lane, row tile, column tile) items over the persistent
 blocks by cost, a wide lane's item weighing ``WIDE_COST`` and a narrow
 one's ``NARROW_COST`` (``split_starts`` mirrors the device's formula).
 Every kernel of the shared body (K1-K8) cuts K into ranges where its
-items are fewer than the blocks (``k_split`` mirrors the plan).  The
+items are fewer than the blocks (``k_split`` mirrors the plan).  K3/K4
+pick their tile from M as well as N (``quant8_tile``), so an MoE
+expert's capacity buffer gathers no padded rows.  The
 kernels return integers only; the f32 limb recombination and the
 zero-point correction and dequant (``dequant``, the reference's
 ``_dequant`` and ``_bank_dequant`` at once) run as eager PyTorch ops in
@@ -129,14 +131,67 @@ def threads_across_n(n: int) -> int:
     return 1 if n <= 8 else 2 if n <= 16 else 4 if n <= 32 else 8
 
 
+class Tile(NamedTuple):
+    """A launch's tile (``fused_gather.cuh::Tile``): ``tn`` threads
+    across N, each gathering ``rows`` rows of ``NT`` columns; thread
+    ``t`` gathers rows ``t // tn + i * THREADS // tn`` (i < rows) of
+    columns ``(t % tn) * NT`` to ``+ NT``."""
+    tn: int
+    rows: int
+
+    @property
+    def tm(self) -> int:
+        return THREADS // self.tn * self.rows
+
+    @property
+    def tile_n(self) -> int:
+        return self.tn * NT
+
+    def slots(self, m: int, n: int) -> int:
+        """(Row, column) slots the tiles of one (lane, slice) pair
+        gather at M x N, padded edges included."""
+        return -(-m // self.tm) * self.tm * -(-n // self.tile_n) * self.tile_n
+
+
+def gather_tile(n: int) -> Tile:
+    """The tile of every kernel of the shared body but K3/K4's
+    ``quant8_kernel``: one row a thread, the column tile sized to N."""
+    return Tile(threads_across_n(n), 1)
+
+
+#: ``quant8_kernel``'s compiled tiles ``(tn, rows)``, in the order its plan
+#: prefers them on a tie; tn 0 is ``gather_tile(n)``
+#: (``fused_gather.cuh::kQuant8Tiles``).
+QUANT8_TILES = ((0, 1), (32, 5), (32, 1))
+
+
+def quant8_tile(m: int, n: int) -> Tile:
+    """K3/K4's tile at M x N (``fused_gather.cuh::quant8_tile``): of
+    ``QUANT8_TILES``, the one whose tiles gather the fewest slots, the
+    first listed on a tie (so ``gather_tile(n)`` wherever it pads no more
+    than the others)."""
+    tiles = [Tile(tn, rows) if tn else gather_tile(n)
+             for tn, rows in QUANT8_TILES]
+    return min(tiles, key=lambda t: t.slots(m, n))
+
+
+def quant8_lookups(pairs: int, m: int, k: int, n: int) -> tuple[int, int]:
+    """Table lookups the tiles of one K3/K4 launch gather over ``pairs``
+    (lane, slice) pairs at M x K x N, and how many of them lie on padded
+    rows or columns."""
+    gathered = pairs * quant8_tile(m, n).slots(m, n) * k
+    return gathered, gathered - pairs * m * n * k
+
+
 class KSplit(NamedTuple):
     """A launch's work units as the shared body walks them: ``lanes`` x
-    ``tiles`` (row tile, column tile) items, each item's ``chunks`` KC
-    chunks of K cut into ``splits`` ranges."""
+    ``tiles`` (row tile, column tile) items of ``tile``, each item's
+    ``chunks`` KC chunks of K cut into ``splits`` ranges."""
     lanes: int
     tiles: int
     chunks: int
     splits: int
+    tile: Tile
 
     @property
     def items(self) -> int:
@@ -151,21 +206,23 @@ class KSplit(NamedTuple):
                                  (part + 1) * self.chunks // self.splits)
 
 
-def k_split(n_lanes: int, m: int, k: int, n: int, grid: int) -> KSplit:
+def k_split(n_lanes: int, m: int, k: int, n: int, grid: int,
+            quant8: bool = False) -> KSplit:
     """The K split of one launch of the shared body
-    (``fused_gather.cuh::k_splits``): 1 when there are at least as many
-    items as blocks; else the range count s in [1, chunks] whose busiest
-    block sums the fewest chunks, ceil(items s / grid) units of at most
-    ceil(chunks / s) chunks each, the smallest s on a tie (so 1 wherever
-    a split would not shorten the busiest block)."""
-    tn = threads_across_n(n)
-    tiles = -(-m // (THREADS // tn)) * -(-n // (tn * NT))
+    (``fused_gather.cuh::k_splits``) at its tile (``quant8``: K3/K4's,
+    ``quant8_tile``; else ``gather_tile``): 1 when there are at least as
+    many items as blocks; else the range count s in [1, chunks] whose
+    busiest block sums the fewest chunks, ceil(items s / grid) units of
+    at most ceil(chunks / s) chunks each, the smallest s on a tie (so 1
+    wherever a split would not shorten the busiest block)."""
+    tile = quant8_tile(m, n) if quant8 else gather_tile(n)
+    tiles = -(-m // tile.tm) * -(-n // tile.tile_n)
     chunks = -(-k // KC)
     items = n_lanes * tiles
     splits = min(range(1, chunks + 1),
                  key=lambda s: -(-items * s // grid) * -(-chunks // s),
                  default=1) if items < grid else 1
-    return KSplit(n_lanes, tiles, chunks, splits)
+    return KSplit(n_lanes, tiles, chunks, splits, tile)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,8 +15,13 @@ all-wide bank; ``base``, ``no_swizzle``, ``parent_design``,
 ``no_loads``, ``no_ksplit`` and ``threads1024`` K1 and K2 (the operands
 ``chip_smoke.py``'s timing phase gives them: K2 and K4 the 17-lane
 case-study bank, activations shared at conv_init and banked after).
-``single_buffer``, ``no_prefetch``, ``sums_in_loop`` and ``no_quant``
-time K3 and K4 only (their ``quant8_kernel``).  ``--parent DIR`` adds the
+``single_buffer``, ``no_prefetch``, ``sums_in_loop``, ``no_quant``,
+``tile_gather``, ``tile_32x1`` and ``rows_unroll2`` time K3 and K4 only
+(their ``quant8_kernel``).  Every copy that builds K4 also times its expert form
+at qwen3-moe-30b-a3b's expert projections as the benchmark's
+``qwen3moe.ppl_fused`` cell runs them (8 lanes x 128 experts, C = 80
+capacity rows a pair: wi/wg 2048 -> 768, wo 768 -> 2048), beside the
+ResNet shapes.  ``--parent DIR`` adds the
 copy ``parent``: the eight kernels built from the sources in DIR (another
 tree's ``csrc/``; fused kernels that take packed scalars, ``fp`` (n, 3)
 and ``ip`` (n, 2), and four output pointers, as before
@@ -54,14 +59,23 @@ results: the point is the time the part cost.
                    every unit), as the parent body keeps them
   no_quant         K3/K4's codes cut from the f32 bits in place of the
                    IEEE division and rint (timing only: not bit-exact)
+  tile_gather      K3/K4 always on the tile of the other kernels (one row
+                   a thread, 64 rows at N > 32): the tile before
+                   quant8_tile
+  tile_32x1        K3/K4 always on the 16 x 256 tile (one row a thread,
+                   32 threads across N); base takes 80 x 256 at C = 80
+  rows_unroll2     the several-row gather loop unrolled twice, as the
+                   one-row loop is (more registers at five rows)
 
 ``no_swizzle`` + ``no_ksplit`` on K1/K2 stands for the earlier K1/K2
 body's table and grid.
 
 Prints one line per copy, then the instruction mix of each inner loop
-of ``base``'s K6 (``cuobjdump -sass``: the loops with table lookups,
-opcodes counted per loop body); writes ``chiprun_out/
-gather_ablation.json`` and the SASS (``gather_ablation_sass.txt``).
+of ``base``'s K6 and K4 (``cuobjdump -sass``: the loops with table
+lookups, opcodes counted per loop body) and ptxas's registers and spills
+of each ``quant8_kernel`` tile of ``base``; writes ``chiprun_out/
+gather_ablation.json`` and the SASS (``gather_ablation_sass.txt``,
+``gather_ablation_sass_k4.txt``).
 """
 from __future__ import annotations
 
@@ -90,8 +104,13 @@ LUT = ("lut_matmul", "lut_matmul_bank")
 QUANT8 = ("fused_matmul", "fused_matmul_bank")
 ALL = QUANT8 + ("fused_composed_matmul", "composed_matmul") + COMPOSED
 # the copies that time K3/K4 alone (quant8_kernel's parts)
-QUANT8_COPIES = ("single_buffer", "no_prefetch", "sums_in_loop", "no_quant")
+QUANT8_COPIES = ("single_buffer", "no_prefetch", "sums_in_loop", "no_quant",
+                 "tile_gather", "tile_32x1", "rows_unroll2")
 BATCH = 64
+#: qwen3-moe-30b-a3b's expert projections in the benchmark's cell: lanes,
+#: experts, capacity rows C, K, N
+QWEN_EXPERTS = {"qwen wi/wg": (8, 128, 80, 2048, 768),
+                "qwen wo": (8, 128, 80, 768, 2048)}
 OUT_DIR = "chiprun_out"
 
 
@@ -103,6 +122,7 @@ def _edits() -> dict[str, list[tuple[str, str]]]:
     rowmajor = ("constexpr unsigned kSwizzle = 31u;",
                 "constexpr unsigned kSwizzle = 0u;")
     lookup = "  return *reinterpret_cast<const uint16_t*>(lut + addr);"
+    pick = "inline int quant8_tile(int M, int N) {\n"
 
     def fake(i, j):
         # an operand hashed from its indices (random digits, so the
@@ -150,6 +170,10 @@ def _edits() -> dict[str, list[tuple[str, str]]]:
                       " & 255u);")],
         "no_prefetch": [("constexpr bool kPrefetch = true;",
                          "constexpr bool kPrefetch = false;")],
+        "tile_gather": [(pick, pick + "  return 0;\n")],
+        "tile_32x1": [(pick, pick + "  return 2;\n")],
+        "rows_unroll2": [("#pragma unroll (kR == 1 ? 2 : 1)",
+                          "#pragma unroll 2")],
     }
 
 
@@ -230,7 +254,37 @@ def _build(parent: Path | None,
                        and name in _PACKED_ARGTYPES else _argtypes(name))
         fn.restype = ctypes.c_int
         fns[copy, name] = fn
+        if name == "fused_matmul_bank" and not (packed and copy == "parent"):
+            ex = getattr(lib, f"{name}_experts_launch")
+            ex.argtypes = fm._EXPERT_ARGTYPES[name]
+            ex.restype = ctypes.c_int
+            fns[copy, name, "experts"] = ex
+        (root / copy / f"{name}.log").write_text(proc.stdout)
     return fns
+
+
+def _ptxas(log: str) -> list[dict]:
+    """ptxas's registers and spills of each ``quant8_kernel``
+    instantiation in an ``nvcc -Xptxas -v`` log (a function's spill line
+    comes before its register line)."""
+    out: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        if name is None or "quant8_kernel" not in name:
+            continue
+        entry = out.setdefault(name, {"function": name})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+    return list(out.values())
 
 
 def _sass(path, out_path) -> list[dict]:
@@ -398,11 +452,12 @@ def _launch_packed(name: str, fn, x, w, luts16, packed, codes=()):
     return outs
 
 
-def _call(name: str, fn, args, packed=None):
+def _call(name: str, fn, args, packed=None, experts=None):
     """One launch of a copy's kernel ``fn`` through its wrapper (the same
     arguments), the wrapper's launch function swapped for ``fn`` during
     the call and its launch count left as it was; ``packed``: the
-    scalars packed, for a kernel that takes them so."""
+    scalars packed, for a kernel that takes them so; ``experts``: the
+    copy's expert-form launch function, for stacked weights."""
     if packed is not None:
         return _launch_packed(name, fn, *args[:3], packed, *args[4:])
     if name in LUT:
@@ -416,11 +471,33 @@ def _call(name: str, fn, args, packed=None):
             mod._launcher, wrapper.launches = own, launches
     mod = cm if name.startswith("composed") else fm
     own = mod._launcher
-    mod._launcher = lambda _name: fn
+    mod._launcher = lambda *_name: fn       # cm's takes (name, experts)
+    own_ex = getattr(mod, "_experts_launcher", None)
+    if experts is not None:
+        mod._experts_launcher = lambda _name: experts
     try:
         return mod._launch(name, _Uncounted, *args)
     finally:
         mod._launcher = own
+        if own_ex is not None:
+            mod._experts_launcher = own_ex
+
+
+def _qwen_operands(device, luts8) -> dict:
+    """K4's expert-form operands at ``QWEN_EXPERTS``: banked activations
+    (lanes, experts, C, K), stacked weights (E, K, N), the first lanes'
+    tables, and each (lane, expert) pair's scalars."""
+    from ..approx.quant import calibrate_slices, pair_scalars
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = {}
+    for label, (lanes, e, m, k, n) in QWEN_EXPERTS.items():
+        x = torch.randn((lanes, e, m, k), generator=gen, device=device)
+        w = torch.randn((e, k, n), generator=gen, device=device) * 0.05
+        sp = pair_scalars(calibrate_slices(x), calibrate_slices(w), lanes,
+                          e)
+        out[label] = (x, w, luts8[:lanes].contiguous(),
+                      fm.lane_scalars(lanes * e, device, *sp), ())
+    return out
 
 
 def _ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -459,12 +536,17 @@ def main() -> None:
                   os.path.join(OUT_DIR, "gather_ablation_sass.txt"))
     k4_loops = _sass(base / "fused_matmul_bank.so",
                      os.path.join(OUT_DIR, "gather_ablation_sass_k4.txt"))
+    ptxas = _ptxas((base / "fused_matmul_bank.log").read_text())
+    for p in ptxas:
+        print(f"[ablation] ptxas {p}")
     ops, packed = _operands(dev)
+    qwen = _qwen_operands(dev, ops["conv_init"]["fused_matmul_bank"][2])
     packed_parent = _packed_abi(args.parent)
     print(f"[ablation] {card}; ten-shape sums of ms per call "
-          f"(ResNet-8, batch {BATCH})")
-    result = {"card": card, "ms": {}, "k6_loops": loops,
-              "k4_loops": k4_loops}
+          f"(ResNet-8, batch {BATCH}); K4's expert form at "
+          f"{QWEN_EXPERTS} (lanes, experts, C, K, N), ms a call")
+    result = {"card": card, "ms": {}, "qwen_ms": {}, "k6_loops": loops,
+              "k4_loops": k4_loops, "ptxas": ptxas}
     for copy in copies + (["parent"] if args.parent else []):
         row = {}
         for key in ops["conv_init"]:
@@ -484,6 +566,16 @@ def main() -> None:
         print(f"[ablation] {copy:16s} "
               + ", ".join(f"{k} {v:.3f}" for k, v in row.items()),
               flush=True)
+        ex = fns.get((copy, "fused_matmul_bank", "experts"))
+        if ex is not None:
+            qrow = {label: _ms(lambda: _call(
+                        "fused_matmul_bank", fns[copy, "fused_matmul_bank"],
+                        args_, experts=ex), reps=3, warmup=1)
+                    for label, args_ in qwen.items()}
+            result["qwen_ms"][copy] = qrow
+            print(f"[ablation] {copy:16s} K4 experts "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in qrow.items()),
+                  flush=True)
     for what, found in (("K6", loops), ("K4", k4_loops)):
         for loop in found:
             print(f"[ablation] {what} loop {loop['start']}-{loop['end']}: "

@@ -46,7 +46,7 @@ from .composed_matmul import composed_matmul, composed_matmul_bank
 from .fused_matmul import (dequant_lanes, fused_composed_matmul,
                            fused_composed_matmul_bank, fused_matmul,
                            fused_matmul_bank, lane_scalars, limbs_to_f32,
-                           pack_codes, pack_scalars)
+                           pack_codes, pack_scalars, quant8_lookups)
 from .lowrank_matmul import MAX_RANK, lowrank_matmul as lowrank_kernel
 from .lut_bank import lut_matmul_bank
 
@@ -270,6 +270,19 @@ def _plain_fused(plain, n: int):
     return call
 
 
+def _count_quant8(pairs: int, x: torch.Tensor, w: torch.Tensor) -> None:
+    """A K3/K4 call's table lookups as its tiles gather them, counters
+    ``gather.lookups`` and ``gather.pad_lookups`` (those on padded rows
+    or columns, ``fused_matmul.quant8_lookups``) of the open span, while
+    the profiler records; the plain versions on the CPU count the plan
+    the kernel would take."""
+    if obs.counting():
+        looked, pad = quant8_lookups(pairs, x.shape[-2], x.shape[-1],
+                                     w.shape[-1])
+        obs.count("gather.lookups", looked)
+        obs.count("gather.pad_lookups", pad)
+
+
 def _finish(out: tuple, sc, k: int, raw: bool):
     """A fused kernel's outputs dequantized to f32 (the epilogue), or as
     they are with ``raw``."""
@@ -295,6 +308,7 @@ def fused_matmul_lut(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor,
     or one a slice (X,) -> (X,M,N), slice ``s`` equal to
     ``fused_matmul_lut(x[s], w[s % E], lut, <slice s's scalars>)``."""
     pairs = _check_fused(x, w, lut, False, MAX_LUT_K, "LUT", w.ndim == 3)
+    _count_quant8(pairs, x, w)
     sc = lane_scalars(pairs, x.device, sa, za, sw, zw, qmax)
     plain = (ref.fused_matmul_experts_ref if w.ndim == 3
              else ref.fused_matmul_ref)
@@ -316,6 +330,7 @@ def fused_matmul_lut_bank(x: torch.Tensor, w: torch.Tensor,
     slice ``s`` equal to ``fused_matmul_lut(x_b[s], w[s % E], luts[b],
     <pair (b, s)'s scalars>)``."""
     pairs = _check_fused(x, w, luts, True, MAX_LUT_K, "LUT", w.ndim == 3)
+    _count_quant8(pairs, x, w)
     sc = lane_scalars(pairs, x.device, sa, za, sw, zw, qmax)
     plain = (ref.fused_matmul_bank_experts_ref if w.ndim == 3
              else ref.fused_matmul_bank_ref)

@@ -123,10 +123,16 @@ def span(name: str, **attrs):
     return _Span(_rec, name, attrs)
 
 
+def counting() -> bool:
+    """Whether ``count`` records now (the profiler records and a span is
+    open): a caller whose count takes work to make checks this first."""
+    return bool(_on() and _rec is not None and _rec.open and _rec.stack)
+
+
 def count(name: str, n: int) -> None:
     """Add ``n`` to counter ``name`` of the innermost open span (while
     the profiler records and a span is open)."""
-    if _on() and _rec is not None and _rec.open and _rec.stack:
+    if counting():
         top = _rec.stack[-1].counters
         top[name] = top.get(name, 0) + n
 

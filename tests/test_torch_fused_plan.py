@@ -261,7 +261,7 @@ def test_quant8_buffers_fit_a_block(tn):
     assert (a_row // 4) % 2 == 1
     tm, tile_n = fm.THREADS // tn, tn * fm.NT
     regions = [65536 * 2, stages * tm * a_row, stages * fm.KC * tile_n,
-               tm * 4, 8 * fm.NT * 4]
+               (tm + tile_n) * 4]
     assert sum(regions) <= 232448
     assert all(r % 16 == 0 for r in regions)
     # the 32 / tn rows a warp gathers read distinct banks at each step
