@@ -376,10 +376,12 @@ def _moe_counts(cfg, t: int) -> dict[str, int]:
     """Expert MACs mirror the sort-based dispatch exactly: every expert
     processes its full capacity buffer (zero-padded slots multiply
     too), so the per-projection cost is ``nb * E * C * d * f`` with the
-    same blocked/unblocked capacity arithmetic as ``models.moe``.  The
-    router stays exact (f32) and carries no approximate MACs."""
+    same blocked/unblocked capacity arithmetic as ``models.moe``; a
+    chip's share (``cfg.held_experts``) holds buffers for its experts
+    alone, at the capacity of all ``n_experts``.  The router stays
+    exact (f32) and carries no approximate MACs."""
     from ..models.moe import capacity
-    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    e, k, d = len(cfg.held_experts), cfg.top_k, cfg.d_model
     f = cfg.moe_d_ff or cfg.d_ff
     nb = cfg.moe_blocks
     if nb > 1 and t % nb == 0 and t // nb >= k:
@@ -445,7 +447,8 @@ def layer_mult_counts(cfg, batch: int = 1,
     projection itself), an encdec runs its encoder over ``enc_frames``
     per batch element.  Exact einsums (norms, attention scores, the MoE
     router, the SSM scan) carry no approximate MACs and do not
-    appear."""
+    appear.  Leading dense layers (``cfg.first_dense``) count the
+    pattern's mixer and an FFN of ``cfg.first_dense_d_ff``."""
     if hasattr(cfg, "widths"):          # ResNetConfig, without an import
         return _resnet_mult_counts(cfg, batch)
     if cfg.family == "encdec":
@@ -457,10 +460,14 @@ def layer_mult_counts(cfg, batch: int = 1,
     extra = cfg.n_img_tokens if cfg.family == "vlm" else 0
     t = batch * (seq_len + extra)
     pattern = block_pattern(cfg)
-    reps = cfg.n_layers // len(pattern)
+    reps = (cfg.n_layers - cfg.first_dense) // len(pattern)
     per_group: dict[str, int] = {}
     mixers = {"attn": _attn_counts, "mla": _mla_counts,
               "mamba": _mamba_counts}
+    lead: dict[str, int] = {}
+    if cfg.first_dense:
+        _merge_counts(lead, mixers[pattern[0][0]](cfg, t))
+        _merge_counts(lead, _ffn_counts(cfg, t, d_ff=cfg.first_dense_d_ff))
     for mixer, ffn_kind in pattern:
         _merge_counts(per_group, mixers[mixer](cfg, t))
         if ffn_kind == "ffn":
@@ -468,6 +475,7 @@ def layer_mult_counts(cfg, batch: int = 1,
         elif ffn_kind == "moe":
             _merge_counts(per_group, _moe_counts(cfg, t))
     counts = {tag: c * reps for tag, c in per_group.items()}
+    _merge_counts(counts, lead, cfg.first_dense)
     if cfg.family == "vlm" and cfg.n_img_tokens > 0:
         counts["img_proj"] = dense_mult_count(
             (batch * cfg.n_img_tokens, cfg.d_model),

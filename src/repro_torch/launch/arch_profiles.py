@@ -135,7 +135,8 @@ def banked_calls_per_forward(cfg) -> int:
     else.  A vlm adds its ``img_proj``; an encdec makes ``n_enc_layers x
     (4 + ffn)`` in the encoder and ``n_layers x (4 + 4 + ffn)`` in the
     decoder (self-attention, then cross-attention's wk/wv over the
-    frames and wq/wo over the tokens)."""
+    frames and wq/wo over the tokens).  Leading dense layers
+    (``cfg.first_dense``) make the pattern's mixer and one FFN each."""
     ffn = 3 if cfg.act == "silu" else 2
     if cfg.family == "encdec":
         return cfg.n_enc_layers * (4 + ffn) + cfg.n_layers * (8 + ffn)
@@ -149,8 +150,9 @@ def banked_calls_per_forward(cfg) -> int:
             per_group += ffn
             if cfg.n_shared_experts > 0:
                 per_group += ffn
-    return (per_group * (cfg.n_layers // len(pattern))
-            + (1 if cfg.family == "vlm" else 0))
+    lead = cfg.first_dense * (MIXER_CALLS[pattern[0][0]] + ffn)
+    return (per_group * ((cfg.n_layers - cfg.first_dense) // len(pattern))
+            + lead + (1 if cfg.family == "vlm" else 0))
 
 
 def _lm_workload(cfg, device: DeviceLike = None, seed: int = 0):

@@ -244,6 +244,12 @@ def build_probes(arch: str, shape_name: str, dp_size: int,
                  serve_rank: Optional[int] = 4,
                  variant: str = "pallas") -> list[ProbeSpec]:
     base_cfg = apply_overrides(get_config(arch), overrides)
+    if (base_cfg.first_dense
+            or len(base_cfg.held_experts) != base_cfg.n_experts):
+        raise NotImplementedError(
+            f"{arch}: the probes cut the depth in block periods and hold "
+            "every expert, so leading dense layers or a share of the "
+            "experts would be extrapolated as another model")
     shape = SHAPES[shape_name]
     period = block_period(base_cfg)
     prepared = serve_mode == "lowrank_prepared"
@@ -337,7 +343,7 @@ def param_count(params_sds, cfg: LMConfig) -> tuple[int, int]:
             continue
         is_expert = (("ffn_" in key or "moe" in key) and len(shape) >= 3
                      and cfg.n_experts > 0
-                     and shape[-3] == cfg.n_experts)
+                     and shape[-3] == len(cfg.held_experts))
         if is_expert:
             active += int(n * cfg.top_k / cfg.n_experts)
         else:

@@ -61,9 +61,34 @@ from ..launch.mesh import NamedSharding, sharded_einsum, sharded_reshape
 
 
 @dataclass(frozen=True)
+class YarnRope:
+    """YaRN's RoPE scaling (Peng et al. 2023, as DeepSeek-V2's
+    ``rope_scaling``): inverse frequencies blended between the base
+    ones and the base ones over ``factor`` along a linear ramp between
+    the correction dims of ``beta_fast`` and ``beta_slow`` rotations
+    over ``original_max`` positions; cos and sin scaled by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``, the
+    attention scores by ``mscale(factor, mscale_all_dim) ** 2``."""
+    factor: float
+    original_max: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+def yarn_mscale(factor: float, m: float) -> float:
+    """YaRN's attention factor ``0.1 m ln(factor) + 1`` (1 at or below
+    factor 1)."""
+    return 1.0 if factor <= 1.0 else 0.1 * m * math.log(factor) + 1.0
+
+
+@dataclass(frozen=True)
 class LMConfig:
     """The reference's ``LMConfig``, field for field; ``dtype`` is a
-    torch dtype."""
+    torch dtype.  The fields after ``scan_unroll`` are the port's own
+    (DeepSeek-V2 as published, one chip's share of its experts); their
+    defaults leave every model as the reference runs it."""
     name: str
     family: str              # dense|moe|ssm|hybrid|encdec|vlm
     n_layers: int
@@ -113,10 +138,27 @@ class LMConfig:
     loss_chunk: int = 1024
     dtype: Any = torch.bfloat16
     scan_unroll: bool = False
+    # --- the port's own (defaults: the reference's model) ---
+    expert_first: int = 0        # the experts this chip holds: from here
+    experts_held: int = 0        # ... this many (0: all n_experts)
+    n_group: int = 0             # group-limited routing: expert groups
+    topk_group: int = 0          # ... the best groups a token may use
+    norm_topk_prob: bool = True  # renormalise the top-k weights
+    routed_scaling: float = 1.0  # routed weights' factor
+    first_dense: int = 0         # leading layers with a dense FFN
+    first_dense_d_ff: int = 0    # ... its width
+    rope_scaling: Optional[YarnRope] = None
 
     @property
     def kv_groups(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
+    def held_experts(self) -> range:
+        """The routed experts whose weights and buffers this chip holds
+        (all ``n_experts`` unless ``experts_held`` says a share)."""
+        n = self.experts_held or self.n_experts
+        return range(self.expert_first, self.expert_first + n)
 
     def reduced(self, **overrides) -> "LMConfig":
         """Smoke-test-sized variant of the same family (the reference's
@@ -336,22 +378,60 @@ def rope_inv_freq(dim: int, theta: float) -> np.ndarray:
             ).astype(np.float32)
 
 
+def yarn_ramp(dim: int, theta: float, yarn: YarnRope
+               ) -> tuple[int, int, np.ndarray]:
+    """(low, high, ramp (dim/2,) float64) of YaRN: the correction dims
+    ``dim ln(original_max / (2 pi beta)) / (2 ln theta)`` of
+    ``beta_fast`` (floored) and ``beta_slow`` (ceiled), clamped to the
+    pairs, and ``clamp((i - low) / (high - low), 0, 1)``."""
+    def corr(beta):
+        return (dim * math.log(yarn.original_max / (beta * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(yarn.beta_fast)), 0)
+    high = min(math.ceil(corr(yarn.beta_slow)), dim - 1)
+    span = (high - low) or 0.001
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low) / span,
+                   0.0, 1.0)
+    return low, high, ramp
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn: YarnRope) -> np.ndarray:
+    """(dim/2,) f32 YaRN inverse frequencies: with ``base`` the
+    ``rope_inv_freq`` exponents' powers in float64 and ``mask = 1 -
+    ramp``, ``base / factor * (1 - mask) + base * mask``, rounded once."""
+    expo = np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim)
+    base = 1.0 / np.power(np.float64(theta), expo.astype(np.float64))
+    mask = 1.0 - yarn_ramp(dim, theta, yarn)[2]
+    return (base / yarn.factor * (1.0 - mask) + base * mask
+            ).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
-def _inv_freq_on(dim: int, theta: float, device: torch.device
-                 ) -> torch.Tensor:
-    """``rope_inv_freq`` on ``device``, copied once: a copy from host
-    memory every layer would wait for the stream each time."""
-    return torch.from_numpy(rope_inv_freq(dim, theta)).to(device)
+def _inv_freq_on(dim: int, theta: float, device: torch.device,
+                 yarn: Optional[YarnRope] = None) -> torch.Tensor:
+    """``rope_inv_freq`` (``yarn_inv_freq`` under YaRN) on ``device``,
+    copied once: a copy from host memory every layer would wait for the
+    stream each time."""
+    inv = (rope_inv_freq(dim, theta) if yarn is None
+           else yarn_inv_freq(dim, theta, yarn))
+    return torch.from_numpy(inv).to(device)
 
 
-def rope_tables(positions: torch.Tensor, dim: int, theta: float
+def rope_tables(positions: torch.Tensor, dim: int, theta: float,
+                yarn: Optional[YarnRope] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions: (...,) int -> cos/sin (..., dim/2) f32.  The inverse
     frequencies (``rope_inv_freq``) equal the reference's f32 ones
-    element for element (``tests/test_torch_lm.py``)."""
-    inv = _inv_freq_on(dim, theta, positions.device)
+    element for element (``tests/test_torch_lm.py``).  ``yarn``: YaRN's
+    frequencies, and cos and sin times its ``mscale`` ratio."""
+    inv = _inv_freq_on(dim, theta, positions.device, yarn)
     ang = positions.to(torch.float32)[..., None] * inv
-    return torch.cos(ang), torch.sin(ang)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if yarn is not None:
+        m = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        cos, sin = cos * m, sin * m
+    return cos, sin
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
@@ -478,7 +558,8 @@ def _project_qkv(params, x, cfg: LMConfig, policy: ApproxPolicy,
         q = norm(q, params["qnorm"])
         k = norm(k, params["knorm"])
     if cfg.use_rope:
-        cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+        cos, sin = rope_tables(positions, hd, cfg.rope_theta,
+                               cfg.rope_scaling)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q.to(cfg.dtype), k.to(cfg.dtype), v.to(cfg.dtype)

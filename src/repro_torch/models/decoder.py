@@ -33,6 +33,12 @@ the loss is one value a lane, each reduced alone.
 ``forward_decode_lanes`` is the continuous engine's decode step for
 every pattern: each running request a bank lane, each mixer (``attn``,
 ``mla``, ``mamba``) and FFN (``ffn``, ``moe``) in its lane form.
+
+``cfg.first_dense`` leading layers (DeepSeek-V2's first layer, the
+port's own field) are the pattern's mixer with a dense FFN of
+``cfg.first_dense_d_ff``, held apart in ``params["dense_blocks"]`` and
+run before the stacked groups; ``cfg.n_layers`` counts them.  The loss
+runs them; the cached paths refuse such a model (``_no_dense_lead``).
 """
 from __future__ import annotations
 
@@ -79,28 +85,55 @@ def _init_mixer(gen, kind: str, cfg: LMConfig, lead: tuple) -> dict:
     raise ValueError(kind)
 
 
-def _init_ffn(gen, kind: Optional[str], cfg: LMConfig, lead: tuple
-              ) -> Optional[dict]:
+def _init_ffn(gen, kind: Optional[str], cfg: LMConfig, lead: tuple,
+              d_ff: Optional[int] = None) -> Optional[dict]:
     if kind is None:
         return None
     if kind == "ffn":
-        return init_ffn(gen, cfg, lead=lead)
+        return init_ffn(gen, cfg, d_ff=d_ff, lead=lead)
     if kind == "moe":
         return init_moe(gen, cfg, lead)
     raise ValueError(kind)
 
 
+def _dense_pattern(cfg: LMConfig) -> list[tuple[str, Optional[str]]]:
+    """The leading dense layers' slot: the pattern's mixer and an FFN."""
+    return [(block_pattern(cfg)[0][0], "ffn")]
+
+
+def _no_dense_lead(cfg: LMConfig, what: str) -> None:
+    if cfg.first_dense:
+        raise NotImplementedError(
+            f"{what}: {cfg.name} has {cfg.first_dense} leading dense "
+            f"layer(s), which only forward_train runs")
+
+
+def _blocks(gen, pattern, cfg: LMConfig, lead: tuple,
+            d_ff: Optional[int] = None) -> dict:
+    dev = gen.device
+    blocks = {}
+    for j, (mixer, ffn_kind) in enumerate(pattern):
+        blocks[f"mixer_{j}"] = _init_mixer(gen, mixer, cfg, lead)
+        blocks[f"norm1_{j}"] = torch.ones((*lead, cfg.d_model), device=dev)
+        f = _init_ffn(gen, ffn_kind, cfg, lead, d_ff)
+        if f is not None:
+            blocks[f"ffn_{j}"] = f
+            blocks[f"norm2_{j}"] = torch.ones((*lead, cfg.d_model),
+                                              device=dev)
+    return blocks
+
+
 def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     """Random f32 parameters from ``gen`` on its device, in the
     reference's tree layout (stacked layer groups; an ``ssm`` slot has
-    no ``ffn_j``/``norm2_j``; a vlm has ``img_proj``).  A
-    ``common.MetaGenerator`` gives the shapes only, on the ``meta``
-    device."""
+    no ``ffn_j``/``norm2_j``; a vlm has ``img_proj``; leading dense
+    layers in ``dense_blocks``).  A ``common.MetaGenerator`` gives the
+    shapes only, on the ``meta`` device."""
     pattern = block_pattern(cfg)
     period = len(pattern)
-    if cfg.n_layers % period:
+    if (cfg.n_layers - cfg.first_dense) % period:
         raise ValueError("n_layers must divide the block period")
-    lead = (cfg.n_layers // period,)
+    lead = ((cfg.n_layers - cfg.first_dense) // period,)
     dev = gen.device
     params: dict[str, Any] = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), scale=0.02),
@@ -109,16 +142,11 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
     if cfg.family == "vlm":
         params["img_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model))
-    blocks = {}
-    for j, (mixer, ffn_kind) in enumerate(pattern):
-        blocks[f"mixer_{j}"] = _init_mixer(gen, mixer, cfg, lead)
-        blocks[f"norm1_{j}"] = torch.ones((*lead, cfg.d_model), device=dev)
-        f = _init_ffn(gen, ffn_kind, cfg, lead)
-        if f is not None:
-            blocks[f"ffn_{j}"] = f
-            blocks[f"norm2_{j}"] = torch.ones((*lead, cfg.d_model),
-                                              device=dev)
-    params["blocks"] = blocks
+    if cfg.first_dense:
+        params["dense_blocks"] = _blocks(gen, _dense_pattern(cfg), cfg,
+                                         (cfg.first_dense,),
+                                         d_ff=cfg.first_dense_d_ff)
+    params["blocks"] = _blocks(gen, pattern, cfg, lead)
     return params
 
 
@@ -195,14 +223,19 @@ def _run_stack(params, h, positions, cfg: LMConfig, policy: ApproxPolicy,
     backward pass.  Returns (h, aux_total, new_caches)."""
     from torch.utils.checkpoint import checkpoint
 
+    if caches is not None:
+        _no_dense_lead(cfg, "a cached forward")
     pattern = block_pattern(cfg)
-    n_groups = cfg.n_layers // len(pattern)
+    n_groups = (cfg.n_layers - cfg.first_dense) // len(pattern)
+    groups = ([("dense_blocks", g, _dense_pattern(cfg))
+               for g in range(cfg.first_dense)]
+              + [("blocks", g, pattern) for g in range(n_groups)])
     aux = 0.0
     new = []
-    for g in range(n_groups):
+    for key, g, pat in groups:
         gcache = None if caches is None else _index(caches, g)
-        args = (h, positions, _index(params["blocks"], g), gcache, cfg,
-                policy, pattern, lanes)
+        args = (h, positions, _index(params[key], g), gcache, cfg,
+                policy, pat, lanes)
         if remat and caches is None and torch.is_grad_enabled():
             h, a, nc = checkpoint(_group_body, *args, use_reentrant=False)
         else:
@@ -274,6 +307,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None):
     """Stacked (n_groups, ...) cache tree per mixer slot: attention
     {"k", "v", "pos"} (``pos`` a host int), MLA {"ckv", "kr", "pos"},
     mamba {"conv", "state"}."""
+    _no_dense_lead(cfg, "init_cache")
     pattern = block_pattern(cfg)
     lead = (cfg.n_layers // len(pattern),)
     init = {"attn": lambda: init_attention_cache(cfg, batch, max_len,
@@ -335,6 +369,7 @@ def forward_decode_lanes(params, tokens, positions, cache, cfg: LMConfig,
     sequential B=1 ``forward_decode`` gives them, so each lane's logits
     equal that decode's bit for bit.  Returns the n (1, vocab) logits
     rows."""
+    _no_dense_lead(cfg, "forward_decode_lanes")
     pattern = block_pattern(cfg)
     n_groups = cfg.n_layers // len(pattern)
     lane_mixer = {"attn": lane_attention, "mla": lane_mla_attention}

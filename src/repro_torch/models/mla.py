@@ -41,9 +41,10 @@ import torch
 
 from ..approx.layers import ApproxPolicy
 from ..launch.mesh import sharded_einsum, sharded_reshape
+from .. import obs
 from .common import (LMConfig, apply_rope, causal_bias, dense_init,
                      each_lane, lane_rms_norm, lanes_of, rms_norm_lanes,
-                     rope_tables)
+                     rope_tables, yarn_mscale)
 
 
 def init_mla(gen: torch.Generator, cfg: LMConfig, lead: tuple = ()) -> dict:
@@ -66,8 +67,14 @@ def init_mla(gen: torch.Generator, cfg: LMConfig, lead: tuple = ()) -> dict:
 
 
 def _scale(cfg: LMConfig) -> float:
-    """Scores scale: the nope and rope dims together."""
-    return 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    """Scores scale: the nope and rope dims together; under YaRN times
+    ``mscale(factor, mscale_all_dim) ** 2``."""
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    yarn = cfg.rope_scaling
+    if yarn is not None and yarn.mscale_all_dim:
+        m = yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        scale = scale * m * m
+    return scale
 
 
 def _mla_core(q_n, q_r, k_n, k_r, v, mask_bias, cfg: LMConfig
@@ -144,7 +151,18 @@ def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     (B,T,kv_lora), "kr": (B,T,dr), "pos": int}.  Returns the output in
     the working dtype and the new cache (None without one).  ``lanes``:
     x's batch axis is a bank lane axis (the continuous engine's B=1
-    prefill)."""
+    prefill).  Span ``model.mla`` holds the whole call, so its self time
+    is the exact part (norms, RoPE, the core lane by lane) and the
+    projections' ``datapath`` spans are its children."""
+    with obs.span("model.mla"):
+        return _mla_attention(params, x, cfg, policy, positions, cache,
+                              layer_tag, lanes)
+
+
+def _mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy,
+                   positions: torch.Tensor, cache: Optional[dict],
+                   layer_tag: str, lanes: bool
+                   ) -> tuple[torch.Tensor, Optional[dict]]:
     h = cfg.n_heads
     dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
     eps = cfg.norm_eps
@@ -162,7 +180,7 @@ def mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     ckv = rms_norm_lanes(mm("wdkv", x), params["kvn"], eps)
     kr = mm("wkr", x)                               # (B,S,dr)
 
-    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta, cfg.rope_scaling)
     q_r = apply_rope(q_r, cos, sin)
     kr = apply_rope(kr[..., None, :], cos, sin)[..., 0, :]
 
@@ -229,7 +247,7 @@ def lane_mla_attention(params, x, cfg: LMConfig, policy: ApproxPolicy, *,
     q_r = mm("wqr", cq).reshape(n, 1, h, dr)
     ckv = lane_rms_norm(mm("wdkv", x), params["kvn"], eps)
     kr = mm("wkr", x)                               # (n,1,dr)
-    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta, cfg.rope_scaling)
     q_r = apply_rope(q_r, cos, sin)
     kr = apply_rope(kr[..., None, :], cos, sin)[..., 0, :]
     views = cache.rows_of(*at, {"ckv": ckv, "kr": kr})

@@ -42,6 +42,22 @@ Differences from the reference, none of which changes a value:
 The reference's ``_moe_blocked`` is called by nothing in the reference
 and is not ported.
 
+Beyond the reference, for DeepSeek-V2 as published (``LMConfig``'s own
+fields, whose defaults leave every path above as it was):
+  * group-limited routing (``n_group``, ``topk_group``): a group's score
+    is its largest routing probability, a token picks its top-k among
+    the experts of its ``topk_group`` best groups; the weights are
+    times ``routed_scaling``, renormalised only with ``norm_topk_prob``;
+  * a chip's share of the experts (``expert_first``, ``experts_held``),
+    as expert parallelism holds them: routing, the capacity and the aux
+    loss stay over all ``n_experts``, while the buffers, weights and
+    projections exist for the held experts alone and only slots on them
+    are combined, so the chip's output is its experts' part of the
+    layer's (the shared experts run whole on every chip).  The counters
+    ``moe.held_slots`` (slots kept on held experts) and
+    ``moe.capacity_rows`` (held experts x capacity, a lane) give the
+    share of the expert projections' rows that carry a token.
+
 Without block-local dispatch (``moe_blocks <= 1``) the expert buffer is
 hinted onto the ``model`` axis (expert parallelism) under an ambient
 mesh, as in the reference.
@@ -63,12 +79,13 @@ from .common import (LMConfig, activation, dense_init, ffn, hint_axis,
 
 def init_moe(gen: torch.Generator, cfg: LMConfig, lead: tuple = ()
              ) -> dict:
-    """Router, stacked (E, d, f) expert weights and shared experts, with
-    ``lead`` stacked leading dims (layer groups)."""
-    e, d = cfg.n_experts, cfg.d_model
+    """Router (over all ``n_experts``), the held experts' stacked
+    (E_held, d, f) weights and shared experts, with ``lead`` stacked
+    leading dims (layer groups)."""
+    e, d = len(cfg.held_experts), cfg.d_model
     f = cfg.moe_d_ff or cfg.d_ff
     p = {
-        "router": dense_init(gen, (*lead, d, e), scale=0.02),
+        "router": dense_init(gen, (*lead, d, cfg.n_experts), scale=0.02),
         "wi": dense_init(gen, (*lead, e, d, f)),
         "wo": dense_init(gen, (*lead, e, f, d)),
     }
@@ -92,7 +109,7 @@ def capacity(cfg: LMConfig, t: int) -> int:
 @dataclass
 class Route:
     """One lane's routing of its (T, D) tokens."""
-    top_w: torch.Tensor        # (T, k) f32, renormalised
+    top_w: torch.Tensor        # (T, k) f32 routing weights
     order: torch.Tensor        # (T·k,) stable sort of the slots by expert
     sorted_e: torch.Tensor     # (T·k,) expert of each sorted slot
     pos_in_e: torch.Tensor     # (T·k,) its position in that expert
@@ -106,8 +123,11 @@ def route(params, xf: torch.Tensor, cfg: LMConfig) -> Route:
     logits = torch.matmul(xf.to(torch.float32),
                           params["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_ids = torch.topk(probs, k, dim=-1)         # (T, k)
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    top_w, top_ids = torch.topk(_group_limited(probs, cfg), k, dim=-1)
+    if cfg.norm_topk_prob:
+        top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    if cfg.routed_scaling != 1.0:
+        top_w = top_w * cfg.routed_scaling
 
     # aux loss (Switch-style): E * sum_e f_e * p_e
     flat_e = sharded_reshape(top_ids, (-1,))             # (T·k,)
@@ -126,14 +146,47 @@ def route(params, xf: torch.Tensor, cfg: LMConfig) -> Route:
     return Route(top_w, order, sorted_e, pos_in_e, aux)
 
 
+def _group_limited(probs: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """``probs`` (T, E) with the experts outside each token's
+    ``topk_group`` best groups zeroed (a group's score: its largest
+    probability); ``probs`` itself without groups."""
+    g = cfg.n_group
+    if g <= 1:
+        return probs
+    t, e = probs.shape
+    best = probs.view(t, g, e // g).amax(dim=-1)          # (T, groups)
+    keep = torch.zeros_like(best, dtype=torch.bool)
+    keep.scatter_(1, torch.topk(best, cfg.topk_group, dim=-1).indices,
+                  True)
+    keep = keep[:, :, None].expand(t, g, e // g).reshape(t, e)
+    return probs.masked_fill(~keep, 0.0)
+
+
+def _held_slots(r: Route, cfg: LMConfig, cap: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each sorted slot's held expert, counted from the first held and
+    clamped to the held ones; whether the slot is kept: inside the
+    capacity and, for a share, on a held expert)."""
+    kept = r.pos_in_e < cap
+    held = cfg.held_experts
+    if len(held) == cfg.n_experts:
+        return r.sorted_e, kept
+    local = r.sorted_e - held.start
+    kept = kept & (local >= 0) & (local < len(held))
+    return torch.clamp(local, 0, len(held) - 1), kept
+
+
 def dispatch(xf: torch.Tensor, r: Route, cfg: LMConfig) -> torch.Tensor:
-    """The (E, C, D) expert buffers of xf (T, D): each kept slot's token
-    at (expert, position), zeros elsewhere; a dropped slot writes the
-    spare row past the buffer."""
+    """The (E_held, C, D) expert buffers of xf (T, D): each kept slot's
+    token at (held expert, position), zeros elsewhere; a dropped slot,
+    or one on an expert held elsewhere, writes the spare row past the
+    buffer."""
     t, d = xf.shape
-    e, k, cap = cfg.n_experts, cfg.top_k, capacity(cfg, t)
-    row = torch.where(r.pos_in_e < cap, r.sorted_e * cap + r.pos_in_e,
-                      e * cap)
+    e, k, cap = len(cfg.held_experts), cfg.top_k, capacity(cfg, t)
+    local, kept = _held_slots(r, cfg, cap)
+    obs.count("moe.held_slots", kept)
+    obs.count("moe.capacity_rows", e * cap)
+    row = torch.where(kept, local * cap + r.pos_in_e, e * cap)
     buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
     buf = buf.index_put((row,), xf[r.order // k])
     return sharded_reshape(buf[:e * cap], (e, cap, d))
@@ -141,12 +194,14 @@ def dispatch(xf: torch.Tensor, r: Route, cfg: LMConfig) -> torch.Tensor:
 
 def combine(out_buf: torch.Tensor, r: Route, cfg: LMConfig
             ) -> torch.Tensor:
-    """(E, C, D) expert outputs -> (T, D): each slot's row weighted by
-    its routing weight, dropped slots zero."""
+    """(E_held, C, D) expert outputs -> (T, D): each slot's row weighted
+    by its routing weight, dropped slots and slots on experts held
+    elsewhere zero."""
     cap = out_buf.shape[1]
     t, k = r.top_w.shape
-    gathered = out_buf[r.sorted_e, torch.clamp_max(r.pos_in_e, cap - 1)]
-    gathered = torch.where((r.pos_in_e < cap)[:, None], gathered, 0.0)
+    local, kept = _held_slots(r, cfg, cap)
+    gathered = out_buf[local, torch.clamp_max(r.pos_in_e, cap - 1)]
+    gathered = torch.where(kept[:, None], gathered, 0.0)
     slot_out = torch.zeros((t * k, out_buf.shape[-1]), dtype=out_buf.dtype,
                            device=out_buf.device)
     slot_out = slot_out.index_put((r.order,), gathered)

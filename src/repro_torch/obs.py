@@ -129,12 +129,20 @@ def counting() -> bool:
     return bool(_on() and _rec is not None and _rec.open and _rec.stack)
 
 
-def count(name: str, n: int) -> None:
+def count(name: str, n) -> None:
     """Add ``n`` to counter ``name`` of the innermost open span (while
-    the profiler records and a span is open)."""
+    the profiler records and a span is open).  ``n`` is an int or a
+    device tensor whose elements add to the counter; a tensor is kept
+    and summed only by ``snapshot``, so counting launches no kernel and
+    makes the host wait for nothing."""
     if counting():
         top = _rec.stack[-1].counters
-        top[name] = top.get(name, 0) + n
+        top.setdefault(name, []).append(n)
+
+
+def _total(parts: list) -> int:
+    return sum(int(p.sum()) if isinstance(p, torch.Tensor) else int(p)
+               for p in parts)
 
 
 def _stream_ms(s: _Span) -> float:
@@ -161,7 +169,8 @@ def snapshot() -> Optional[dict]:
     out = [{"name": s.name,
             "parent": None if s.parent is None else index.get(id(s.parent)),
             "attrs": dict(s.attrs), "host_ms": (s.t1 - s.t0) / 1e6,
-            "stream_ms": _stream_ms(s), "counters": dict(s.counters)}
+            "stream_ms": _stream_ms(s),
+            "counters": {k: _total(v) for k, v in s.counters.items()}}
            for s in done]
     for o in out:
         o["self_ms"] = o["stream_ms"]

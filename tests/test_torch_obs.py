@@ -76,6 +76,19 @@ def test_without_the_profiler_nothing_is_recorded(monkeypatch):
     assert opened == [] and obs.snapshot() is None
 
 
+def test_a_tensor_count_is_summed_only_by_the_snapshot():
+    kept = torch.tensor([True, False, True])
+    rows = torch.tensor([[1, 0], [2, 3]])
+    with _cpu_profile() as prof:
+        with obs.span("outer"):
+            obs.count("slots", kept)
+            obs.count("slots", rows)
+            obs.count("slots", 4)
+    assert not [e.name for e in prof.events()
+                if e.name.startswith("aten::")]
+    assert obs.total(obs.snapshot(), "slots") == 2 + 6 + 4
+
+
 def test_parents_self_times_and_counters():
     obs.count("bytes_to_device", 3)              # no open span: dropped
     with _cpu_profile():
